@@ -1,0 +1,121 @@
+"""Quantile sketch -> histogram bin boundaries (port of the dense,
+unweighted host path of xgboost_tpu/data/quantile.py).
+
+Cuts are numpy, computed on the host exactly as the reference's host grid
+does, so they agree with it bitwise.  Cut semantics match the reference
+(hist_util.cc):
+ - bin b of feature f covers values v with cuts[b-1] <= v < cuts[b]
+   (bin index = count of cuts <= v, i.e. searchsorted side='right');
+ - the last cut is strictly greater than the feature max;
+ - ``min_vals`` records a value strictly below the feature min.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional
+
+import numpy as np
+
+
+@dataclasses.dataclass
+class HistogramCuts:
+    """Bin boundaries (reference: src/common/hist_util.h:39-106).
+
+    ``cut_ptrs``  : (F+1,) int32  — CSR offsets into ``cut_values``.
+    ``cut_values``: (total_bins,) f32 — ascending per-feature upper bounds.
+    ``min_vals``  : (F,) f32 — strictly below each feature's min.
+    """
+
+    cut_ptrs: np.ndarray
+    cut_values: np.ndarray
+    min_vals: np.ndarray
+
+    @property
+    def n_features(self) -> int:
+        return len(self.cut_ptrs) - 1
+
+    @property
+    def max_n_bins(self) -> int:
+        return int(np.max(np.diff(self.cut_ptrs))) if self.n_features else 0
+
+    def feature_cuts(self, f: int) -> np.ndarray:
+        return self.cut_values[self.cut_ptrs[f]: self.cut_ptrs[f + 1]]
+
+    def padded(self, width: Optional[int] = None) -> np.ndarray:
+        """Dense (F, B) cut matrix padded with +inf."""
+        B = width or self.max_n_bins
+        out = np.full((self.n_features, B), np.inf, dtype=np.float32)
+        for f in range(self.n_features):
+            seg = self.feature_cuts(f)
+            out[f, : len(seg)] = seg
+        return out
+
+    def n_bins_array(self) -> np.ndarray:
+        return np.diff(self.cut_ptrs).astype(np.int32)
+
+
+def _final_cut(vmax: float) -> float:
+    # reference hist_util.cc appends max + small delta so max lands in the
+    # last bin
+    return float(vmax + (abs(vmax) * 1e-2 if vmax != 0.0 else 1e-5) + 1e-5)
+
+
+def cuts_from_quantile_grid(grid: np.ndarray, n_valid: np.ndarray,
+                            vmax: np.ndarray, vmin: np.ndarray) -> HistogramCuts:
+    """Finalize ragged cuts from a dense (F, Q) quantile grid: dedupe per
+    feature and append the open upper bound.  Features with n_valid 0 get a
+    single catch-all bin."""
+    F, _ = grid.shape
+    ptrs = [0]
+    values: List[np.ndarray] = []
+    mins = np.empty(F, dtype=np.float32)
+    for f in range(F):
+        if n_valid[f] == 0:
+            seg = np.array([1e-5], dtype=np.float32)
+            mins[f] = -1e-5
+        else:
+            cand = np.unique(grid[f][np.isfinite(grid[f])])
+            last = _final_cut(float(vmax[f]))
+            cand = cand[cand < last]
+            seg = np.append(cand[cand > vmin[f]], np.float32(last)).astype(np.float32)
+            mins[f] = vmin[f] - (abs(vmin[f]) * 1e-2 if vmin[f] != 0 else 1e-5)
+        values.append(seg)
+        ptrs.append(ptrs[-1] + len(seg))
+    return HistogramCuts(
+        cut_ptrs=np.asarray(ptrs, dtype=np.int32),
+        cut_values=(np.concatenate(values).astype(np.float32) if values
+                    else np.zeros(0, np.float32)),
+        min_vals=mins,
+    )
+
+
+def _host_grid(X: np.ndarray, max_bin: int):
+    """Per-feature inverted-CDF quantile candidate grid (F, max_bin-1) and
+    (nvalid, vmax, vmin): one whole-matrix sort (NaNs sort last) and a rank
+    gather."""
+    R, F = X.shape
+    n_cand = max(max_bin - 1, 1)
+    grid = np.full((F, n_cand), np.inf, dtype=np.float32)
+    nvalid = np.zeros(F, dtype=np.int64)
+    vmax = np.zeros(F, dtype=np.float32)
+    vmin = np.zeros(F, dtype=np.float32)
+    if R == 0:
+        return grid, nvalid, vmax, vmin
+    qs = np.arange(1, n_cand + 1, dtype=np.float64) / (n_cand + 1)
+    sortd = np.sort(X, axis=0)
+    nvalid[:] = np.sum(~np.isnan(X), axis=0)
+    pos = np.clip(np.ceil(qs[None, :] * nvalid[:, None]).astype(np.int64) - 1,
+                  0, np.maximum(nvalid[:, None] - 1, 0))
+    got = np.take_along_axis(sortd.T, pos, axis=1).astype(np.float32)
+    has = nvalid > 0
+    grid[has] = got[has]
+    vmax[has] = np.take_along_axis(
+        sortd.T, np.maximum(nvalid[:, None] - 1, 0), axis=1)[has, 0]
+    vmin[has] = sortd[0][has]
+    return grid, nvalid, vmax, vmin
+
+
+def sketch_dense(X, max_bin: int) -> HistogramCuts:
+    """HistogramCuts from a dense (R, F) float matrix with NaN = missing."""
+    return cuts_from_quantile_grid(
+        *_host_grid(np.asarray(X, dtype=np.float32), max_bin))
