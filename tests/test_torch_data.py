@@ -74,3 +74,30 @@ def test_dmatrix_missing_and_meta():
         d.set_label([0, 1])
     with pytest.raises(NotImplementedError):
         DMatrix(X, feature_types=["q", "c"], device="cpu")
+
+
+@pytest.mark.parametrize("shape,max_bin", [((1 << 19 | 4096, 2), 16),
+                                           ((200_000, 4), 256)])
+def test_device_sketch_bitwise(monkeypatch, shape, max_bin):
+    """The accelerator sketch (stride subsample above 2**19 rows, f32
+    ranks) run on CPU tensors equals the reference's device branch, forced
+    on the CPU backend as tests/test_basic.py forces it; both differ from
+    the exact host grid at these sizes."""
+    rng = np.random.default_rng(shape[1])
+    X = rng.normal(size=shape).astype(np.float32)
+    X[rng.random(shape) < 0.05] = np.nan
+    monkeypatch.setenv("XTB_FORCE_DEVICE_SKETCH", "1")
+    ref = ref_sketch_dense(X, max_bin, use_device=True)
+    got = sketch_dense(torch.from_numpy(X), max_bin, use_device=True)
+    np.testing.assert_array_equal(got.cut_ptrs, ref.cut_ptrs)
+    np.testing.assert_array_equal(got.cut_values.view(np.uint32),
+                                  ref.cut_values.view(np.uint32))
+    np.testing.assert_array_equal(got.min_vals.view(np.uint32),
+                                  ref.min_vals.view(np.uint32))
+    host = sketch_dense(X, max_bin)
+    assert not np.array_equal(host.cut_values, got.cut_values)
+    # a CPU matrix keeps the host grid, as the reference's CPU backend does
+    d = DMatrix(X[:4096], device="cpu")
+    np.testing.assert_array_equal(
+        d.ensure_ellpack(max_bin).cuts.cut_values,
+        sketch_dense(X[:4096], max_bin, use_device=False).cut_values)

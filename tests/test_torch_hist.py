@@ -97,7 +97,7 @@ def test_dispatch_takes_plain_version_on_cpu():
     args = (torch.from_numpy(bins), torch.from_numpy(gpair),
             torch.from_numpy(pos))
     kw = dict(node0=3, n_nodes=4, n_bin=16)
-    before = hist_cuda.launches
+    before = dict(hist_cuda.launches)
     np.testing.assert_array_equal(hist_cuda.build_histogram(*args, **kw),
                                   hist_cuda.build_histogram_plain(*args, **kw))
     assert hist_cuda.launches == before
@@ -108,9 +108,25 @@ def test_dispatch_takes_plain_version_on_cpu():
 @pytest.mark.parametrize("n_nodes,want_fg", [(1, 28), (2, 28), (4, 14),
                                              (8, 10), (16, 6)])
 def test_feature_group_fits_shared_memory(n_nodes, want_fg):
-    """F=28, B=256: FG from the 220 KB budget, balanced over the groups."""
-    fg = hist_cuda.choose_feature_group(28, n_nodes, 256)
-    assert fg == want_fg
+    """F=28, B=256, K1 (2 words a cell): FG from the 220 KB budget,
+    balanced over the groups, all nodes in one block."""
+    fg, nt = hist_cuda.choose_block(28, n_nodes, 256, 2)
+    assert (fg, nt) == (want_fg, n_nodes)
     assert fg * n_nodes * 256 * 2 * 4 <= hist_cuda.SMEM_BUDGET
+
+
+@pytest.mark.parametrize("words,n_nodes,want", [
+    (2, 128, (1, 64)), (2, 256, (1, 86)), (6, 1, (28, 1)), (6, 16, (2, 16)),
+    (6, 64, (1, 32)), (6, 128, (1, 32))])
+def test_nodes_are_tiled_when_one_feature_does_not_fit(words, n_nodes, want):
+    """Deep levels split their nodes over blocks instead of raising (K1 from
+    N = 128 at 256 bins, K2 with 6 words a cell from N = 64); a block
+    never exceeds the budget; only one (node, feature) pair over the
+    budget raises."""
+    fg, nt = hist_cuda.choose_block(28, n_nodes, 256, words)
+    assert (fg, nt) == want
+    assert fg * nt * 256 * words * 4 <= hist_cuda.SMEM_BUDGET
+    limit = hist_cuda.SMEM_BUDGET // (words * 4)  # bins of one cell
+    assert hist_cuda.choose_block(28, 128, limit, words) == (1, 1)
     with pytest.raises(ValueError):
-        hist_cuda.choose_feature_group(28, 128, 256)
+        hist_cuda.choose_block(28, 1, limit + 1, words)

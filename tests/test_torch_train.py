@@ -169,12 +169,10 @@ def test_early_stopping_and_monitor():
 
 
 @pytest.mark.parametrize("params", [
-    {"monotone_constraints": "(1,0,0,0,0,0)"},
-    {"interaction_constraints": [[0, 1]]},
-    {"colsample_bytree": 0.5}, {"subsample": 0.8},
-    {"grow_policy": "lossguide"}, {"max_leaves": 8},
-    {"deterministic_histogram": 1}, {"num_parallel_tree": 2},
+    {"subsample": 0.8}, {"grow_policy": "lossguide"},
+    {"grow_policy": "lossguide", "max_leaves": 8}, {"num_parallel_tree": 2},
     {"booster": "dart"}, {"tree_method": "exact"},
+    {"tree_method": "exact", "deterministic_histogram": 1},
     {"objective": "multi:softprob", "num_class": 3},
     {"objective": "reg:absoluteerror"},
 ])
@@ -211,7 +209,11 @@ def test_port_imports_neither_jax_nor_reference():
     sources = [os.path.join(d, f) for d, _, fs in os.walk(PORT)
                for f in fs if f.endswith(".py")]
     sources.append(os.path.join(os.path.dirname(HERE), "chip_smoke.py"))
+    # the card-only tests run where only PyTorch is installed
+    sources.append(os.path.join(HERE, "test_torch_hist_cuda.py"))
     assert len(sources) > 20
+    assert any(p.endswith(os.path.join("ops", "quantise.py"))
+               for p in sources)
     for path in sources:
         for mod in _imports(path):
             root = mod.split(".")[0]

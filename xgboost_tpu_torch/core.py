@@ -5,7 +5,9 @@ Call stack for one boosting iteration:
   train() -> Booster.update(dtrain, i)
     -> objective.get_gradient on the cached margin           [device]
     -> HistTreeGrower.grow: per level histogram (CUDA kernel
-       K1 on the card), split scan, row routing               [device]
+       K1 on the card, K2 under deterministic_histogram=1),
+       split scan under the column sample and constraints,
+       row routing                                            [device]
     -> leaf_margin_delta updates the margin cache            [device]
     -> RegTree.from_grown appends the host model
 The model dict (``save_raw_dict``) follows the reference's JSON schema, so
@@ -123,12 +125,21 @@ class Booster:
             str(p.get("objective", "reg:squarederror")), p)
         self.n_groups = 1
         self._base_score_param = p.get("base_score", None)
+        # exact limb histograms (ops/quantise.py): trees that do not depend
+        # on the order of any sum (reference quantiser.cuh)
+        self.deterministic_histogram = str(
+            p.get("deterministic_histogram", "0")).lower() in ("1", "true")
         self._split_params = SplitParams(
             eta=float(self.tparam.eta), gamma=float(self.tparam.gamma),
             min_child_weight=float(self.tparam.min_child_weight),
             lambda_=float(self.tparam.lambda_), alpha=float(self.tparam.alpha),
-            max_delta_step=float(self.tparam.max_delta_step))
-        self._grower = HistTreeGrower(self.tparam.max_depth, self._split_params)
+            max_delta_step=float(self.tparam.max_delta_step),
+            monotone=self.tparam.monotone_constraints)
+        self._grower = HistTreeGrower(
+            self.tparam.max_depth, self._split_params,
+            interaction_sets=self.tparam.interaction_constraints,
+            max_leaves=self.tparam.max_leaves,
+            quantised=self.deterministic_histogram)
         self._configured = True
 
     def _get_cache(self, dmat: DMatrix) -> _Cache:
@@ -192,12 +203,64 @@ class Booster:
         gpair = self.objective.get_gradient(cache.margin, cache.labels,
                                             cache.weights)
         gpair = gpair * cache.valid[:, None, None]  # (R_pad, 1, 2)
-        self._boost_trees(cache, gpair)
+        self._boost_trees(cache, gpair, iteration)
 
-    def _boost_trees(self, cache: _Cache, gpair) -> None:
-        grower = self._grower
-        state = grower.grow(cache.bins, gpair[:, 0, :].contiguous(),
-                            cache.valid, cache.cuts_pad, cache.n_bins)
+    def _rng(self, iteration: int, tag: int) -> np.random.Generator:
+        seed = int(self.params.get("seed", 0))
+        return np.random.default_rng(
+            (seed * 1_000_003 + iteration * 131 + tag) % (2**63))
+
+    def _feature_masks(self, iteration: int, n_features: int):
+        """ColumnSampler (reference: src/common/random.h ColumnSampler):
+        each level samples exactly max(1, frac * n_avail) of the surviving
+        features without replacement, by the k smallest exponential keys
+        per row.  The draws are numpy on the host, in the reference's order,
+        so they agree with it bitwise.  None when nothing is sampled."""
+        tp = self.tparam
+        if tp.colsample_bytree >= 1.0 and tp.colsample_bylevel >= 1.0 \
+                and tp.colsample_bynode >= 1.0:
+            return None
+        # the reference seeds parallel tree p with iteration * 131 + p and
+        # tag 17 + p (xgboost_tpu/core.py:1517); the port grows p = 0 only
+        rng = self._rng(iteration * 131, 17)
+
+        def sample(prev_mask, frac):
+            if frac >= 1.0:
+                return prev_mask
+            m2 = np.atleast_2d(prev_mask)
+            rows, F = m2.shape
+            keys = np.where(m2, rng.exponential(size=(rows, F)), np.inf)
+            k = np.minimum(np.maximum(1, (frac * m2.sum(axis=1)).astype(
+                np.int64)), np.isfinite(keys).sum(axis=1))
+            order = np.argsort(keys, axis=1, kind="stable")
+            ranks = np.empty_like(order)
+            np.put_along_axis(ranks, order, np.broadcast_to(
+                np.arange(F), (rows, F)).copy(), axis=1)
+            out = ranks < k[:, None]
+            return out if prev_mask.ndim == 2 else out[0]
+
+        tree_mask = sample(np.ones(n_features, bool), tp.colsample_bytree)
+
+        def per_level(depth: int, n_nodes: int):
+            m = sample(tree_mask, tp.colsample_bylevel)
+            if tp.colsample_bynode < 1.0:
+                m = sample(np.broadcast_to(m, (n_nodes, n_features)).copy(),
+                           tp.colsample_bynode)
+            return torch.from_numpy(np.atleast_2d(m)).to(self.device)
+
+        return per_level
+
+    def _boost_trees(self, cache: _Cache, gpair, iteration: int) -> None:
+        mono = self.tparam.monotone_constraints
+        n_features = cache.bins.shape[1]
+        if mono is not None and len(mono) != n_features:
+            raise ValueError(
+                f"monotone_constraints has {len(mono)} entries but data has "
+                f"{n_features} features")
+        state = self._grower.grow(
+            cache.bins, gpair[:, 0, :].contiguous(), cache.valid,
+            cache.cuts_pad, cache.n_bins,
+            feature_masks=self._feature_masks(iteration, n_features))
         cache.margin[:, 0] += leaf_margin_delta(state.pos, state.leaf_val)
         self.trees.append(RegTree.from_grown(HistTreeGrower.to_host(state)))
         self.tree_info.append(0)

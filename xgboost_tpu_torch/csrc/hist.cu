@@ -19,16 +19,20 @@
 // Design: the Pallas kernel's one-hot (T,B)x(T,2N) MXU product is a TPU
 // idiom; here the layout is the reference CUDA one
 // (src/tree/gpu_hist/histogram.cu:37-120).  Each block owns a histogram in
-// shared memory for a group of FG features and all N nodes of the level,
-// filled with shared-memory f32 atomics, then flushed to the output with
-// global atomics (only non-zero entries).  Blocks tile (feature group x row
-// range); the bins of a row are read once per feature group and the level's
-// histogram never round-trips device memory before the flush.  The wrapper
-// (ops/hist_cuda.py) picks FG from the shared-memory budget as
+// shared memory for a group of FG features and a tile of NT of the level's
+// nodes, filled with shared-memory f32 atomics, then flushed to the output
+// with global atomics (only non-zero entries).  Blocks tile (feature group x
+// row range x node tile); rows outside the block's node tile are skipped
+// after reading their pos, and the level's histogram never round-trips
+// device memory before the flush.  The wrapper (ops/hist_cuda.py:
+// choose_block) picks FG and NT from the shared-memory budget as
 // choose_tiles in ops/hist_pallas.py picks its VMEM tiles, because N runs
-// from 1 to 2^(depth-1) across a tree.  Float atomics sum in no fixed order, so the
-// result matches the plain version within f32 tolerance only, and its last
-// bits can change from run to run.
+// from 1 to 2^(depth-1) across a tree: all nodes and as many features as
+// fit, or, once one feature's N nodes do not fit (N = 128 at 256 bins), one
+// feature and as many nodes as fit.  Float atomics sum in no fixed order,
+// so the result matches the plain version within f32 tolerance only, and
+// its last bits can change from run to run (csrc/hist_q.cu is the exact
+// path).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -42,11 +46,14 @@ __global__ void hist_kernel(const BinT* __restrict__ bins,
                             float* __restrict__ out,
                             int n_rows, int n_features, int n_bin,
                             int node0, int n_nodes, int stride,
-                            int feat_group, int rows_per_block) {
+                            int feat_group, int node_tile,
+                            int rows_per_block) {
   extern __shared__ float smem[];
   const int f0 = blockIdx.x * feat_group;
   const int fg = min(feat_group, n_features - f0);  // ragged last group
-  const int hist_len = n_nodes * feat_group * n_bin * 2;
+  const int t0 = blockIdx.z * node_tile;
+  const int nt = min(node_tile, n_nodes - t0);  // ragged last node tile
+  const int hist_len = node_tile * feat_group * n_bin * 2;
   for (int i = threadIdx.x; i < hist_len; i += blockDim.x) smem[i] = 0.f;
   __syncthreads();
 
@@ -55,8 +62,8 @@ __global__ void hist_kernel(const BinT* __restrict__ bins,
   for (int r = r_begin + threadIdx.x; r < r_end; r += blockDim.x) {
     const int local = pos[r] - node0;
     if (local < 0 || local % stride != 0) continue;  // pad row / other level
-    const int slot = local / stride;
-    if (slot >= n_nodes) continue;
+    const int slot = local / stride - t0;
+    if (slot < 0 || slot >= nt) continue;  // another block's node tile
     const float2 g = gpair[r];
     const BinT* row = bins + (size_t)r * n_features + f0;
     float* node_hist = smem + (size_t)slot * feat_group * n_bin * 2;
@@ -70,7 +77,7 @@ __global__ void hist_kernel(const BinT* __restrict__ bins,
   }
   __syncthreads();
 
-  // flush: smem [slot][f][b][c] -> out [slot][f0 + f][b][c]
+  // flush: smem [slot][f][b][c] -> out [t0 + slot][f0 + f][b][c]
   const int per_slot = feat_group * n_bin * 2;
   for (int i = threadIdx.x; i < hist_len; i += blockDim.x) {
     const float v = smem[i];
@@ -78,28 +85,31 @@ __global__ void hist_kernel(const BinT* __restrict__ bins,
     const int slot = i / per_slot;
     const int rem = i - slot * per_slot;
     const int f = rem / (n_bin * 2);
-    if (f >= fg) continue;
+    if (slot >= nt || f >= fg) continue;
     const int rest = rem - f * n_bin * 2;  // b * 2 + c
-    atomicAdd(out + ((size_t)slot * n_features + f0 + f) * n_bin * 2 + rest, v);
+    atomicAdd(out + ((size_t)(t0 + slot) * n_features + f0 + f) * n_bin * 2
+                  + rest, v);
   }
 }
 
 template <typename BinT>
 int launch(const void* bins, const void* gpair, const void* pos, void* out,
            int n_rows, int n_features, int n_bin, int node0, int n_nodes,
-           int stride, int feat_group, int row_blocks, int threads,
-           cudaStream_t stream) {
-  const size_t smem = (size_t)n_nodes * feat_group * n_bin * 2 * sizeof(float);
+           int stride, int feat_group, int node_tile, int row_blocks,
+           int threads, cudaStream_t stream) {
+  const size_t smem = (size_t)node_tile * feat_group * n_bin * 2 * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       hist_kernel<BinT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int n_groups = (n_features + feat_group - 1) / feat_group;
+  const int n_tiles = (n_nodes + node_tile - 1) / node_tile;
   const int rows_per_block = (n_rows + row_blocks - 1) / row_blocks;
-  dim3 grid(n_groups, row_blocks);
+  dim3 grid(n_groups, row_blocks, n_tiles);
   hist_kernel<BinT><<<grid, threads, smem, stream>>>(
       static_cast<const BinT*>(bins), static_cast<const float2*>(gpair),
       static_cast<const int*>(pos), static_cast<float*>(out), n_rows,
-      n_features, n_bin, node0, n_nodes, stride, feat_group, rows_per_block);
+      n_features, n_bin, node0, n_nodes, stride, feat_group, node_tile,
+      rows_per_block);
   return (int)cudaGetLastError();
 }
 
@@ -112,21 +122,21 @@ extern "C" {
 int xtb_hist_f32(const void* bins, int bin_code, const void* gpair,
                  const void* pos, void* out, int n_rows, int n_features,
                  int n_bin, int node0, int n_nodes, int stride, int feat_group,
-                 int row_blocks, int threads, void* stream) {
+                 int node_tile, int row_blocks, int threads, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (bin_code) {
     case 0:
       return launch<uint8_t>(bins, gpair, pos, out, n_rows, n_features, n_bin,
-                             node0, n_nodes, stride, feat_group, row_blocks,
-                             threads, s);
+                             node0, n_nodes, stride, feat_group, node_tile,
+                             row_blocks, threads, s);
     case 1:
       return launch<int16_t>(bins, gpair, pos, out, n_rows, n_features, n_bin,
-                             node0, n_nodes, stride, feat_group, row_blocks,
-                             threads, s);
+                             node0, n_nodes, stride, feat_group, node_tile,
+                             row_blocks, threads, s);
     case 2:
       return launch<int32_t>(bins, gpair, pos, out, n_rows, n_features, n_bin,
-                             node0, n_nodes, stride, feat_group, row_blocks,
-                             threads, s);
+                             node0, n_nodes, stride, feat_group, node_tile,
+                             row_blocks, threads, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -3,8 +3,9 @@ xgboost_tpu/data/dmatrix.py).
 
 Holds the raw matrix (f32, NaN = missing) as a tensor on its device, the
 labels and metadata on the host, and lazily builds the binned EllpackPage on
-the first training touch.  Cuts are sketched on the host copy, bins are
-computed on the device.
+the first training touch.  Cuts come from the device sketch for a matrix
+on the card and from the exact host grid for one on the CPU, as the
+reference chooses per backend; bins are computed on the device.
 """
 from __future__ import annotations
 
@@ -105,9 +106,9 @@ class DMatrix:
 
     def ensure_ellpack(self, max_bin: int = 256,
                        row_align: int = 1024) -> EllpackPage:
-        """Sketch (host) and bin (device) once per ``max_bin``."""
+        """Sketch and bin once per ``max_bin``."""
         if self._ellpack is None or self._max_bin_built != max_bin:
-            cuts = sketch_dense(self._host, max_bin)
+            cuts = sketch_dense(self.X, max_bin)
             self._ellpack = build_ellpack(self.X, cuts, row_align=row_align)
             self._max_bin_built = max_bin
         return self._ellpack

@@ -1,5 +1,5 @@
 """Training hyper-parameters (port of the subset of xgboost_tpu/params.py
-that the depthwise ``hist`` slice reads).
+that the depthwise ``hist`` grower reads).
 
 ``TrainParam`` holds the tree parameters the slice supports;
 ``reject_unsupported`` fails loudly on every parameter the port does not
@@ -8,7 +8,8 @@ implement yet, naming it, instead of training a different model quietly.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict
+import json
+from typing import Any, Dict, Optional, Tuple
 
 # alias -> canonical (reference: DMLC_DECLARE_ALIAS in src/tree/param.h)
 _ALIASES = {
@@ -30,11 +31,17 @@ class TrainParam:
     eta: float = 0.3
     gamma: float = 0.0
     max_depth: int = 6
+    max_leaves: int = 0
     max_bin: int = 256
     min_child_weight: float = 1.0
     lambda_: float = 1.0
     alpha: float = 0.0
     max_delta_step: float = 0.0
+    colsample_bytree: float = 1.0
+    colsample_bylevel: float = 1.0
+    colsample_bynode: float = 1.0
+    monotone_constraints: Optional[Tuple[int, ...]] = None
+    interaction_constraints: Optional[Tuple[Tuple[int, ...], ...]] = None
 
     @staticmethod
     def from_dict(params: Dict[str, Any]) -> "TrainParam":
@@ -42,18 +49,40 @@ class TrainParam:
         self = TrainParam()
         for f in dataclasses.fields(TrainParam):
             key = "lambda" if f.name == "lambda_" else f.name
-            if key in p:
-                cast = int if f.type == "int" else float
-                setattr(self, f.name, cast(p[key]))
+            if key not in p:
+                continue
+            v = p[key]
+            if f.name == "monotone_constraints" and v is not None:
+                if isinstance(v, str):  # "(1,0,-1)"
+                    v = v.strip("()[] ")
+                    v = tuple(int(x) for x in v.split(",")
+                              if x.strip()) if v else None
+                else:
+                    v = tuple(int(x) for x in v)
+            elif f.name == "interaction_constraints" and v is not None:
+                if isinstance(v, str):  # "[[0, 1], [2, 3]]"
+                    v = json.loads(v)
+                v = tuple(tuple(int(i) for i in grp) for grp in v)
+            elif f.type == "int":
+                v = int(v)
+            elif f.type == "float":
+                v = float(v)
+            setattr(self, f.name, v)
         self.validate()
         return self
 
     def validate(self) -> None:
         if self.max_depth < 1:
-            raise ValueError("max_depth must be >= 1 (max_leaves-bounded "
-                             "trees are not supported)")
+            raise ValueError("max_depth must be >= 1 (trees bounded by "
+                             "max_leaves alone are not supported)")
+        if self.max_leaves < 0:
+            raise ValueError("max_leaves must be >= 0")
         if self.max_bin < 2:
             raise ValueError("max_bin must be >= 2")
+        for name in ("colsample_bytree", "colsample_bylevel",
+                     "colsample_bynode"):
+            if not 0.0 < getattr(self, name) <= 1.0:
+                raise ValueError(f"{name} must be in (0, 1]")
 
 
 def _truthy(v) -> bool:
@@ -61,31 +90,24 @@ def _truthy(v) -> bool:
 
 
 def _is_default(key: str, v) -> bool:
-    if key == "monotone_constraints":  # all zero: no constraint
-        return v is None or all(
-            c.strip() in ("0", "") for c in str(v).strip("()[] ").split(","))
-    if key == "interaction_constraints":
-        return v is None or not str(v).strip("()[] ")
-    if key in ("subsample", "colsample_bytree", "colsample_bylevel",
-               "colsample_bynode", "num_parallel_tree", "num_target"):
+    if key in ("subsample", "num_parallel_tree", "num_target"):
         return float(v) == 1.0
-    if key in ("max_leaves", "num_class"):
+    if key == "num_class":
         return int(v) == 0
-    if key in ("deterministic_histogram", "enable_categorical"):
+    if key == "enable_categorical":
         return not _truthy(v)
     return {"grow_policy": "depthwise", "booster": "gbtree",
             "tree_method": "hist", "multi_strategy": "one_output_per_tree",
             "process_type": "default", "n_devices": 1}[key] == v
 
 
-# parameters the slice does not implement: at any value but their default
-# they raise NotImplementedError
-UNSUPPORTED = ("monotone_constraints", "interaction_constraints", "subsample",
-               "colsample_bytree", "colsample_bylevel", "colsample_bynode",
-               "grow_policy", "max_leaves", "deterministic_histogram",
-               "num_parallel_tree", "booster", "tree_method", "num_class",
-               "num_target", "multi_strategy", "process_type", "n_devices",
-               "enable_categorical")
+# parameters the port does not implement: at any value but their default
+# they raise NotImplementedError.  subsample's row mask is a
+# jax.random.bernoulli draw in the reference, which torch cannot reproduce
+# bitwise; grow_policy=lossguide is the best-first grower
+UNSUPPORTED = ("subsample", "grow_policy", "num_parallel_tree", "booster",
+               "tree_method", "num_class", "num_target", "multi_strategy",
+               "process_type", "n_devices", "enable_categorical")
 
 
 def reject_unsupported(params: Dict[str, Any]) -> None:

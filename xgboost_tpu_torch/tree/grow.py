@@ -4,23 +4,34 @@ xgboost_tpu/tree/grow.py; reference src/tree/updater_gpu_hist.cu:617).
 The tree grows level by level over a heap-indexed node array (node i ->
 children 2i+1, 2i+2).  One ``level_step`` per depth builds the histogram
 (left children only below the root, right siblings by subtraction), picks
-the best split per node, records it and routes rows to their children by
-rewriting ``pos`` (the RowPartitioner analogue, without a physical
-partition).  Everything in the level loop stays on the device: no value is
-read back to the host until the finished tree is copied out.  The state's
-tensors are updated in place, level after level.
+the best split per node under the feature mask, interaction sets and
+monotone bounds, spends the ``max_leaves`` budget in node order, records
+the splits and routes rows to their children by rewriting ``pos`` (the
+RowPartitioner analogue, without a physical partition).
+
+With ``quantised=True`` (``deterministic_histogram=1``) the gradients are
+int8 limbs (ops/quantise.py), the histograms exact int32 limb sums (K2 on
+the card), the sibling subtraction runs on the limbs, and ``dequantise`` is
+the one rounding step before the split scan, so the trees do not depend on
+the order of any sum.
+
+Everything in the level loop stays on the device: no value is read back to
+the host until the finished tree is copied out.  The state's tensors are
+updated in place, level after level.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
 
-from ..ops.hist_cuda import build_histogram
+from ..ops.hist_cuda import build_histogram, build_histogram_q
 from ..ops.histogram import combine_sibling_hists, node_sums
-from ..ops.split import BestSplit, SplitParams, calc_weight, evaluate_splits
+from ..ops.quantise import dequantise, prepare_quantised
+from ..ops.split import (BestSplit, SplitParams, calc_weight,
+                         evaluate_splits, monotone_vec)
 
 _EPS = 1e-6
 
@@ -41,23 +52,55 @@ class TreeState:
     gain: torch.Tensor  # (max_nodes,) f32 loss_chg of the split
     base_weight: torch.Tensor  # (max_nodes,) f32 raw node weight
     sum_hess: torch.Tensor  # (max_nodes,) f32
+    lower: torch.Tensor  # (max_nodes,) f32 monotone weight lower bound
+    upper: torch.Tensor  # (max_nodes,) f32 monotone weight upper bound
+    setcompat: torch.Tensor  # (max_nodes, n_sets) bool interaction sets alive
+    splits_left: torch.Tensor  # (1,) int32 remaining split budget
 
 
 def max_nodes_for_depth(max_depth: int) -> int:
     return (1 << (max_depth + 1)) - 1
 
 
-def init_tree_state(gpair, valid, *, max_nodes: int) -> TreeState:
-    """All valid rows at the root; root totals summed."""
+def make_set_matrix(interaction_sets, n_features: int) -> np.ndarray:
+    """(n_sets, F) bool membership matrix; unlisted features become
+    singleton sets (they cannot interact with listed ones).  None -> one
+    all-True set (no constraint)."""
+    if not interaction_sets:
+        return np.ones((1, n_features), dtype=bool)
+    listed = set()
+    rows = []
+    for grp in interaction_sets:
+        row = np.zeros(n_features, dtype=bool)
+        for f in grp:
+            row[f] = True
+            listed.add(int(f))
+        rows.append(row)
+    for f in range(n_features):
+        if f not in listed:
+            row = np.zeros(n_features, dtype=bool)
+            row[f] = True
+            rows.append(row)
+    return np.stack(rows)
+
+
+def init_tree_state(gpair, valid, *, max_nodes: int, n_sets: int = 1,
+                    max_splits: int = 0) -> TreeState:
+    """All valid rows at the root; root totals summed.  ``max_splits``: the
+    split budget (max_leaves - 1), 0 = unlimited."""
     dev = gpair.device
     pos = torch.where(valid, 0, -1).to(torch.int32)
     totals = torch.zeros((max_nodes, 2), dtype=torch.float32, device=dev)
     totals[0] = node_sums(gpair, pos, node0=0, n_nodes=1)[0]
     alive = torch.zeros(max_nodes, dtype=torch.bool, device=dev)
     alive[0] = True
+    budget = max_splits if max_splits > 0 else torch.iinfo(torch.int32).max
 
     def zeros(dtype):
         return torch.zeros(max_nodes, dtype=dtype, device=dev)
+
+    def full(v):
+        return torch.full((max_nodes,), v, dtype=torch.float32, device=dev)
 
     return TreeState(
         pos=pos, alive=alive, totals=totals,
@@ -66,11 +109,22 @@ def init_tree_state(gpair, valid, *, max_nodes: int) -> TreeState:
         dleft=torch.ones(max_nodes, dtype=torch.bool, device=dev),
         is_leaf=zeros(torch.bool), leaf_val=zeros(torch.float32),
         gain=zeros(torch.float32), base_weight=zeros(torch.float32),
-        sum_hess=zeros(torch.float32))
+        sum_hess=zeros(torch.float32), lower=full(-torch.inf),
+        upper=full(torch.inf),
+        setcompat=torch.ones((max_nodes, n_sets), dtype=torch.bool,
+                             device=dev),
+        splits_left=torch.full((1,), budget, dtype=torch.int32, device=dev))
+
+
+def _children(left, right):
+    """Interleave per-node (N, ...) left and right values to the children's
+    heap order (left at odd, right at even ids)."""
+    return torch.stack([left, right], dim=1).reshape(-1, *left.shape[1:])
 
 
 def _record_level(st: TreeState, best: BestSplit, sl: slice, can_split,
-                  new_leaf, w, thr_lvl, totals_lvl, params: SplitParams):
+                  new_leaf, w, thr_lvl, totals_lvl, compat_lvl, member,
+                  new_budget, lower_lvl, upper_lvl, params: SplitParams):
     """Write one level's split decisions into the tree arrays, in place."""
     st.feat[sl] = torch.where(can_split, best.feature, -1)
     st.sbin[sl] = torch.where(can_split, best.bin, 0)
@@ -81,12 +135,25 @@ def _record_level(st: TreeState, best: BestSplit, sl: slice, can_split,
     st.gain[sl] = torch.where(can_split, best.gain, 0.0)
     st.base_weight[sl] = w
     st.sum_hess[sl] = totals_lvl[:, 1]
-    # children of level slots node0..node0+N-1 are 2*node0+1 .. 2*node0+2N,
-    # left at odd and right at even heap ids
+    # children of level slots node0..node0+N-1 are 2*node0+1 .. 2*node0+2N
     ch = slice(2 * sl.start + 1, 2 * sl.stop + 1)
-    st.alive[ch] = can_split.repeat_interleave(2)
-    st.totals[ch] = torch.stack([best.left_sum, best.right_sum],
-                                dim=1).reshape(-1, 2)
+    st.alive[ch] = _children(can_split, can_split)
+    st.totals[ch] = _children(best.left_sum, best.right_sum)
+    if new_budget is not None:
+        st.splits_left.copy_(new_budget.reshape(1))
+    if member is not None:
+        child_compat = compat_lvl & member
+        st.setcompat[ch] = _children(child_compat, child_compat)
+    if params.monotone is not None and any(c != 0 for c in params.monotone):
+        # bounds propagation: mid = (wL + wR) / 2 splits the feasible
+        # interval (reference: constraints.cc ValueConstraint::SetChild)
+        cvec = monotone_vec(params.monotone, w.device)
+        c_at = cvec[best.feature.clamp(0, len(params.monotone) - 1)]
+        mid = 0.5 * (best.left_weight + best.right_weight)
+        st.lower[ch] = _children(torch.where(c_at < 0, mid, lower_lvl),
+                                 torch.where(c_at > 0, mid, lower_lvl))
+        st.upper[ch] = _children(torch.where(c_at > 0, mid, upper_lvl),
+                                 torch.where(c_at < 0, mid, upper_lvl))
 
 
 def _update_positions(bins, pos, best: BestSplit, can_split, node0: int,
@@ -104,14 +171,23 @@ def _update_positions(bins, pos, best: BestSplit, can_split, node0: int,
 
 
 def level_step(state: TreeState, bins, gpair, cuts_pad, n_bins,
-               hist_prev=None, *, depth: int, params: SplitParams,
-               last_level: bool, subtract: bool = False):
+               feature_mask=None, set_matrix=None, hist_prev=None, rho=None,
+               *, depth: int, params: SplitParams, last_level: bool,
+               subtract: bool = False, quantised: bool = False,
+               budget: bool = False):
     """Expand every alive node at ``depth``: hist -> best split -> apply.
 
-    Returns ``(state, hist)``; ``hist`` (N, F, B, 2) feeds the next level's
-    subtraction (with ``subtract=True`` only left children are built and
-    each right sibling is ``parent - left``).  ``hist`` is None on the last
-    level, which builds no histogram.
+    ``feature_mask`` (1|N, F) bool (column sampling) and ``set_matrix``
+    (n_sets, F) bool (interaction sets) restrict each node's candidate
+    features; None means no restriction.  ``budget`` spends
+    ``state.splits_left`` (max_leaves).  With ``quantised`` ``gpair`` is the
+    (R, C, 3) int8 limb array and ``rho`` its (C,) scale.
+
+    Returns ``(state, hist)``; ``hist`` (N, F, B, 2) f32, or (N, F, B, 2, 3)
+    int32 limbs when quantised, feeds the next level's subtraction (with
+    ``subtract=True`` only left children are built and each right sibling
+    is ``parent - left``).  ``hist`` is None on the last level, which
+    builds no histogram.
     """
     node0 = (1 << depth) - 1
     N = 1 << depth
@@ -119,7 +195,10 @@ def level_step(state: TreeState, bins, gpair, cuts_pad, n_bins,
     sl = slice(node0, node0 + N)
     totals_lvl = state.totals[sl]
     alive_lvl = state.alive[sl]
-    w = calc_weight(totals_lvl[:, 0], totals_lvl[:, 1], params)
+    lower_lvl = state.lower[sl]
+    upper_lvl = state.upper[sl]
+    w = calc_weight(totals_lvl[:, 0], totals_lvl[:, 1], params, lower_lvl,
+                    upper_lvl)
 
     if last_level:  # every surviving node becomes a leaf
         state.is_leaf[sl] = alive_lvl
@@ -128,19 +207,43 @@ def level_step(state: TreeState, bins, gpair, cuts_pad, n_bins,
         state.sum_hess[sl] = totals_lvl[:, 1]
         return state, None
 
+    build = build_histogram_q if quantised else build_histogram
     if subtract:
-        left = build_histogram(bins, gpair, state.pos, node0=node0,
-                               n_nodes=N // 2, n_bin=B, stride=2)
+        left = build(bins, gpair, state.pos, node0=node0, n_nodes=N // 2,
+                     n_bin=B, stride=2)
         hist = combine_sibling_hists(left, hist_prev, alive_lvl)
     else:
-        hist = build_histogram(bins, gpair, state.pos, node0=node0,
-                               n_nodes=N, n_bin=B)
-    best = evaluate_splits(hist, totals_lvl, n_bins, params)
+        hist = build(bins, gpair, state.pos, node0=node0, n_nodes=N, n_bin=B)
+    hist_eval = dequantise(hist, rho) if quantised else hist
+
+    fmask, compat_lvl, member = feature_mask, None, None
+    if set_matrix is not None:
+        # interaction constraints: a node may split on the union of the
+        # sets still compatible with its path (constraints.cc
+        # FeatureInteractionConstraint)
+        compat_lvl = state.setcompat[sl]
+        allowed = (compat_lvl[:, :, None] & set_matrix[None, :, :]).any(dim=1)
+        fmask = allowed if fmask is None else allowed & fmask
+    best = evaluate_splits(hist_eval, totals_lvl, n_bins, params, fmask,
+                           torch.stack([lower_lvl, upper_lvl], dim=1))
     can_split = alive_lvl & (best.gain > max(params.gamma, _EPS))
+
+    new_budget = None
+    if budget:  # max_leaves, spent in node order under depthwise
+        idx = torch.arange(node0, node0 + N, device=w.device)
+        splits_left = state.splits_left[0]
+        prio = torch.where(can_split, -idx.to(torch.float32), -torch.inf)
+        ranks = torch.argsort(torch.argsort(-prio, stable=True), stable=True)
+        can_split = can_split & (ranks < splits_left)
+        new_budget = splits_left - can_split.sum().to(torch.int32)
+
     new_leaf = alive_lvl & ~can_split
     thr_lvl = cuts_pad[best.feature, best.bin.clamp(max=B - 1)]
+    if set_matrix is not None:
+        member = set_matrix.T[best.feature.clamp(0, set_matrix.shape[1] - 1)]
     _record_level(state, best, sl, can_split, new_leaf, w, thr_lvl,
-                  totals_lvl, params)
+                  totals_lvl, compat_lvl, member, new_budget, lower_lvl,
+                  upper_lvl, params)
     state.pos = _update_positions(bins, state.pos, best, can_split, node0, N,
                                   B)
     return state, hist
@@ -167,24 +270,62 @@ class GrownTree(NamedTuple):
     sum_hess: np.ndarray
 
 
+# (depth, n_nodes) -> (1|n_nodes, F) bool: the column sampler's per-level
+# hook (Booster._feature_masks)
+FeatureMasks = Callable[[int, int], torch.Tensor]
+
+
 class HistTreeGrower:
     """Host loop over the per-depth level steps (reference:
     GPUHistMaker::Update, src/tree/updater_gpu_hist.cu:703)."""
 
-    def __init__(self, max_depth: int, params: SplitParams) -> None:
+    def __init__(self, max_depth: int, params: SplitParams, *,
+                 interaction_sets=None, max_leaves: int = 0,
+                 quantised: bool = False) -> None:
         self.max_depth = max_depth
         self.params = params
+        self.interaction_sets = interaction_sets
+        self.max_leaves = max_leaves
+        # exact limb histograms: trees independent of summation order
+        # (deterministic_histogram, ops/quantise.py)
+        self.quantised = quantised
         self.max_nodes = max_nodes_for_depth(max_depth)
+        self._setmat = {}  # (n_features, device) -> set matrix there
 
-    def grow(self, bins, gpair, valid, cuts_pad, n_bins) -> TreeState:
+    def _set_matrix(self, n_features: int, device):
+        """The interaction sets on ``device``, made once; None without
+        constraints."""
+        if not self.interaction_sets:
+            return None
+        key = (n_features, device)
+        if key not in self._setmat:
+            self._setmat[key] = torch.from_numpy(make_set_matrix(
+                self.interaction_sets, n_features)).to(device)
+        return self._setmat[key]
+
+    def grow(self, bins, gpair, valid, cuts_pad, n_bins,
+             feature_masks: Optional[FeatureMasks] = None) -> TreeState:
         """bins (R_pad, F), gpair (R_pad, 2) f32, valid (R_pad,) bool."""
-        state = init_tree_state(gpair, valid, max_nodes=self.max_nodes)
+        setmat = self._set_matrix(bins.shape[1], bins.device)
+        state = init_tree_state(
+            gpair, valid, max_nodes=self.max_nodes,
+            n_sets=1 if setmat is None else setmat.shape[0],
+            max_splits=self.max_leaves - 1 if self.max_leaves > 0 else 0)
+        rho = None
+        if self.quantised:
+            gpair, rho, state = prepare_quantised(gpair, valid, state)
         hist: Optional[torch.Tensor] = None
         for d in range(self.max_depth + 1):
+            last = d == self.max_depth
+            # the last level splits nothing, so it needs no mask (its draw
+            # would be the tree's last, and the next tree seeds afresh)
+            fm = None if feature_masks is None or last \
+                else feature_masks(d, 1 << d)
             state, hist = level_step(
-                state, bins, gpair, cuts_pad, n_bins, hist, depth=d,
-                params=self.params, last_level=(d == self.max_depth),
-                subtract=hist is not None)
+                state, bins, gpair, cuts_pad, n_bins, fm, setmat, hist, rho,
+                depth=d, params=self.params, last_level=last,
+                subtract=hist is not None, quantised=self.quantised,
+                budget=self.max_leaves > 0)
         return state
 
     @staticmethod
