@@ -7,11 +7,16 @@ holds each CUDA kernel against its plain PyTorch version:
      nvcc per source, all at once) and load it
   2. K1 vs plain: the f32 histogram kernel (csrc/hist.cu) against
      build_histogram_plain at R=1,048,576 x F=28, B=256, int16 and uint8
-     bins, within 1e-5 of the largest cell, with timings of the kernel, the
-     plain version, one index_add_ call (a yardstick the port never calls)
-     and the memory bound; plus a 128-node level whose nodes are tiled
+     bins, within 1e-5 of the largest cell, at the six levels a depth-6
+     round builds and a 16-node span (15, 16, 2) kept from earlier runs,
+     with timings of the kernel, the plain version, one index_add_ call (a
+     yardstick the port never calls) and the memory bound, K1's launch plan
+     (features and nodes per block, row blocks, cluster size, threads, row
+     loop) and the sum over the six levels; plus a 128-node level whose
+     nodes are tiled
   2b. K2 vs plain: the exact limb histogram kernel (csrc/hist_q.cu) against
-     build_histogram_q_plain at the same shapes, bitwise
+     build_histogram_q_plain at the same shapes, bitwise, and its six-level
+     sum
   3. train: 1,000,000 x 28 HIGGS-shaped rows, binary:logistic, max_bin=256,
      max_depth=6, eta=0.3, 10 rounds, evaluated on the training set; K1
      launches 6 times per round and K2 never
@@ -156,20 +161,40 @@ def _case(hist_cuda, name, bins, vals, pos, *, node0, n_nodes, n_bin,
                + n_nodes * F * n_bin * ch * 4)
     n_ops = ch * int(take.sum().item())
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / F32_FLOPS
+    plan = None
+    if name == "hist_f32":
+        plan = list(hist_cuda.plan_f32(
+            R, F, n_nodes, n_bin,
+            hist_cuda.card_max_clusters(bins.device, bins.dtype), stride))
     return dict(kernel=name, dtype=str(bins.dtype).split(".")[-1],
                 node0=node0, n_nodes=n_nodes, stride=stride,
                 max_abs_err=err, max_rel_err=err / scale if scale else 0.0,
                 ok=ok, kernel_ms=kernel_ms, plain_ms=plain_ms,
                 library_ms=library_ms,
                 bound_ms=max(t_bytes, t_ops) * 1e3,
-                bound_by="bytes" if t_bytes >= t_ops else "operations")
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                plan=plan)
 
 
-# (node0, n_nodes, stride): the root and two 16-node left-child levels of
-# a depth-6 tree, and a 128-node level of a depth-9 tree, whose nodes the
-# kernels split over blocks
-SHAPES = ((0, 1, 1), (15, 16, 2), (31, 16, 2))
+# (node0, n_nodes, stride): the six levels a depth-6 round builds (the root,
+# then the left children of depths 1-5); the 16 nodes from 15, which is no
+# level of a tree but was timed from the first slice on; and a 128-node
+# level of a depth-9 tree, whose nodes the kernels split over blocks
+LEVELS = ((0, 1, 1), (1, 1, 2), (3, 2, 2), (7, 4, 2), (15, 8, 2),
+          (31, 16, 2))
+SHAPES = LEVELS + ((15, 16, 2),)
 TILED = (255, 128, 2)
+# the shapes the kernels line sums, as it has since the first slice
+LINE_SHAPES = ((0, 1, 1), (15, 16, 2), (31, 16, 2))
+
+
+def _shape(case):
+    return case["node0"], case["n_nodes"], case["stride"]
+
+
+def _level_sum(cases, key):
+    return sum(c[key] for c in cases
+               if c["dtype"] == "int16" and _shape(c) in LEVELS)
 
 
 def phase_kernels(hist_cuda, name: str, label: str):
@@ -197,6 +222,11 @@ def phase_kernels(hist_cuda, name: str, label: str):
     bad = [c for c in cases if not c["ok"]]
     if bad:
         raise AssertionError(f"{name} disagrees with its plain version: {bad}")
+    log(f"phase {label} six-level sum (one depth-6 round's histograms, "
+        f"int16): kernel {_level_sum(cases, 'kernel_ms'):.4f} ms, index_add_ "
+        f"{_level_sum(cases, 'library_ms'):.4f} ms, plain "
+        f"{_level_sum(cases, 'plain_ms'):.4f} ms, bound "
+        f"{_level_sum(cases, 'bound_ms'):.4f} ms")
     return cases
 
 
@@ -414,10 +444,11 @@ def phase_parity_det(xtt, dtrain, X):
 
 
 def _kernel_entry(name, source, cases, launches):
-    # the line sums the three int16 shapes of the main path (a root build
-    # and two 16-node left-child builds)
+    # the line sums the three int16 shapes it has summed since the first
+    # slice, (0, 1, 1), (15, 16, 2) and (31, 16, 2); the six levels' sum is
+    # phase 2's line
     main = [c for c in cases if c["dtype"] == "int16"
-            and (c["node0"], c["n_nodes"], c["stride"]) in SHAPES]
+            and _shape(c) in LINE_SHAPES]
     return {
         "name": name,
         "route": "cuda",

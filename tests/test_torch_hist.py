@@ -130,3 +130,91 @@ def test_nodes_are_tiled_when_one_feature_does_not_fit(words, n_nodes, want):
     assert hist_cuda.choose_block(28, 128, limit, words) == (1, 1)
     with pytest.raises(ValueError):
         hist_cuda.choose_block(28, 1, limit + 1, words)
+
+
+def _choose_block_before(n_features, n_nodes, n_bin, words,
+                         smem_budget=220 * 1024):
+    """choose_block as node tiling first wrote it: K2's geometry, which this
+    file pins, must not move when K1 gets its own planner."""
+    cell = n_bin * words * 4
+    if n_nodes * cell <= smem_budget:
+        max_fg = smem_budget // (n_nodes * cell)
+        n_groups = -(-n_features // max_fg)
+        return -(-n_features // n_groups), n_nodes
+    n_tiles = -(-n_nodes // (smem_budget // cell))
+    return 1, -(-n_nodes // n_tiles)
+
+
+def _card(limit):
+    """A 132-SM card in GPCs of 16-18 SMs as max_clusters: two K1 blocks
+    per SM while their shared memory fits twice, clusters no larger than
+    ``limit``."""
+    def max_clusters(staged, smem, c):
+        if c > limit:
+            return 0
+        per_sm = 2 if 2 * (smem + hist_cuda.K1_STAGE_BYTES + 1024) \
+            <= 228 * 1024 else 1
+        return sum(g * per_sm // c for g in (18, 18, 16, 16, 16, 16, 16, 16))
+    return max_clusters
+
+
+@pytest.mark.parametrize("n_features", [1, 3, 28, 129])
+@pytest.mark.parametrize("n_bin", [16, 64, 256, 1024])
+@pytest.mark.parametrize("depth", range(11))
+def test_k1_plan_fits_and_splits_every_pair_once(depth, n_bin, n_features):
+    """K1's planner at every level of a depth-``depth`` tree (all 2^d nodes
+    at stride 1, and the 2^(d-1) left children that a level with
+    subtraction builds at stride 2): the block fits the budget beside its row lists, C divides the row
+    blocks, and the clusters' flush slices own every (node, feature) pair
+    exactly once; K2's choose_block is unchanged."""
+    levels = {(1 << depth, 1), (1 << max(0, depth - 1), 2 if depth else 1)}
+    for n_nodes, stride in sorted(levels):
+        assert hist_cuda.choose_block(n_features, n_nodes, n_bin, 6) == \
+            _choose_block_before(n_features, n_nodes, n_bin, 6)
+        assert hist_cuda.choose_block(n_features, n_nodes, n_bin, 2) == \
+            _choose_block_before(n_features, n_nodes, n_bin, 2)
+        for n_rows, limit in ((1 << 20, 8), (1000, 8), (1 << 20, 2)):
+            plan = hist_cuda.plan_f32(n_rows, n_features, n_nodes, n_bin,
+                                      _card(limit), stride)
+            fg, nt = plan.feat_group, plan.node_tile
+            # the staged loop exactly where the level skips rows
+            assert plan.staged == (stride > 1 or nt < n_nodes)
+            assert fg * nt * n_bin * 8 + hist_cuda.K1_STAGE_BYTES \
+                <= hist_cuda.SMEM_BUDGET
+            assert plan.cluster in hist_cuda.CLUSTERS
+            assert plan.cluster <= min(limit, fg * nt)
+            assert plan.row_blocks % plan.cluster == 0
+            owners = np.zeros((n_nodes, n_features), np.int64)
+            for t0 in range(0, n_nodes, nt):
+                for f0 in range(0, n_features, fg):
+                    fg_b = min(fg, n_features - f0)  # ragged last group
+                    nt_b = min(nt, n_nodes - t0)  # ragged last node tile
+                    units = np.concatenate([
+                        np.arange(r.start, r.stop) for r in
+                        (hist_cuda.slice_units(fg_b * nt_b, plan.cluster, k)
+                         for k in range(plan.cluster))])
+                    np.add.at(owners, (t0 + units // fg_b, f0 + units % fg_b),
+                              1)
+            assert (owners == 1).all()
+
+
+def test_k1_plan_fills_one_wave_and_raises_without_room():
+    """At the main path's 16-node level (F = 28, B = 256, 1M rows) the plan
+    takes 6 features and 16 nodes a block and the cluster size whose wave
+    covers the most SMs (clusters of 2 fill all 132 SMs of GPCs of 16-18,
+    clusters of 4 or 8 leave 4 idle), the largest such, and as many
+    clusters per feature group as one wave holds; a card that holds no
+    block raises rather than launching."""
+    card = _card(8)
+    smem = 6 * 16 * 256 * 8
+    assert 2 * card(True, smem, 2) > 8 * card(True, smem, 8)
+    plan = hist_cuda.plan_f32(1 << 20, 28, 16, 256, card, 2)
+    assert plan == hist_cuda.F32Plan(6, 16, 2 * (66 // 5), 2,
+                                     hist_cuda.K1_THREADS, True)
+    even = hist_cuda.plan_f32(1 << 20, 28, 16, 256,
+                              lambda staged, smem, c: 128 // c, 2)  # a tie
+    assert even.cluster == 8 and even.row_blocks == 8 * (16 // 5)
+    root = hist_cuda.plan_f32(1 << 20, 28, 1, 256, card)
+    assert (root.feat_group, root.staged) == (28, False)
+    with pytest.raises(ValueError, match="holds no block"):
+        hist_cuda.plan_f32(1 << 20, 28, 16, 256, lambda *a: 0, 2)

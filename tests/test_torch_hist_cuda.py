@@ -1,6 +1,8 @@
 """The CUDA histogram kernels on the card: K1 (csrc/hist.cu) held against
 its plain PyTorch version at rtol/atol 1e-4 (the same f32 sums, added by
-atomics in no fixed order), K2 (csrc/hist_q.cu) held against its plain
+atomics in no fixed order) at the six levels of a depth-6 round, at other
+widths and row counts, with each cluster size, and a refused cluster launch
+raising; K2 (csrc/hist_q.cu) held against its plain
 version bitwise (exact int32 sums), both with nodes tiled over blocks at
 N = 128, and the trainer's launches of each counted.  Every test here needs
 a CUDA device and skips without one; the file imports neither JAX nor
@@ -28,10 +30,14 @@ def _mk(R, F, B, node0, span, seed):
     return bins, gpair, pos
 
 
+# the six levels a depth-6 round builds, and a level built in full
+K1_LEVELS = [(0, 1, 1), (1, 1, 2), (3, 2, 2), (7, 4, 2), (15, 8, 2),
+             (31, 16, 2), (3, 4, 1)]
+
+
 @needs_cuda
 @pytest.mark.parametrize("dtype", [torch.uint8, torch.int16, torch.int32])
-@pytest.mark.parametrize("node0,n_nodes,stride", [
-    (0, 1, 1), (3, 4, 1), (1, 1, 2), (7, 4, 2), (31, 16, 2)])
+@pytest.mark.parametrize("node0,n_nodes,stride", K1_LEVELS)
 def test_kernel_matches_plain(dtype, node0, n_nodes, stride):
     B = 250 if dtype == torch.uint8 else 256
     bins, gpair, pos = _mk(8192, 28, B, node0, stride * n_nodes, node0)
@@ -44,6 +50,90 @@ def test_kernel_matches_plain(dtype, node0, n_nodes, stride):
     assert hist_cuda.launches["hist_f32"] == before + 1
     want = hist_cuda.build_histogram_plain(*args, **kw)
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+def _k1(bins, gpair, pos, dtype=torch.int16):
+    return (torch.from_numpy(bins).to(dtype).cuda(),
+            torch.from_numpy(gpair).cuda(), torch.from_numpy(pos).cuda())
+
+
+@needs_cuda
+@pytest.mark.parametrize("n_features", [1, 3, 29])
+@pytest.mark.parametrize("node0,n_nodes,stride", [(0, 1, 1), (7, 4, 2),
+                                                  (31, 16, 2)])
+def test_kernel_matches_plain_at_other_widths(n_features, node0, n_nodes,
+                                              stride):
+    """Feature groups that do not divide F (29 = 5 groups of 6 at 16
+    nodes), and widths below a cluster's eight blocks (F = 1 and 3 at the
+    root: fewer (node, feature) pairs than blocks to flush them)."""
+    args = _k1(*_mk(8192, n_features, 256, node0, stride * n_nodes, 5))
+    kw = dict(node0=node0, n_nodes=n_nodes, n_bin=256, stride=stride)
+    torch.testing.assert_close(hist_cuda.build_histogram_cuda(*args, **kw),
+                               hist_cuda.build_histogram_plain(*args, **kw),
+                               rtol=1e-4, atol=1e-4)
+
+
+@needs_cuda
+@pytest.mark.parametrize("n_rows", [1, 37, 1000, 3001])
+@pytest.mark.parametrize("node0,n_nodes,stride", [(0, 1, 1), (15, 8, 2)])
+def test_kernel_matches_plain_below_one_tile(n_rows, node0, n_nodes, stride):
+    """Fewer rows than one block stages at once (32 warps x 64 rows), and
+    not a multiple of a warp's 64: most blocks of the grid get no row."""
+    bins, gpair, pos = _mk(n_rows, 28, 256, node0, stride * n_nodes, 6)
+    pos[-1] = node0  # keep a row in the level even at R = 1
+    args = _k1(bins, gpair, pos)
+    kw = dict(node0=node0, n_nodes=n_nodes, n_bin=256, stride=stride)
+    torch.testing.assert_close(hist_cuda.build_histogram_cuda(*args, **kw),
+                               hist_cuda.build_histogram_plain(*args, **kw),
+                               rtol=1e-4, atol=1e-4)
+
+
+@needs_cuda
+@pytest.mark.parametrize("what", ["pad", "missing"])
+def test_pad_rows_and_missing_bins_add_nothing(what):
+    bins, gpair, pos = _mk(20_000, 28, 256, 7, 8, 7)
+    if what == "pad":
+        pos[:] = -1
+    else:
+        bins[:] = 256
+    args = _k1(bins, gpair, pos)
+    got = hist_cuda.build_histogram_cuda(*args, node0=7, n_nodes=4,
+                                         n_bin=256, stride=2)
+    assert got.shape == (4, 28, 256, 2) and not got.any()
+
+
+@needs_cuda
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
+@pytest.mark.parametrize("node0,n_nodes,stride", [(0, 1, 1), (31, 16, 2),
+                                                  (255, 128, 2)])
+def test_each_cluster_size_matches_plain(cluster, node0, n_nodes, stride):
+    """K1 planned with each cluster size (the card's occupancy of every
+    other C taken as 0) against the plain version, at the root (one thread
+    per row), 16 nodes and a node-tiled level (staged)."""
+    bins, gpair, pos = _mk(65536, 28, 256, node0, stride * n_nodes, cluster)
+    args = _k1(bins, gpair, pos)
+    card = hist_cuda.card_max_clusters(args[0].device, torch.int16)
+    plan = hist_cuda.plan_f32(
+        65536, 28, n_nodes, 256,
+        lambda staged, smem, c: card(staged, smem, c) if c == cluster else 0,
+        stride)
+    assert plan.cluster == cluster and plan.row_blocks % cluster == 0
+    kw = dict(node0=node0, n_nodes=n_nodes, n_bin=256, stride=stride)
+    torch.testing.assert_close(hist_cuda.run_f32(*args, plan, **kw),
+                               hist_cuda.build_histogram_plain(*args, **kw),
+                               rtol=1e-4, atol=1e-4)
+
+
+@needs_cuda
+def test_refused_cluster_launch_raises():
+    """A cluster that does not divide the row blocks is refused by the
+    card; the wrapper raises and counts no launch."""
+    args = _k1(*_mk(4096, 28, 256, 0, 1, 8))
+    plan = hist_cuda.F32Plan(28, 1, 6, 4, hist_cuda.K1_THREADS, False)
+    before = hist_cuda.launches["hist_f32"]
+    with pytest.raises(RuntimeError, match="launch failed"):
+        hist_cuda.run_f32(*args, plan, node0=0, n_nodes=1, n_bin=256)
+    assert hist_cuda.launches["hist_f32"] == before
 
 
 def _limbs(gpair):

@@ -2,7 +2,9 @@
 and their build, binding and dispatch.
 
 - K1 ``hist_f32`` (csrc/hist.cu, port of xgboost_tpu/ops/hist_pallas.py:
-  _hist_kernel): f32 (g, h) sums, the default path.
+  _hist_kernel): f32 (g, h) sums, the default path.  Launched in thread
+  block clusters along its row blocks, as ``plan_f32`` plans from the
+  card's occupancy.
 - K2 ``hist_q`` (csrc/hist_q.cu, port of _hist_kernel_q): exact int32 sums
   of the int8 gradient limbs, the ``deterministic_histogram=1`` path.
 
@@ -25,6 +27,7 @@ import shutil
 import subprocess
 import tempfile
 import threading
+from typing import Callable, NamedTuple
 
 import torch
 
@@ -33,8 +36,10 @@ from .quantise import hist_accumulate_q
 
 __all__ = ["build_histogram", "build_histogram_cuda", "build_histogram_plain",
            "build_histogram_q", "build_histogram_q_cuda",
-           "build_histogram_q_plain", "build_all", "choose_block",
-           "load_library", "launches", "reset_launches", "SOURCES"]
+           "build_histogram_q_plain", "build_all", "card_max_clusters",
+           "choose_block", "F32Plan", "load_library", "launches",
+           "plan_f32", "reset_launches", "run_f32", "slice_units",
+           "SOURCES"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _BUILD_DIR = os.path.join(_PKG, "_build")
@@ -51,15 +56,22 @@ _BIN_CODES = {torch.uint8: 0, torch.int16: 1, torch.int32: 2}
 # shared memory one block may use for its histogram; 227 KB is the H100's
 # per-block opt-in limit, the rest is left for the runtime's own reservation
 SMEM_BUDGET = 220 * 1024
-THREADS = 512
+THREADS = 512  # K2's block
+# K1: a block of 32 warps, and the static shared memory of its per-warp row
+# lists (32 warps x 95 rows x 8 bytes), taken from the histogram's budget
+K1_THREADS = 1024
+K1_STAGE_BYTES = 32 * 95 * 8
+CLUSTERS = (8, 4, 2, 1)  # cluster sizes K1 may use, largest first
 _vp, _ci = ctypes.c_void_p, ctypes.c_int
 # C signature of each kernel's entry point (name, argtypes)
 _ENTRY = {
-    "hist_f32": ("xtb_hist_f32", [_vp, _ci, _vp, _vp, _vp] + [_ci] * 10 + [_vp]),
+    "hist_f32": ("xtb_hist_f32", [_vp, _ci, _vp, _vp, _vp] + [_ci] * 12 + [_vp]),
     "hist_q": ("xtb_hist_q", [_vp, _ci, _vp, _vp, _vp] + [_ci] * 11 + [_vp]),
 }
 _libs: dict = {}
 _lib_lock = threading.Lock()
+_clusters: dict = {}  # (device, bin code, staged, threads, smem, C) -> count
+_plans: dict = {}  # K1's plan per (device, dtype, R, F, N, B, stride)
 
 
 def reset_launches() -> None:
@@ -141,6 +153,10 @@ def load_library(name: str):
         fn = getattr(lib, entry)
         fn.argtypes = argtypes
         fn.restype = _ci
+        if name == "hist_f32":
+            lib.xtb_hist_f32_max_clusters.argtypes = [_ci] * 5 + [
+                ctypes.POINTER(_ci)]
+            lib.xtb_hist_f32_max_clusters.restype = _ci
         lib.xtb_cuda_error_string.argtypes = [_ci]
         lib.xtb_cuda_error_string.restype = ctypes.c_char_p
         _libs[name] = lib
@@ -169,7 +185,7 @@ def choose_block(n_features: int, n_nodes: int, n_bin: int, words: int,
 
 
 def _row_blocks(n_rows: int, n_blocks: int, n_sm: int) -> int:
-    # about two blocks in flight per SM over the whole grid, and no block
+    # K2: about two blocks in flight per SM over the whole grid, and no block
     # with fewer rows than its threads
     want = max(1, (2 * n_sm) // n_blocks)
     return max(1, min(want, n_rows // THREADS))
@@ -200,7 +216,7 @@ def _check(bins, vals, pos, vals_dtype, vals_tail, n_nodes, n_bin, stride):
 
 
 def _grid(bins, n_nodes: int, n_bin: int, words: int):
-    """(features per block, nodes per block, row blocks) of one launch."""
+    """(features per block, nodes per block, row blocks) of a K2 launch."""
     R, F = bins.shape
     fg, nt = choose_block(F, n_nodes, n_bin, words)
     n_sm = torch.cuda.get_device_properties(bins.device).multi_processor_count
@@ -214,9 +230,91 @@ def _launched(name: str, lib, rc: int) -> None:
     launches[name] += 1
 
 
-def build_histogram_cuda(bins, gpair, pos, *, node0: int, n_nodes: int,
-                         n_bin: int, stride: int = 1):
-    """Launch K1: hist (n_nodes, F, n_bin, 2) f32 on the inputs' card."""
+class F32Plan(NamedTuple):
+    """K1's launch: features and nodes per block, row blocks (a multiple of
+    ``cluster``), blocks per cluster along the row blocks, threads, and
+    the row loop (True: staged; False: one thread per row)."""
+    feat_group: int
+    node_tile: int
+    row_blocks: int
+    cluster: int
+    threads: int
+    staged: bool
+
+
+def plan_f32(n_rows: int, n_features: int, n_nodes: int, n_bin: int,
+             max_clusters: Callable[[bool, int, int], int],
+             stride: int = 1) -> F32Plan:
+    """K1's launch geometry.  Features and nodes per block as
+    ``choose_block`` picks them, within the budget left beside the row
+    lists.  The staged row loop where the level skips rows (``stride`` > 1
+    or more than one node tile), one thread per row where every row
+    counts.  Then the cluster size C of ``CLUSTERS``, no larger than the
+    (node, feature) pairs a block has to flush, whose wave holds the most
+    blocks, and of those the largest: ``max_clusters(staged, smem, C)`` is
+    the most clusters of C blocks with ``smem`` bytes of histogram the card
+    holds at once (``card_max_clusters``).  The row loop is bound by each
+    SM's shared-memory atomics, so a wave that leaves SMs idle costs more
+    than the flush that a smaller C adds.  Last, as many row blocks per
+    (feature group, node tile) as fill that wave, and no more than the rows
+    give a block's threads one row each."""
+    fg, nt = choose_block(n_features, n_nodes, n_bin, 2,
+                          SMEM_BUDGET - K1_STAGE_BYTES)
+    smem = fg * nt * n_bin * 8
+    n_tiles = -(-n_nodes // nt)
+    n_cols = -(-n_features // fg) * n_tiles
+    staged = stride > 1 or n_tiles > 1
+    # blocks one wave holds with each cluster size C no larger than the
+    # pairs a block can flush; the most blocks, then the largest C
+    wave = {c: c * max_clusters(staged, smem, c) for c in CLUSTERS
+            if c <= fg * nt}
+    if not any(wave.values()):
+        raise ValueError(f"the card holds no block of K1 with {smem} B of "
+                         "histogram")
+    cluster = max(wave, key=lambda c: (wave[c], c))
+    per_col = min(wave[cluster] // cluster // n_cols,
+                  -(-n_rows // (cluster * K1_THREADS)))
+    return F32Plan(fg, nt, cluster * max(1, per_col), cluster, K1_THREADS,
+                   staged)
+
+
+def slice_units(n_units: int, cluster: int, rank: int) -> range:
+    """The (node, feature) pairs, numbered slot * fg + feature, that block
+    ``rank`` of a K1 cluster sums over the cluster and flushes: the split
+    of the flush in csrc/hist.cu."""
+    return range(rank * n_units // cluster, (rank + 1) * n_units // cluster)
+
+
+def card_max_clusters(device,
+                      bin_dtype) -> Callable[[bool, int, int], int]:
+    """``max_clusters`` for ``plan_f32`` on ``device``: the driver's
+    cudaOccupancyMaxActiveClusters for K1 with ``bin_dtype`` bins, queried
+    once per (row loop, histogram bytes, C) and cached.  Raises if the
+    query fails."""
+    code = _BIN_CODES[bin_dtype]
+    lib = load_library("hist_f32")
+
+    def query(staged: bool, smem: int, cluster: int) -> int:
+        key = (str(device), code, staged, K1_THREADS, smem, cluster)
+        if key not in _clusters:
+            n = _ci(0)
+            with torch.cuda.device(device):
+                rc = lib.xtb_hist_f32_max_clusters(
+                    code, smem, cluster, K1_THREADS, int(staged),
+                    ctypes.byref(n))
+            if rc != 0:
+                raise RuntimeError(
+                    "hist_f32 occupancy query failed: "
+                    + lib.xtb_cuda_error_string(rc).decode())
+            _clusters[key] = n.value
+        return _clusters[key]
+    return query
+
+
+def run_f32(bins, gpair, pos, plan: F32Plan, *, node0: int, n_nodes: int,
+            n_bin: int, stride: int = 1):
+    """Launch K1 with ``plan``: hist (n_nodes, F, n_bin, 2) f32 on the
+    inputs' card.  A launch the card refuses raises."""
     _check(bins, gpair, pos, torch.float32, (2,), n_nodes, n_bin, stride)
     R, F = bins.shape
     out = torch.zeros((n_nodes, F, n_bin, 2), dtype=torch.float32,
@@ -229,9 +327,24 @@ def build_histogram_cuda(bins, gpair, pos, *, node0: int, n_nodes: int,
         rc = lib.xtb_hist_f32(
             bins.data_ptr(), _BIN_CODES[bins.dtype], gpair.data_ptr(),
             pos.data_ptr(), out.data_ptr(), R, F, n_bin, node0, n_nodes,
-            stride, *_grid(bins, n_nodes, n_bin, 2), THREADS, stream)
+            stride, plan.feat_group, plan.node_tile, plan.row_blocks,
+            plan.cluster, plan.threads, int(plan.staged), stream)
     _launched("hist_f32", lib, rc)
     return out
+
+
+def build_histogram_cuda(bins, gpair, pos, *, node0: int, n_nodes: int,
+                         n_bin: int, stride: int = 1):
+    """Launch K1: hist (n_nodes, F, n_bin, 2) f32 on the inputs' card."""
+    _check(bins, gpair, pos, torch.float32, (2,), n_nodes, n_bin, stride)
+    key = (str(bins.device), bins.dtype, *bins.shape, n_nodes, n_bin, stride)
+    plan = _plans.get(key)
+    if plan is None:
+        plan = _plans[key] = plan_f32(
+            bins.shape[0], bins.shape[1], n_nodes, n_bin,
+            card_max_clusters(bins.device, bins.dtype), stride)
+    return run_f32(bins, gpair, pos, plan, node0=node0, n_nodes=n_nodes,
+                   n_bin=n_bin, stride=stride)
 
 
 def build_histogram_q_cuda(bins, gq, pos, *, node0: int, n_nodes: int,
