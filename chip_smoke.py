@@ -15,8 +15,11 @@ holds each CUDA kernel against its plain PyTorch version:
      loop) and the sum over the six levels; plus a 128-node level whose
      nodes are tiled
   2b. K2 vs plain: the exact limb histogram kernel (csrc/hist_q.cu) against
-     build_histogram_q_plain at the same shapes, bitwise, and its six-level
-     sum
+     build_histogram_q_plain at the same shapes, bitwise, with K2's launch
+     plan (the same fields as K1's) and its six-level sum; plus an
+     adversarial input at R=1,048,576, every row in bin 0 of every feature
+     with the same extreme limbs (-128, then 127), at the root, the first
+     level and 16 nodes
   3. train: 1,000,000 x 28 HIGGS-shaped rows, binary:logistic, max_bin=256,
      max_depth=6, eta=0.3, 10 rounds, evaluated on the training set; K1
      launches 6 times per round and K2 never
@@ -161,11 +164,15 @@ def _case(hist_cuda, name, bins, vals, pos, *, node0, n_nodes, n_bin,
                + n_nodes * F * n_bin * ch * 4)
     n_ops = ch * int(take.sum().item())
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / F32_FLOPS
-    plan = None
     if name == "hist_f32":
         plan = list(hist_cuda.plan_f32(
             R, F, n_nodes, n_bin,
             hist_cuda.card_max_clusters(bins.device, bins.dtype), stride))
+    else:
+        plan = list(hist_cuda.plan_q(
+            R, F, n_nodes, n_bin, ch,
+            hist_cuda.card_max_clusters(bins.device, bins.dtype, name),
+            stride))
     return dict(kernel=name, dtype=str(bins.dtype).split(".")[-1],
                 node0=node0, n_nodes=n_nodes, stride=stride,
                 max_abs_err=err, max_rel_err=err / scale if scale else 0.0,
@@ -219,6 +226,8 @@ def phase_kernels(hist_cuda, name: str, label: str):
                          n_nodes=n_nodes, n_bin=n_bin, stride=stride)
             cases.append(case)
             log(f"phase {label} kernel vs plain: " + json.dumps(case))
+    if name == "hist_q":
+        _adversarial_q(hist_cuda, R, F, label)
     bad = [c for c in cases if not c["ok"]]
     if bad:
         raise AssertionError(f"{name} disagrees with its plain version: {bad}")
@@ -228,6 +237,31 @@ def phase_kernels(hist_cuda, name: str, label: str):
         f"{_level_sum(cases, 'plain_ms'):.4f} ms, bound "
         f"{_level_sum(cases, 'bound_ms'):.4f} ms")
     return cases
+
+
+def _adversarial_q(hist_cuda, R, F, label):
+    """K2 bitwise against its plain version where one cell per feature
+    takes every row with the same extreme limbs, in every block."""
+    bins = torch.zeros((R, F), dtype=torch.int16, device="cuda")
+    for limb in (-128, 127):
+        gq = torch.full((R, 2, 3), limb, dtype=torch.int8, device="cuda")
+        for node0, n_nodes, stride in ((0, 1, 1), (1, 1, 2), (31, 16, 2)):
+            pos = torch.full((R,), node0, dtype=torch.int32, device="cuda")
+            kw = dict(node0=node0, n_nodes=n_nodes, n_bin=256, stride=stride)
+            got = hist_cuda.build_histogram_q_cuda(bins, gq, pos, **kw)
+            want = hist_cuda.build_histogram_q_plain(bins, gq, pos, **kw)
+            plan = list(hist_cuda.plan_q(
+                R, F, n_nodes, 256, 6,
+                hist_cuda.card_max_clusters(bins.device, bins.dtype,
+                                            "hist_q"), stride))
+            same = torch.equal(got, want)
+            log(f"phase {label} adversarial: limbs all {limb}, every row in "
+                f"bin 0 of node {node0} (level {node0, n_nodes, stride}), "
+                f"cell sum {int(want[0, 0, 0, 0, 0])}; plan {plan}; bitwise "
+                f"equal: {same}")
+            if not same:
+                raise AssertionError(f"phase {label}: K2 disagrees with its "
+                                     "plain version on adversarial limbs")
 
 
 BASE = {"objective": "binary:logistic", "max_depth": 6, "max_bin": 256,

@@ -11,9 +11,11 @@ inputs (made from fixed seeds with numpy): R = 1,048,576 rows, F = 28,
 int16 bins at B = 256 with ~5% missing, ~2% pad rows, at the six levels a
 depth-6 round builds, the 16-node span (15, 16, 2) and the node-tiled
 level (255, 128, 2).  K1 (f32) is held against its plain version within
-1e-5 of the largest cell, K2 (exact int32 limbs, identical in the trees
-compared so far) bitwise; K2's spread over the turns bounds the call's
-noise.
+1e-5 of the largest cell, K2 (exact int32 limbs) bitwise.  Each turn also
+counts the atomic instructions in each built library's SASS
+(``cuobjdump -sass``): a shared-memory add that the card runs natively is
+an ``ATOMS.ADD``, one it emulates a compare-and-swap loop
+(``ATOMS.CAS``/``ATOMS.CAST.SPIN``).
 
 Per case: ``ms``, the median of 20 CUDA-event timings of one call each
 after 3 warm-up calls (chip_smoke.py's definition), and ``ms_batched``,
@@ -25,8 +27,11 @@ no GPU is present.
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -36,9 +41,23 @@ import numpy as np
 LEVELS = ((0, 1, 1), (1, 1, 2), (3, 2, 2), (7, 4, 2), (15, 8, 2),
           (31, 16, 2))
 K1_SHAPES = LEVELS + ((15, 16, 2), (255, 128, 2))
-K2_SHAPES = LEVELS + ((15, 16, 2),)
+K2_SHAPES = LEVELS + ((15, 16, 2), (255, 128, 2))
 R, F, N_BIN = 1 << 20, 28, 256
 REPS = 20
+
+
+def _sass_atomics(hist_cuda) -> dict:
+    """Per kernel library, the count of each atomic or reduction opcode in
+    its SASS."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    out = {}
+    for name in hist_cuda.SOURCES:
+        sass = subprocess.run([tool, "-sass", hist_cuda._lib_path(name)],
+                              capture_output=True, text=True,
+                              check=True).stdout
+        out[name] = dict(collections.Counter(re.findall(
+            r"\b(?:ATOMS|ATOMG|ATOM|REDG|RED)(?:\.[A-Z0-9_]+)*", sass)))
+    return out
 
 
 def _worker(tree: str) -> dict:
@@ -47,6 +66,7 @@ def _worker(tree: str) -> dict:
     from xgboost_tpu_torch.ops import hist_cuda
 
     hist_cuda.build_all()
+    sass = _sass_atomics(hist_cuda)
 
     def per_call(fn):
         for _ in range(3):
@@ -120,6 +140,11 @@ def _worker(tree: str) -> dict:
                 card = hist_cuda.card_max_clusters(bins.device, bins.dtype)
                 plan = list(hist_cuda.plan_f32(R, F, n_nodes, N_BIN, card,
                                                stride))
+            if name == "hist_q" and hasattr(hist_cuda, "plan_q"):
+                card = hist_cuda.card_max_clusters(bins.device, bins.dtype,
+                                                   "hist_q")
+                plan = list(hist_cuda.plan_q(R, F, n_nodes, N_BIN, 6, card,
+                                             stride))
             cases.append(dict(
                 kernel=name, shape=[node0, n_nodes, stride], ok=ok,
                 max_abs_err=err, max_rel_err=err / scale if scale else 0.0,
@@ -128,7 +153,7 @@ def _worker(tree: str) -> dict:
                 library_ms=per_call(
                     lambda: flat.index_add_(0, flat_idx, flat_val)),
                 plan=plan))
-    return dict(device=torch.cuda.get_device_name(0), cases=cases)
+    return dict(device=torch.cuda.get_device_name(0), sass=sass, cases=cases)
 
 
 def main() -> int:
@@ -163,7 +188,8 @@ def main() -> int:
             return 1
         runs.append(dict(label=label, tree=tree,
                          **json.loads(line[0][len("RESULT "):])))
-        print(f"turn {len(runs)}: {label} done", flush=True)
+        print(f"turn {len(runs)}: {label} done; SASS atomics "
+              f"{runs[-1]['sass']}", flush=True)
 
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as fh:
@@ -178,14 +204,16 @@ def main() -> int:
                 zip(runs, row) if not c["ok"]]
         cells = " ".join(f"{c['ms']:9.4f}" for c in row)
         batch = " ".join(f"{c['ms_batched']:.4f}" for c in row)
+        plans = {r["label"]: c["plan"] for r, c in zip(runs, row)
+                 if c["plan"]}
         print(f"{case['kernel']:8s} {str(tuple(case['shape'])):14s} {cells}"
-              f"   {row[-1]['library_ms']:.4f}  [{batch}]  "
-              f"plan {next((c['plan'] for c in row if c['plan']), None)}")
+              f"   {row[-1]['library_ms']:.4f}  [{batch}]  plans {plans}")
     for name in ("hist_f32", "hist_q"):
-        sums = [sum(c["ms"] for c in r["cases"] if c["kernel"] == name
-                    and tuple(c["shape"]) in LEVELS) for r in runs]
-        print(f"{name} six-level sum per turn: "
-              + " ".join(f"{r['label']}={s:.4f}" for r, s in zip(runs, sums)))
+        for key in ("ms", "ms_batched"):
+            sums = [sum(c[key] for c in r["cases"] if c["kernel"] == name
+                        and tuple(c["shape"]) in LEVELS) for r in runs]
+            print(f"{name} six-level sum of {key} per turn: " + " ".join(
+                f"{r['label']}={s:.4f}" for r, s in zip(runs, sums)))
     print(f"max error of K1 over the plain version, of the largest cell: "
           f"{max(c['max_rel_err'] for r in runs for c in r['cases']):.3g}")
     if bad:

@@ -152,7 +152,7 @@ def _card(limit):
     def max_clusters(staged, smem, c):
         if c > limit:
             return 0
-        per_sm = 2 if 2 * (smem + hist_cuda.K1_STAGE_BYTES + 1024) \
+        per_sm = 2 if 2 * (smem + hist_cuda.STAGE_BYTES + 1024) \
             <= 228 * 1024 else 1
         return sum(g * per_sm // c for g in (18, 18, 16, 16, 16, 16, 16, 16))
     return max_clusters
@@ -179,7 +179,7 @@ def test_k1_plan_fits_and_splits_every_pair_once(depth, n_bin, n_features):
             fg, nt = plan.feat_group, plan.node_tile
             # the staged loop exactly where the level skips rows
             assert plan.staged == (stride > 1 or nt < n_nodes)
-            assert fg * nt * n_bin * 8 + hist_cuda.K1_STAGE_BYTES \
+            assert fg * nt * n_bin * 8 + hist_cuda.STAGE_BYTES \
                 <= hist_cuda.SMEM_BUDGET
             assert plan.cluster in hist_cuda.CLUSTERS
             assert plan.cluster <= min(limit, fg * nt)
@@ -209,8 +209,8 @@ def test_k1_plan_fills_one_wave_and_raises_without_room():
     smem = 6 * 16 * 256 * 8
     assert 2 * card(True, smem, 2) > 8 * card(True, smem, 8)
     plan = hist_cuda.plan_f32(1 << 20, 28, 16, 256, card, 2)
-    assert plan == hist_cuda.F32Plan(6, 16, 2 * (66 // 5), 2,
-                                     hist_cuda.K1_THREADS, True)
+    assert plan == hist_cuda.Plan(6, 16, 2 * (66 // 5), 2,
+                                     hist_cuda.THREADS, True)
     even = hist_cuda.plan_f32(1 << 20, 28, 16, 256,
                               lambda staged, smem, c: 128 // c, 2)  # a tie
     assert even.cluster == 8 and even.row_blocks == 8 * (16 // 5)
@@ -218,3 +218,97 @@ def test_k1_plan_fills_one_wave_and_raises_without_room():
     assert (root.feat_group, root.staged) == (28, False)
     with pytest.raises(ValueError, match="holds no block"):
         hist_cuda.plan_f32(1 << 20, 28, 16, 256, lambda *a: 0, 2)
+
+
+def _plan_f32_before(n_rows, n_features, n_nodes, n_bin, max_clusters,
+                     stride=1):
+    """plan_f32 as K1's redesign first wrote it: K1's plans must not move
+    when K2 gets its planner."""
+    budget = 220 * 1024 - 32 * 95 * 8
+    fg, nt = _choose_block_before(n_features, n_nodes, n_bin, 2, budget)
+    smem = fg * nt * n_bin * 8
+    n_tiles = -(-n_nodes // nt)
+    n_cols = -(-n_features // fg) * n_tiles
+    staged = stride > 1 or n_tiles > 1
+    wave = {c: c * max_clusters(staged, smem, c) for c in (8, 4, 2, 1)
+            if c <= fg * nt}
+    cluster = max(wave, key=lambda c: (wave[c], c))
+    per_col = min(wave[cluster] // cluster // n_cols,
+                  -(-n_rows // (cluster * 1024)))
+    return (fg, nt, cluster * max(1, per_col), cluster, 1024, staged)
+
+
+def _owners(plan, n_nodes, n_features):
+    """How many flush slices of ``plan``'s clusters own each (node,
+    feature) pair."""
+    fg, nt = plan.feat_group, plan.node_tile
+    owners = np.zeros((n_nodes, n_features), np.int64)
+    for t0 in range(0, n_nodes, nt):
+        for f0 in range(0, n_features, fg):
+            fg_b = min(fg, n_features - f0)  # ragged last group
+            nt_b = min(nt, n_nodes - t0)  # ragged last node tile
+            units = np.concatenate([
+                np.arange(r.start, r.stop) for r in
+                (hist_cuda.slice_units(fg_b * nt_b, plan.cluster, k)
+                 for k in range(plan.cluster))])
+            np.add.at(owners, (t0 + units // fg_b, f0 + units % fg_b), 1)
+    return owners
+
+
+@pytest.mark.parametrize("n_features", [1, 3, 28, 129])
+@pytest.mark.parametrize("n_bin", [16, 64, 256, 1024])
+@pytest.mark.parametrize("depth", range(11))
+def test_k2_plan_fits_and_splits_every_pair_once(depth, n_bin, n_features):
+    """K2's planner at every level of a depth-``depth`` tree, as K1's test
+    above: the block fits the budget beside its row lists with its 24-byte
+    cells, C divides the row blocks, the staged loop exactly where the
+    level skips rows, and every (node, feature) pair is flushed by exactly
+    one slice; K1's plans and choose_block(..., 2) are what they were
+    before."""
+    levels = {(1 << depth, 1), (1 << max(0, depth - 1), 2 if depth else 1)}
+    for n_nodes, stride in sorted(levels):
+        assert hist_cuda.choose_block(n_features, n_nodes, n_bin, 2) == \
+            _choose_block_before(n_features, n_nodes, n_bin, 2)
+        for n_rows, limit in ((1 << 20, 8), (1000, 8), (1 << 20, 2)):
+            assert tuple(hist_cuda.plan_f32(
+                n_rows, n_features, n_nodes, n_bin, _card(limit),
+                stride)) == _plan_f32_before(n_rows, n_features, n_nodes,
+                                             n_bin, _card(limit), stride)
+            plan = hist_cuda.plan_q(n_rows, n_features, n_nodes, n_bin, 6,
+                                    _card(limit), stride)
+            fg, nt = plan.feat_group, plan.node_tile
+            assert fg * nt * n_bin * 24 + hist_cuda.STAGE_BYTES \
+                <= hist_cuda.SMEM_BUDGET
+            assert plan.staged == (stride > 1 or nt < n_nodes)
+            assert plan.threads == hist_cuda.THREADS
+            assert plan.cluster in hist_cuda.CLUSTERS
+            assert plan.cluster <= min(limit, fg * nt)
+            assert plan.row_blocks % plan.cluster == 0
+            assert plan.row_blocks <= max(plan.cluster, -(-n_rows // (
+                hist_cuda.THREADS)))
+            assert (_owners(plan, n_nodes, n_features) == 1).all()
+
+
+def test_k2_plan_at_the_main_levels():
+    """F = 28, B = 256, 1M rows on a 132-SM card: the feature groups and
+    node tiles K2 had before (28, 28, 14, 7, 4, 2 features at the six
+    depth-6 levels; 32 of 128 nodes), now beside the row lists; one thread
+    per row at the root, the staged loop below; clusters of 2 and one wave
+    of row blocks where one block fits an SM; a card that holds no block
+    raises rather than launching."""
+    card = _card(8)
+    want = {(1, 1): (28, 1, False), (1, 2): (28, 1, True),
+            (2, 2): (14, 2, True), (4, 2): (7, 4, True),
+            (8, 2): (4, 8, True), (16, 2): (2, 16, True),
+            (128, 2): (1, 32, True)}
+    for (n_nodes, stride), (fg, nt, staged) in want.items():
+        plan = hist_cuda.plan_q(1 << 20, 28, n_nodes, 256, 6, card, stride)
+        assert (plan.feat_group, plan.node_tile, plan.staged) == \
+            (fg, nt, staged)
+        assert (fg, nt) == _choose_block_before(28, n_nodes, 256, 6)
+    root = hist_cuda.plan_q(1 << 20, 28, 1, 256, 6, card)
+    assert root == hist_cuda.Plan(28, 1, 132, 2, hist_cuda.THREADS, False)
+    sixteen = hist_cuda.plan_q(1 << 20, 28, 16, 256, 6, card, 2)
+    assert (sixteen.cluster, sixteen.row_blocks) == (2, 2 * (66 // 14))
+    with pytest.raises(ValueError, match="holds no block of hist_q"):
+        hist_cuda.plan_q(1 << 20, 28, 16, 256, 6, lambda *a: 0, 2)

@@ -2,11 +2,12 @@
 its plain PyTorch version at rtol/atol 1e-4 (the same f32 sums, added by
 atomics in no fixed order) at the six levels of a depth-6 round, at other
 widths and row counts, with each cluster size, and a refused cluster launch
-raising; K2 (csrc/hist_q.cu) held against its plain
-version bitwise (exact int32 sums), both with nodes tiled over blocks at
-N = 128, and the trainer's launches of each counted.  Every test here needs
-a CUDA device and skips without one; the file imports neither JAX nor
-xgboost_tpu, so it runs on a machine that has only PyTorch."""
+raising; K2 (csrc/hist_q.cu) held against its plain version bitwise (exact
+int32 sums) at the same levels, widths, row counts and cluster sizes, on
+adversarial limbs, and a refused launch raising; both with nodes tiled over
+blocks at N = 128, and the trainer's launches of each counted.  Every test
+here needs a CUDA device and skips without one; the file imports neither
+JAX nor xgboost_tpu, so it runs on a machine that has only PyTorch."""
 import json
 
 import numpy as np
@@ -129,7 +130,7 @@ def test_refused_cluster_launch_raises():
     """A cluster that does not divide the row blocks is refused by the
     card; the wrapper raises and counts no launch."""
     args = _k1(*_mk(4096, 28, 256, 0, 1, 8))
-    plan = hist_cuda.F32Plan(28, 1, 6, 4, hist_cuda.K1_THREADS, False)
+    plan = hist_cuda.Plan(28, 1, 6, 4, hist_cuda.THREADS, False)
     before = hist_cuda.launches["hist_f32"]
     with pytest.raises(RuntimeError, match="launch failed"):
         hist_cuda.run_f32(*args, plan, node0=0, n_nodes=1, n_bin=256)
@@ -159,6 +160,104 @@ def test_q_kernel_matches_plain_bitwise(dtype, node0, n_nodes, stride):
     want = hist_cuda.build_histogram_q_plain(*args, **kw)
     assert got.dtype == torch.int32 and got.shape == want.shape
     assert torch.equal(got, want)
+
+
+def _q(bins, gpair, pos, dtype=torch.int16):
+    return (torch.from_numpy(bins).to(dtype).cuda(), _limbs(gpair),
+            torch.from_numpy(pos).cuda())
+
+
+def _plan_q(args, n_nodes, stride, cluster):
+    """K2's plan with cluster size ``cluster`` (the card's occupancy of
+    every other C taken as 0)."""
+    card = hist_cuda.card_max_clusters(args[0].device, args[0].dtype,
+                                       "hist_q")
+    R, F = args[0].shape
+    plan = hist_cuda.plan_q(
+        R, F, n_nodes, 256, 6,
+        lambda staged, smem, c: card(staged, smem, c) if c == cluster else 0,
+        stride)
+    assert plan.cluster == cluster and plan.row_blocks % cluster == 0
+    return plan
+
+
+@needs_cuda
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
+@pytest.mark.parametrize("node0,n_nodes,stride", [(0, 1, 1), (31, 16, 2),
+                                                  (255, 128, 2)])
+def test_q_each_cluster_size_matches_plain(cluster, node0, n_nodes, stride):
+    """K2 planned with each cluster size against the plain version,
+    bitwise, at the root (one thread per row), 16 nodes and a node-tiled
+    level (staged)."""
+    args = _q(*_mk(65536, 28, 256, node0, stride * n_nodes, cluster))
+    plan = _plan_q(args, n_nodes, stride, cluster)
+    kw = dict(node0=node0, n_nodes=n_nodes, n_bin=256, stride=stride)
+    assert torch.equal(hist_cuda.run_q(*args, plan, **kw),
+                       hist_cuda.build_histogram_q_plain(*args, **kw))
+
+
+@needs_cuda
+@pytest.mark.parametrize("n_features", [1, 3, 29])
+@pytest.mark.parametrize("node0,n_nodes,stride", [(0, 1, 1), (7, 4, 2),
+                                                  (31, 16, 2)])
+def test_q_kernel_matches_plain_at_other_widths(n_features, node0, n_nodes,
+                                                stride):
+    """Feature groups that do not divide F, and widths below a cluster's
+    blocks, bitwise."""
+    args = _q(*_mk(8192, n_features, 256, node0, stride * n_nodes, 5))
+    kw = dict(node0=node0, n_nodes=n_nodes, n_bin=256, stride=stride)
+    assert torch.equal(hist_cuda.build_histogram_q_cuda(*args, **kw),
+                       hist_cuda.build_histogram_q_plain(*args, **kw))
+
+
+@needs_cuda
+@pytest.mark.parametrize("n_rows", [1, 37, 1000, 3001])
+@pytest.mark.parametrize("node0,n_nodes,stride", [(0, 1, 1), (15, 8, 2)])
+def test_q_kernel_matches_plain_below_one_tile(n_rows, node0, n_nodes,
+                                               stride):
+    """Fewer rows than one block stages at once, bitwise."""
+    bins, gpair, pos = _mk(n_rows, 28, 256, node0, stride * n_nodes, 6)
+    pos[-1] = node0  # keep a row in the level even at R = 1
+    args = _q(bins, gpair, pos)
+    kw = dict(node0=node0, n_nodes=n_nodes, n_bin=256, stride=stride)
+    assert torch.equal(hist_cuda.build_histogram_q_cuda(*args, **kw),
+                       hist_cuda.build_histogram_q_plain(*args, **kw))
+
+
+@needs_cuda
+@pytest.mark.parametrize("limb", [-128, 127])
+@pytest.mark.parametrize("node0,n_nodes,stride", [(0, 1, 1), (1, 1, 2),
+                                                  (31, 16, 2)])
+def test_q_adversarial_limbs_match_plain(limb, node0, n_nodes, stride):
+    """Every row in bin 0 of every feature, in one node, with the same
+    extreme limbs: one cell per feature takes every row, in every block,
+    bitwise."""
+    R = 65536
+    bins = torch.zeros((R, 28), dtype=torch.int16, device="cuda")
+    gq = torch.full((R, 2, 3), limb, dtype=torch.int8, device="cuda")
+    pos = torch.full((R,), node0, dtype=torch.int32, device="cuda")
+    kw = dict(node0=node0, n_nodes=n_nodes, n_bin=256, stride=stride)
+    want = hist_cuda.build_histogram_q_plain(bins, gq, pos, **kw)
+    assert int(want[0, 0, 0, 0, 0]) == R * limb
+    assert torch.equal(hist_cuda.build_histogram_q_cuda(bins, gq, pos, **kw),
+                       want)
+
+
+@needs_cuda
+def test_refused_q_launch_raises():
+    """A cluster that does not divide the row blocks is refused by the
+    card; the wrapper raises and counts no launch, and the runtime's
+    error state is cleared, so the next launch runs."""
+    args = _q(*_mk(4096, 28, 256, 0, 1, 8))
+    kw = dict(node0=0, n_nodes=1, n_bin=256)
+    before = hist_cuda.launches["hist_q"]
+    plan = hist_cuda.Plan(28, 1, 6, 4, hist_cuda.THREADS, False)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        hist_cuda.run_q(*args, plan, **kw)
+    assert hist_cuda.launches["hist_q"] == before
+    assert torch.equal(hist_cuda.run_q(*args, plan._replace(cluster=2), **kw),
+                       hist_cuda.build_histogram_q_plain(*args, **kw))
+    assert hist_cuda.launches["hist_q"] == before + 1
 
 
 @needs_cuda

@@ -7,6 +7,7 @@ and their build, binding and dispatch.
   card's occupancy.
 - K2 ``hist_q`` (csrc/hist_q.cu, port of _hist_kernel_q): exact int32 sums
   of the int8 gradient limbs, the ``deterministic_histogram=1`` path.
+  Launched the same way, as ``plan_q`` plans.
 
 Each source is compiled with nvcc for sm_90a into its own shared library
 with a plain C interface at first use, into ``xgboost_tpu_torch/_build/``
@@ -37,8 +38,8 @@ from .quantise import hist_accumulate_q
 __all__ = ["build_histogram", "build_histogram_cuda", "build_histogram_plain",
            "build_histogram_q", "build_histogram_q_cuda",
            "build_histogram_q_plain", "build_all", "card_max_clusters",
-           "choose_block", "F32Plan", "load_library", "launches",
-           "plan_f32", "reset_launches", "run_f32", "slice_units",
+           "choose_block", "Plan", "load_library", "launches", "plan_f32",
+           "plan_q", "reset_launches", "run_f32", "run_q", "slice_units",
            "SOURCES"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -56,22 +57,23 @@ _BIN_CODES = {torch.uint8: 0, torch.int16: 1, torch.int32: 2}
 # shared memory one block may use for its histogram; 227 KB is the H100's
 # per-block opt-in limit, the rest is left for the runtime's own reservation
 SMEM_BUDGET = 220 * 1024
-THREADS = 512  # K2's block
-# K1: a block of 32 warps, and the static shared memory of its per-warp row
-# lists (32 warps x 95 rows x 8 bytes), taken from the histogram's budget
-K1_THREADS = 1024
-K1_STAGE_BYTES = 32 * 95 * 8
-CLUSTERS = (8, 4, 2, 1)  # cluster sizes K1 may use, largest first
+# a block of either kernel: 32 warps, and the static shared memory of their
+# per-warp row lists (32 warps x 95 rows x 8 bytes), taken from the
+# histogram's budget
+THREADS = 1024
+STAGE_BYTES = 32 * 95 * 8
+CLUSTERS = (8, 4, 2, 1)  # cluster sizes the kernels may use, largest first
 _vp, _ci = ctypes.c_void_p, ctypes.c_int
 # C signature of each kernel's entry point (name, argtypes)
 _ENTRY = {
-    "hist_f32": ("xtb_hist_f32", [_vp, _ci, _vp, _vp, _vp] + [_ci] * 12 + [_vp]),
-    "hist_q": ("xtb_hist_q", [_vp, _ci, _vp, _vp, _vp] + [_ci] * 11 + [_vp]),
+    "hist_f32": ("xtb_hist_f32", [_vp, _ci, _vp, _vp, _vp] + [_ci] * 12
+                 + [_vp]),
+    "hist_q": ("xtb_hist_q", [_vp, _ci, _vp, _vp, _vp] + [_ci] * 13 + [_vp]),
 }
 _libs: dict = {}
 _lib_lock = threading.Lock()
-_clusters: dict = {}  # (device, bin code, staged, threads, smem, C) -> count
-_plans: dict = {}  # K1's plan per (device, dtype, R, F, N, B, stride)
+_clusters: dict = {}  # (kernel, device, bin code, staged, threads, smem, C)
+_plans: dict = {}  # each kernel's plan per (device, dtype, shapes, stride)
 
 
 def reset_launches() -> None:
@@ -153,10 +155,9 @@ def load_library(name: str):
         fn = getattr(lib, entry)
         fn.argtypes = argtypes
         fn.restype = _ci
-        if name == "hist_f32":
-            lib.xtb_hist_f32_max_clusters.argtypes = [_ci] * 5 + [
-                ctypes.POINTER(_ci)]
-            lib.xtb_hist_f32_max_clusters.restype = _ci
+        query = getattr(lib, f"xtb_{name}_max_clusters")
+        query.argtypes = [_ci] * 5 + [ctypes.POINTER(_ci)]
+        query.restype = _ci
         lib.xtb_cuda_error_string.argtypes = [_ci]
         lib.xtb_cuda_error_string.restype = ctypes.c_char_p
         _libs[name] = lib
@@ -184,13 +185,6 @@ def choose_block(n_features: int, n_nodes: int, n_bin: int, words: int,
     return 1, -(-n_nodes // n_tiles)
 
 
-def _row_blocks(n_rows: int, n_blocks: int, n_sm: int) -> int:
-    # K2: about two blocks in flight per SM over the whole grid, and no block
-    # with fewer rows than its threads
-    want = max(1, (2 * n_sm) // n_blocks)
-    return max(1, min(want, n_rows // THREADS))
-
-
 def _check(bins, vals, pos, vals_dtype, vals_tail, n_nodes, n_bin, stride):
     """The checks both kernels share; raises on what they cannot take."""
     if not (bins.is_cuda and vals.is_cuda and pos.is_cuda):
@@ -215,14 +209,6 @@ def _check(bins, vals, pos, vals_dtype, vals_tail, n_nodes, n_bin, stride):
         raise ValueError("n_nodes, stride and n_bin must be positive")
 
 
-def _grid(bins, n_nodes: int, n_bin: int, words: int):
-    """(features per block, nodes per block, row blocks) of a K2 launch."""
-    R, F = bins.shape
-    fg, nt = choose_block(F, n_nodes, n_bin, words)
-    n_sm = torch.cuda.get_device_properties(bins.device).multi_processor_count
-    return fg, nt, _row_blocks(R, -(-F // fg) * -(-n_nodes // nt), n_sm)
-
-
 def _launched(name: str, lib, rc: int) -> None:
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: "
@@ -230,10 +216,10 @@ def _launched(name: str, lib, rc: int) -> None:
     launches[name] += 1
 
 
-class F32Plan(NamedTuple):
-    """K1's launch: features and nodes per block, row blocks (a multiple of
-    ``cluster``), blocks per cluster along the row blocks, threads, and
-    the row loop (True: staged; False: one thread per row)."""
+class Plan(NamedTuple):
+    """A kernel's launch: features and nodes per block, row blocks (a
+    multiple of ``cluster``), blocks per cluster along the row blocks,
+    threads, and the row loop (True: staged; False: one thread per row)."""
     feat_group: int
     node_tile: int
     row_blocks: int
@@ -242,25 +228,26 @@ class F32Plan(NamedTuple):
     staged: bool
 
 
-def plan_f32(n_rows: int, n_features: int, n_nodes: int, n_bin: int,
-             max_clusters: Callable[[bool, int, int], int],
-             stride: int = 1) -> F32Plan:
-    """K1's launch geometry.  Features and nodes per block as
-    ``choose_block`` picks them, within the budget left beside the row
-    lists.  The staged row loop where the level skips rows (``stride`` > 1
-    or more than one node tile), one thread per row where every row
-    counts.  Then the cluster size C of ``CLUSTERS``, no larger than the
-    (node, feature) pairs a block has to flush, whose wave holds the most
-    blocks, and of those the largest: ``max_clusters(staged, smem, C)`` is
-    the most clusters of C blocks with ``smem`` bytes of histogram the card
-    holds at once (``card_max_clusters``).  The row loop is bound by each
-    SM's shared-memory atomics, so a wave that leaves SMs idle costs more
-    than the flush that a smaller C adds.  Last, as many row blocks per
+def _plan(n_rows: int, n_features: int, n_nodes: int, n_bin: int,
+          words: int, max_clusters: Callable[[bool, int, int], int],
+          stride: int, kernel: str) -> Plan:
+    """The launch of ``kernel``, whose cell is ``words`` 4-byte words.
+    Features and nodes per block as ``choose_block`` picks them, within
+    the budget left beside the row lists.  The staged row loop where the
+    level skips rows (``stride`` > 1 or more than one node tile), one
+    thread per row where every row counts.  Then the cluster size C of
+    ``CLUSTERS``, no larger than the (node, feature) pairs a block has to
+    flush, whose wave holds the most blocks, and of those the largest:
+    ``max_clusters(staged, smem, C)`` is the most clusters of C blocks with
+    ``smem`` bytes of histogram the card holds at once
+    (``card_max_clusters``).  The row loop is bound by each SM's
+    shared-memory atomics, so a wave that leaves SMs idle costs more than
+    the flush that a smaller C adds.  Last, as many row blocks per
     (feature group, node tile) as fill that wave, and no more than the rows
     give a block's threads one row each."""
-    fg, nt = choose_block(n_features, n_nodes, n_bin, 2,
-                          SMEM_BUDGET - K1_STAGE_BYTES)
-    smem = fg * nt * n_bin * 8
+    fg, nt = choose_block(n_features, n_nodes, n_bin, words,
+                          SMEM_BUDGET - STAGE_BYTES)
+    smem = fg * nt * n_bin * words * 4
     n_tiles = -(-n_nodes // nt)
     n_cols = -(-n_features // fg) * n_tiles
     staged = stride > 1 or n_tiles > 1
@@ -269,49 +256,80 @@ def plan_f32(n_rows: int, n_features: int, n_nodes: int, n_bin: int,
     wave = {c: c * max_clusters(staged, smem, c) for c in CLUSTERS
             if c <= fg * nt}
     if not any(wave.values()):
-        raise ValueError(f"the card holds no block of K1 with {smem} B of "
-                         "histogram")
+        raise ValueError(f"the card holds no block of {kernel} with {smem} B "
+                         "of histogram")
     cluster = max(wave, key=lambda c: (wave[c], c))
     per_col = min(wave[cluster] // cluster // n_cols,
-                  -(-n_rows // (cluster * K1_THREADS)))
-    return F32Plan(fg, nt, cluster * max(1, per_col), cluster, K1_THREADS,
-                   staged)
+                  -(-n_rows // (cluster * THREADS)))
+    return Plan(fg, nt, cluster * max(1, per_col), cluster, THREADS, staged)
+
+
+def plan_f32(n_rows: int, n_features: int, n_nodes: int, n_bin: int,
+             max_clusters: Callable[[bool, int, int], int],
+             stride: int = 1) -> Plan:
+    """K1's launch geometry (``_plan`` with (g, h) f32 cells)."""
+    return _plan(n_rows, n_features, n_nodes, n_bin, 2, max_clusters, stride,
+                 "hist_f32")
+
+
+def plan_q(n_rows: int, n_features: int, n_nodes: int, n_bin: int,
+           n_ch: int, max_clusters: Callable[[bool, int, int], int],
+           stride: int = 1) -> Plan:
+    """K2's launch geometry (``_plan`` with cells of ``n_ch`` int32 limb
+    sums; ``max_clusters`` from ``card_max_clusters(..., "hist_q")``)."""
+    return _plan(n_rows, n_features, n_nodes, n_bin, n_ch, max_clusters,
+                 stride, "hist_q")
 
 
 def slice_units(n_units: int, cluster: int, rank: int) -> range:
     """The (node, feature) pairs, numbered slot * fg + feature, that block
-    ``rank`` of a K1 cluster sums over the cluster and flushes: the split
-    of the flush in csrc/hist.cu."""
+    ``rank`` of a cluster sums over the cluster and flushes: the split of
+    the flush in csrc/hist.cu and csrc/hist_q.cu."""
     return range(rank * n_units // cluster, (rank + 1) * n_units // cluster)
 
 
-def card_max_clusters(device,
-                      bin_dtype) -> Callable[[bool, int, int], int]:
-    """``max_clusters`` for ``plan_f32`` on ``device``: the driver's
-    cudaOccupancyMaxActiveClusters for K1 with ``bin_dtype`` bins, queried
-    once per (row loop, histogram bytes, C) and cached.  Raises if the
-    query fails."""
+def card_max_clusters(device, bin_dtype, kernel: str = "hist_f32"
+                      ) -> Callable[[bool, int, int], int]:
+    """``max_clusters`` for ``plan_f32`` (or, with ``kernel="hist_q"``,
+    ``plan_q``) on ``device``: the CUDA runtime's
+    cudaOccupancyMaxActiveClusters for that kernel with ``bin_dtype``
+    bins, queried once per (row loop, histogram bytes, C) and cached.
+    Raises if the query fails."""
     code = _BIN_CODES[bin_dtype]
-    lib = load_library("hist_f32")
+    lib = load_library(kernel)
+    fn = getattr(lib, f"xtb_{kernel}_max_clusters")
 
     def query(staged: bool, smem: int, cluster: int) -> int:
-        key = (str(device), code, staged, K1_THREADS, smem, cluster)
+        key = (kernel, str(device), code, staged, THREADS, smem, cluster)
         if key not in _clusters:
             n = _ci(0)
             with torch.cuda.device(device):
-                rc = lib.xtb_hist_f32_max_clusters(
-                    code, smem, cluster, K1_THREADS, int(staged),
-                    ctypes.byref(n))
+                rc = fn(code, smem, cluster, THREADS, int(staged),
+                        ctypes.byref(n))
             if rc != 0:
                 raise RuntimeError(
-                    "hist_f32 occupancy query failed: "
+                    f"{kernel} occupancy query failed: "
                     + lib.xtb_cuda_error_string(rc).decode())
             _clusters[key] = n.value
         return _clusters[key]
     return query
 
 
-def run_f32(bins, gpair, pos, plan: F32Plan, *, node0: int, n_nodes: int,
+def _planned(kernel: str, bins, n_nodes: int, n_bin: int, stride: int,
+             words: int) -> Plan:
+    """``kernel``'s launch for these inputs, planned once per (card, bin
+    type, shapes, level) and cached."""
+    R, F = bins.shape
+    key = (kernel, str(bins.device), bins.dtype, R, F, words, n_nodes, n_bin,
+           stride)
+    if key not in _plans:
+        _plans[key] = _plan(R, F, n_nodes, n_bin, words,
+                            card_max_clusters(bins.device, bins.dtype, kernel),
+                            stride, kernel)
+    return _plans[key]
+
+
+def run_f32(bins, gpair, pos, plan: Plan, *, node0: int, n_nodes: int,
             n_bin: int, stride: int = 1):
     """Launch K1 with ``plan``: hist (n_nodes, F, n_bin, 2) f32 on the
     inputs' card.  A launch the card refuses raises."""
@@ -337,26 +355,27 @@ def build_histogram_cuda(bins, gpair, pos, *, node0: int, n_nodes: int,
                          n_bin: int, stride: int = 1):
     """Launch K1: hist (n_nodes, F, n_bin, 2) f32 on the inputs' card."""
     _check(bins, gpair, pos, torch.float32, (2,), n_nodes, n_bin, stride)
-    key = (str(bins.device), bins.dtype, *bins.shape, n_nodes, n_bin, stride)
-    plan = _plans.get(key)
-    if plan is None:
-        plan = _plans[key] = plan_f32(
-            bins.shape[0], bins.shape[1], n_nodes, n_bin,
-            card_max_clusters(bins.device, bins.dtype), stride)
-    return run_f32(bins, gpair, pos, plan, node0=node0, n_nodes=n_nodes,
-                   n_bin=n_bin, stride=stride)
+    return run_f32(bins, gpair, pos,
+                   _planned("hist_f32", bins, n_nodes, n_bin, stride, 2),
+                   node0=node0, n_nodes=n_nodes, n_bin=n_bin, stride=stride)
 
 
-def build_histogram_q_cuda(bins, gq, pos, *, node0: int, n_nodes: int,
-                           n_bin: int, stride: int = 1):
-    """Launch K2: exact limb hist (n_nodes, F, n_bin, C, 3) int32 from gq
-    (R, C, 3) int8 on the inputs' card."""
+def _check_q(bins, gq, pos, n_nodes, n_bin, stride):
     if gq.dim() != 3 or gq.shape[-1] != 3:
         raise ValueError(f"gq must be (R, C, 3) int8 limbs, got "
                          f"{tuple(gq.shape)}")
-    C = gq.shape[1]
-    _check(bins, gq, pos, torch.int8, (C, 3), n_nodes, n_bin, stride)
+    _check(bins, gq, pos, torch.int8, tuple(gq.shape[1:]), n_nodes, n_bin,
+           stride)
+
+
+def run_q(bins, gq, pos, plan: Plan, *, node0: int, n_nodes: int,
+          n_bin: int, stride: int = 1):
+    """Launch K2 with ``plan``: exact limb hist (n_nodes, F, n_bin, C, 3)
+    int32 from gq (R, C, 3) int8 on the inputs' card.  A launch the card
+    refuses raises."""
+    _check_q(bins, gq, pos, n_nodes, n_bin, stride)
     R, F = bins.shape
+    C = gq.shape[1]
     out = torch.zeros((n_nodes, F, n_bin, C, 3), dtype=torch.int32,
                       device=bins.device)
     if R == 0 or F == 0:
@@ -367,10 +386,22 @@ def build_histogram_q_cuda(bins, gq, pos, *, node0: int, n_nodes: int,
         rc = lib.xtb_hist_q(
             bins.data_ptr(), _BIN_CODES[bins.dtype], gq.data_ptr(),
             pos.data_ptr(), out.data_ptr(), R, F, n_bin, 3 * C, node0,
-            n_nodes, stride, *_grid(bins, n_nodes, n_bin, 3 * C), THREADS,
+            n_nodes, stride, plan.feat_group, plan.node_tile,
+            plan.row_blocks, plan.cluster, plan.threads, int(plan.staged),
             stream)
     _launched("hist_q", lib, rc)
     return out
+
+
+def build_histogram_q_cuda(bins, gq, pos, *, node0: int, n_nodes: int,
+                           n_bin: int, stride: int = 1):
+    """Launch K2: exact limb hist (n_nodes, F, n_bin, C, 3) int32 from gq
+    (R, C, 3) int8 on the inputs' card."""
+    _check_q(bins, gq, pos, n_nodes, n_bin, stride)
+    return run_q(bins, gq, pos,
+                 _planned("hist_q", bins, n_nodes, n_bin, stride,
+                          3 * gq.shape[1]),
+                 node0=node0, n_nodes=n_nodes, n_bin=n_bin, stride=stride)
 
 
 def build_histogram_q_plain(bins, gq, pos, *, node0: int, n_nodes: int,
