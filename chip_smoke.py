@@ -14,27 +14,46 @@ holds each CUDA kernel against its plain PyTorch version:
      (features and nodes per block, row blocks, cluster size, threads, row
      loop) and the sum over the six levels; plus a 128-node level whose
      nodes are tiled
+     and the best-first grower's launch (101, 2, 1), two consecutive nodes
+     holding 2% of the rows
   2b. K2 vs plain: the exact limb histogram kernel (csrc/hist_q.cu) against
      build_histogram_q_plain at the same shapes, bitwise, with K2's launch
      plan (the same fields as K1's) and its six-level sum; plus an
      adversarial input at R=1,048,576, every row in bin 0 of every feature
      with the same extreme limbs (-128, then 127), at the root, the first
      level and 16 nodes
+  2c. K3 vs plain: the split scan kernel (csrc/split_scan.cu) against
+     split_scan_plain, bitwise, at the six level shapes of a depth-6 round
+     (N = 1 to 32 nodes x 28 features x 256 bins) and the best-first
+     grower's N = 2, unconstrained and monotone, with ties, nodes without
+     a candidate, a dead slot and masked features; timings of the kernel,
+     the plain version, the cumsum formulation it replaced (the port's
+     scan before it) and the bound
   3. train: 1,000,000 x 28 HIGGS-shaped rows, binary:logistic, max_bin=256,
      max_depth=6, eta=0.3, 10 rounds, evaluated on the training set; K1
-     launches 6 times per round and K2 never
+     and K3 launch 6 times per round and K2 never
   3b. profile: device time by kernel over two training rounds and the
      card's idle share
-  3c. the same training with deterministic_histogram=1: K2 launches 6 times
-     per round and K1 never, and two runs write byte-identical models
+  3c. the same training with deterministic_histogram=1: K2 and K3 launch 6
+     times per round and K1 never, and two runs write byte-identical models
   3d. profile of 3c
   4. predict 100k rows, save JSON and UBJ, reload, predict identically
   5. small-input parity: the same small training on the card and on the CPU
      (whose histograms are the plain versions the tests hold against the
      JAX reference) must grow the same trees
-  5b. phase 5 under deterministic_histogram=1, alone and with monotone and
-     interaction constraints, column sampling and max_leaves; the
-     constrained model at full width must not decrease along feature 0
+  5b. phase 5 under deterministic_histogram=1, alone, with monotone and
+     interaction constraints, column sampling and max_leaves, and with
+     subsample=0.8: the card's model JSON must be byte-identical to the
+     CPU's; the constrained model at full width must not decrease along
+     feature 0
+  6. lossguide at full width: the phase 3 data with grow_policy=lossguide,
+     max_depth=0, max_leaves=255, subsample=0.8, colsample_bynode=0.8, 10
+     rounds; AUC > 0.9, K1 and K3 launched once per tree and once per
+     expansion; the train loop's median of 3 runs and expansions per second
+  6b. lossguide (max_leaves=31) card vs CPU at 20,000 rows with
+     feature_weights, under uniform and gradient_based sampling: the same
+     trees, predictions within 1e-4, and the card's uniform row masks
+     equal to the CPU's bitwise
 
 Run from the repository root: ``python3 chip_smoke.py``.  Exits non-zero if
 any phase fails or no CUDA device is present.  Each phase prints its
@@ -191,6 +210,9 @@ LEVELS = ((0, 1, 1), (1, 1, 2), (3, 2, 2), (7, 4, 2), (15, 8, 2),
           (31, 16, 2))
 SHAPES = LEVELS + ((15, 16, 2),)
 TILED = (255, 128, 2)
+# a best-first expansion: both children of one split, consecutive ids, at
+# stride 1, with 2% of the rows (the rest sit on other leaves)
+BEST_FIRST = (101, 2, 1)
 # the shapes the kernels line sums, as it has since the first slice
 LINE_SHAPES = ((0, 1, 1), (15, 16, 2), (31, 16, 2))
 
@@ -217,9 +239,12 @@ def phase_kernels(hist_cuda, name: str, label: str):
         gpair = torch.from_numpy(np.stack(
             [rng.normal(size=R), rng.random(R)], 1).astype(np.float32)).cuda()
         vals = gpair if name == "hist_f32" else _limbs(gpair)
-        shapes = SHAPES + ((TILED,) if dtype == torch.int16 else ())
+        shapes = SHAPES + ((TILED, BEST_FIRST) if dtype == torch.int16
+                           else ())
         for node0, n_nodes, stride in shapes:
             p = rng.integers(node0, node0 + stride * n_nodes, size=R)
+            if (node0, n_nodes, stride) == BEST_FIRST:
+                p = rng.integers(0, 2 * node0, size=R)
             p[rng.random(R) < 0.02] = -1  # pad rows
             pos = torch.from_numpy(p.astype(np.int32)).cuda()
             case = _case(hist_cuda, name, bins, vals, pos, node0=node0,
@@ -281,7 +306,7 @@ def _train_main_path(xtt, hist_cuda, params, dtrain, n_rows, rounds, kernel,
     before and read just after.  Returns the first two boosters, the first
     run's launches, the metrics and the timed loops' median rate."""
     want = {name: 0 for name in hist_cuda.SOURCES}
-    want[kernel] = 6 * rounds
+    want[kernel] = want["split_scan"] = 6 * rounds
     hist_cuda.reset_launches()
     evals_result: dict = {}
     t0 = time.perf_counter()
@@ -312,6 +337,7 @@ def _train_main_path(xtt, hist_cuda, params, dtrain, n_rows, rounds, kernel,
     if not auc > 0.9:
         raise AssertionError(f"phase {label}: AUC {auc} <= 0.9")
     return dict(bst=bst, timed=timed, launches=launches[kernel],
+                scan_launches=launches["split_scan"],
                 logloss=logloss, auc=auc, train_s=train_s,
                 rate=n_rows * rounds / train_s / 1e6,
                 times=" ".join(f"{t:.3f}" for t in times),
@@ -332,8 +358,8 @@ def phase_train(xtt, hist_cuda, X, y, rounds: int):
         f"median {r['train_s']:.3f} s = {r['rate']:.3f} M row-rounds/s "
         f"(runs {r['times']} s); with eval "
         f"{r['with_eval_s']:.3f} s; logloss {r['logloss']:.6f} auc "
-        f"{r['auc']:.6f}; K1 launches {r['launches']}; two f32 runs gave "
-        f"byte-identical models: {r['same_bytes']}")
+        f"{r['auc']:.6f}; K1 and K3 launches {r['launches']} each; two f32 "
+        f"runs gave byte-identical models: {r['same_bytes']}")
     return r, dtrain
 
 
@@ -349,8 +375,8 @@ def phase_train_det(xtt, hist_cuda, dtrain, n_rows, rounds, f32):
         f"median {r['train_s']:.3f} s = {r['rate']:.3f} M row-rounds/s (runs "
         f"{r['times']} s; f32 path, phase 3: {f32['rate']:.3f}); with eval "
         f"{r['with_eval_s']:.3f} s; "
-        f"logloss {r['logloss']:.6f} auc {r['auc']:.6f}; K2 launches "
-        f"{r['launches']}, K1 0; two runs byte-identical: True")
+        f"logloss {r['logloss']:.6f} auc {r['auc']:.6f}; K2 and K3 launches "
+        f"{r['launches']} each, K1 0; two runs byte-identical: True")
     return r
 
 
@@ -408,14 +434,16 @@ def phase_predict(xtt, bst, X):
         "identically")
 
 
-def _card_vs_cpu(xtt, params, X, y, rounds, atol, label):
+def _card_vs_cpu(xtt, params, X, y, rounds, atol, label, identical=False,
+                 **dm):
     """Train the same small input on the card and on the CPU (whose
     histograms are the plain versions the tests hold against the JAX
     reference): the cuts (device sketch on the card, host grid on the CPU)
     must agree bitwise at this size, the trees must be the same and the
-    predictions within ``atol``."""
-    d_card = xtt.DMatrix(X, label=y)
-    d_cpu = xtt.DMatrix(X, label=y, device="cpu")
+    predictions within ``atol``; with ``identical`` the model JSON must be
+    byte-identical."""
+    d_card = xtt.DMatrix(X, label=y, **dm)
+    d_cpu = xtt.DMatrix(X, label=y, device="cpu", **dm)
     cuts = [d.ensure_ellpack(params["max_bin"]).cuts.cut_values
             for d in (d_card, d_cpu)]
     if not np.array_equal(cuts[0].view(np.uint32), cuts[1].view(np.uint32)):
@@ -434,9 +462,13 @@ def _card_vs_cpu(xtt, params, X, y, rounds, atol, label):
         raise AssertionError(f"phase {label}: card and CPU predictions "
                              f"differ by {diff}")
     leaves = max(int((t.left_children == -1).sum()) for t in got.trees)
+    same = _model_bytes(got) == _model_bytes(ref)
     log(f"phase {label} parity: card vs CPU on {X.shape[0]} rows, same "
         f"trees (at most {leaves} leaves), max |pred diff| {diff:.3g}; "
-        f"model JSON byte-identical: {_model_bytes(got) == _model_bytes(ref)}")
+        f"model JSON byte-identical: {same}")
+    if identical and not same:
+        raise AssertionError(f"phase {label}: the card's model JSON is not "
+                             "the CPU's")
 
 
 SMALL = {"objective": "binary:logistic", "max_depth": 4, "max_bin": 64,
@@ -460,9 +492,11 @@ def phase_parity_det(xtt, dtrain, X):
     the constrained model at full width must not decrease along feature 0."""
     Xs, ys = make_data(20_000, 28, seed=3)
     det = dict(SMALL, deterministic_histogram=1)
-    _card_vs_cpu(xtt, det, Xs, ys, 5, 1e-5, "5b")
+    _card_vs_cpu(xtt, det, Xs, ys, 5, 1e-5, "5b", identical=True)
     _card_vs_cpu(xtt, dict(det, **CONSTRAINED), Xs, ys, 5, 1e-5,
-                 "5b constrained")
+                 "5b constrained", identical=True)
+    _card_vs_cpu(xtt, dict(det, subsample=0.8, seed=7), Xs, ys, 5, 1e-5,
+                 "5b subsample", identical=True)
     bst = xtt.train(dict(DET, **CONSTRAINED), dtrain, 10, verbose_eval=False)
     grid = np.linspace(-3, 3, 20, dtype=np.float32)
     rows = np.repeat(X[:2000], len(grid), axis=0)
@@ -477,10 +511,229 @@ def phase_parity_det(xtt, dtrain, X):
         f"decrease (largest step {steps.max():.4g})")
 
 
+# ------------------------------------------------------------------ K3
+SCAN_LEVELS = (1, 2, 4, 8, 16, 32)  # nodes at depths 0-5 of a depth-6 tree
+SCAN_F, SCAN_B = 28, 256
+
+
+def _scan_inputs(N, F, B, seed):
+    """A level's split-scan inputs: histograms with ~5% missing mass and
+    n_bins below B, repeated bins and features (ties), a node whose every
+    bin fails min_child_weight (no candidate), a dead slot, 30% of the
+    features masked per node, monotone bounds and constraints."""
+    rng = np.random.default_rng(seed)
+    h = rng.normal(size=(N, F, B, 2)).astype(np.float32)
+    h[..., 1] = np.abs(h[..., 1]) * 2
+    h[:, :, 1::2] = h[:, :, ::2][:, :, : B // 2]
+    h[:, 1::2] = h[:, ::2][:, : F // 2]
+    nb = rng.integers(B // 2, B + 1, size=F).astype(np.int32)
+    for f in range(F):
+        h[:, f, nb[f]:] = 0.0
+    tot = (h[:, 0].sum(1) * np.float32(1.05)).astype(np.float32)
+    if N > 2:
+        h[0, :, :, 1] = 1e-4
+        tot[0, 1] = np.float32(B * 1e-4 + 1e-3)
+    if N > 1:
+        h[-1] = 0.0
+        tot[-1] = 0.0
+    fm = rng.random((N, F)) < 0.7
+    bounds = np.stack([rng.normal(size=N) - 1.5, rng.normal(size=N) + 1.5],
+                      1).astype(np.float32)
+    mono = tuple(int(c) for c in rng.integers(-1, 2, size=F))
+    T = torch.from_numpy
+    return T(h), T(tot), T(nb), T(fm), T(bounds), mono
+
+
+def _cumsum_scan(hist, totals, n_bins, p, fm):
+    """The port's unconstrained split scan before K3 (torch.cumsum and
+    about 40 elementwise PyTorch ops a level): a timing yardstick only."""
+    N, F, B, _ = hist.shape
+    cum = hist.cumsum(dim=2)
+    miss = totals[:, None, :] - cum[:, :, -1, :]
+
+    def gain(G, H):
+        t = torch.sign(G) * torch.clamp(G.abs() - p.alpha, min=0.0)
+        return torch.where(H <= 0.0, 0.0, t * t / (H + p.lambda_))
+
+    parent = gain(totals[:, 0], totals[:, 1])[:, None, None]
+
+    def side(GL, HL):
+        GR = totals[:, None, None, 0] - GL
+        HR = totals[:, None, None, 1] - HL
+        ok = (HL >= p.min_child_weight) & (HR >= p.min_child_weight) \
+            & (HL > 0.0) & (HR > 0.0)
+        return torch.where(ok, gain(GL, HL) + gain(GR, HR) - parent,
+                           -torch.inf)
+
+    g_r = side(cum[..., 0], cum[..., 1])
+    g_l = side(cum[..., 0] + miss[:, :, None, 0],
+               cum[..., 1] + miss[:, :, None, 1])
+    b = torch.arange(B, device=hist.device)
+    nb = n_bins.long()
+    ok = (b[None, :] < nb[:, None] - 1)[None] | (
+        (b[None, None, :] == nb[None, :, None] - 1)
+        & (miss[:, :, 1:2].abs() > 1e-6))
+    ok = ok & fm[:, :, None]
+    g_r = torch.where(ok, g_r, -torch.inf)
+    g_l = torch.where(ok, g_l, -torch.inf)
+    left = g_l >= g_r
+    best = torch.where(left, g_l, g_r).reshape(N, -1).argmax(1)
+    return best, left.reshape(N, -1).gather(1, best[:, None])
+
+
+def phase_split_scan(hist_cuda):
+    """K3 against its plain version, bitwise, on the card's inputs and on
+    their CPU copies, at the depth-6 level shapes and N = 2."""
+    from xgboost_tpu_torch.ops.split import SplitParams, split_scan_plain
+
+    cases = []
+    for mode in ("native", "monotone"):
+        for N in SCAN_LEVELS:
+            h, tot, nb, fm, bounds, mono = _scan_inputs(N, SCAN_F, SCAN_B,
+                                                        seed=N)
+            p = SplitParams(eta=0.3, gamma=0.0, min_child_weight=1.0,
+                            lambda_=1.0, alpha=0.0, max_delta_step=0.0,
+                            monotone=mono if mode == "monotone" else None)
+            args = [t.cuda() for t in (h, tot, nb, fm, bounds)]
+            got = hist_cuda.split_scan_cuda(*args[:3], p, args[3], args[4])
+            torch.cuda.synchronize()
+            want = split_scan_plain(h, tot, nb, p, fm, bounds)
+            on_card = split_scan_plain(*args[:3], p, args[3], args[4])
+            err, same, same_card = 0.0, True, True
+            for a, b, c in zip(got, want, on_card):
+                a, c = a.cpu(), c.cpu()
+                if a.dtype == torch.float32:
+                    fin = torch.isfinite(b)
+                    if fin.any():
+                        err = max(err, float((a[fin] - b[fin]).abs().max()))
+                    a, b, c = (t.view(torch.int32) for t in (a, b, c))
+                same &= torch.equal(a, b)
+                same_card &= torch.equal(c, b)
+            kernel_ms = cuda_ms(lambda: hist_cuda.split_scan_cuda(
+                *args[:3], p, args[3], args[4]))
+            plain_ms = cuda_ms(lambda: split_scan_plain(
+                *args[:3], p, args[3], args[4]), reps=5)
+            cumsum_ms = (cuda_ms(lambda: _cumsum_scan(*args[:3], p, args[3]))
+                         if mode == "native" else None)
+            # the histogram read once, the totals, n_bins, mask and bounds,
+            # six outputs per node; about 30 f32 operations per (node,
+            # feature, bin) for both directions' gains
+            n_bytes = (h.numel() * 4 + N * 8 + SCAN_F * 4 + N * SCAN_F
+                       + N * 8 + N * 30)
+            t_bytes = n_bytes / HBM_BYTES_PER_S
+            t_ops = 30 * N * SCAN_F * SCAN_B / F32_FLOPS
+            case = dict(kernel="split_scan", mode=mode, n_nodes=N, F=SCAN_F,
+                        B=SCAN_B, bitwise=same, plain_on_card_bitwise=same_card,
+                        max_abs_err=err, kernel_ms=kernel_ms,
+                        plain_ms=plain_ms, cumsum_scan_ms=cumsum_ms,
+                        bound_ms=max(t_bytes, t_ops) * 1e3,
+                        bound_by="bytes" if t_bytes >= t_ops else "operations")
+            cases.append(case)
+            log("phase 2c kernel vs plain: " + json.dumps(case))
+    bad = [c for c in cases if not c["bitwise"]]
+    if bad:
+        raise AssertionError(f"split_scan disagrees with its plain version: "
+                             f"{bad}")
+    lv = [c for c in cases if c["mode"] == "native"]
+    log(f"phase 2c six-level sum (one depth-6 round's scans, unconstrained):"
+        f" kernel {sum(c['kernel_ms'] for c in lv):.4f} ms, cumsum "
+        f"formulation {sum(c['cumsum_scan_ms'] for c in lv):.4f} ms, plain "
+        f"{sum(c['plain_ms'] for c in lv):.4f} ms, bound "
+        f"{sum(c['bound_ms'] for c in lv):.4f} ms")
+    return cases
+
+
+# ------------------------------------------------------------- lossguide
+LOSSGUIDE = {"objective": "binary:logistic", "max_bin": 256,
+             "grow_policy": "lossguide", "max_depth": 0, "max_leaves": 255,
+             "subsample": 0.8, "colsample_bynode": 0.8, "eta": 0.3}
+
+
+def _splits(bst):
+    return [int((t.left_children != -1).sum()) for t in bst.trees]
+
+
+def phase_lossguide(xtt, hist_cuda, dtrain, n_rows, rounds: int = 10,
+                    repeats: int = 3):
+    """grow_policy=lossguide at full width: K1 and K3 launched once at each
+    tree's root and once per expansion, AUC > 0.9, the train loop's median
+    and expansions per second."""
+    hist_cuda.reset_launches()
+    res: dict = {}
+    bst = xtt.train(dict(LOSSGUIDE, eval_metric=["logloss", "auc"]), dtrain,
+                    rounds, evals=[(dtrain, "train")], evals_result=res,
+                    verbose_eval=False)
+    torch.cuda.synchronize()
+    splits = _splits(bst)
+    want = {"hist_f32": rounds + sum(splits), "hist_q": 0,
+            "split_scan": rounds + sum(splits)}
+    if hist_cuda.launches != want:
+        raise AssertionError(f"phase 6: launches {hist_cuda.launches}, want "
+                             f"{want} for splits {splits}")
+    auc = res["train"]["auc"][-1]
+    if not auc > 0.9:
+        raise AssertionError(f"phase 6: AUC {auc} <= 0.9")
+    times, expansions = [], []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        run = xtt.train(LOSSGUIDE, dtrain, rounds, verbose_eval=False)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        expansions.append(sum(_splits(run)))
+    k = times.index(statistics.median(times))
+    depth = max(t.max_depth for t in bst.trees)
+    log(f"phase 6 lossguide: {n_rows} x 28, max_leaves=255, subsample=0.8, "
+        f"colsample_bynode=0.8, {rounds} rounds; splits per tree {splits}; "
+        f"deepest tree {depth}; K1 {want['hist_f32']} and K3 "
+        f"{want['split_scan']} launches; logloss "
+        f"{res['train']['logloss'][-1]:.6f} auc {auc:.6f}; train loop median "
+        f"{times[k]:.3f} s (runs {' '.join(f'{t:.3f}' for t in times)}) = "
+        f"{expansions[k] / times[k]:.1f} expansions/s, "
+        f"{n_rows * rounds / times[k] / 1e6:.3f} M row-rounds/s")
+
+
+def phase_lossguide_parity(xtt):
+    """Lossguide card vs CPU at 20,000 rows with feature_weights, under both
+    sampling methods; the card's uniform row masks equal the CPU's."""
+    X, y = make_data(20_000, 28, seed=3)
+    fw = np.linspace(0.2, 2.0, 28).astype(np.float32)
+    base = dict(LOSSGUIDE, max_leaves=31, max_bin=64, seed=5,
+                colsample_bytree=0.8)
+    _card_vs_cpu(xtt, dict(base, subsample=0.8), X, y, 3, 1e-4,
+                 "6b uniform", feature_weights=fw)
+    _card_vs_cpu(xtt, dict(base, subsample=0.5,
+                           sampling_method="gradient_based"), X, y, 3, 1e-4,
+                 "6b gradient_based", feature_weights=fw)
+    masks = []
+    for dev in ("cuda", "cpu"):
+        bst = xtt.Booster(dict(base, subsample=0.8), device=dev)
+        bst._configure()
+        g = torch.ones((1 << 20, 1, 2), device=dev)
+        masks.append(bst._subsample_mask(g, 131)[:, 0, 0].cpu())
+    if not torch.equal(masks[0], masks[1]):
+        raise AssertionError("phase 6b: the card's row masks are not the "
+                             "CPU's")
+    log(f"phase 6b masks: {1 << 20} uniform row draws, card equal to CPU "
+        f"bitwise ({int(masks[0].sum())} rows kept)")
+
+
 def _kernel_entry(name, source, cases, launches):
-    # the line sums the three int16 shapes it has summed since the first
-    # slice, (0, 1, 1), (15, 16, 2) and (31, 16, 2); the six levels' sum is
-    # phase 2's line
+    # K1 and K2: the line sums the three int16 shapes it has summed since
+    # the first slice, (0, 1, 1), (15, 16, 2) and (31, 16, 2), the six
+    # levels' sum is phase 2's line; K3: the six depth-6 levels,
+    # unconstrained (the main path's scan)
+    if name == "split_scan":
+        main = [c for c in cases if c["mode"] == "native"
+                and c["n_nodes"] in SCAN_LEVELS]
+        return {
+            "name": name, "route": "cuda", "source": source,
+            "replaces": REPLACES[name], "launches": launches,
+            "max_abs_err": max(c["max_abs_err"] for c in cases),
+            "ms": sum(c["kernel_ms"] for c in main),
+            "plain_ms": sum(c["plain_ms"] for c in main),
+            "bound_ms": sum(c["bound_ms"] for c in main),
+            "bound_by": main[0]["bound_by"], "library_ms": None,
+        }
     main = [c for c in cases if c["dtype"] == "int16"
             and _shape(c) in LINE_SHAPES]
     return {
@@ -499,7 +752,10 @@ def _kernel_entry(name, source, cases, launches):
 
 
 REPLACES = {"hist_f32": "xgboost_tpu/ops/hist_pallas.py:77",
-            "hist_q": "xgboost_tpu/ops/hist_pallas.py:173"}
+            "hist_q": "xgboost_tpu/ops/hist_pallas.py:173",
+            # no Pallas kernel: the reference's native CPU scan (and its
+            # XLA formulation, xgboost_tpu/ops/split.py:253, when monotone)
+            "split_scan": "native/xtb_kernels.h:647"}
 
 
 def main() -> int:
@@ -518,6 +774,7 @@ def main() -> int:
     smi = timed("1", phase_device, hist_cuda)
     f32_cases = timed("2", phase_kernels, hist_cuda, "hist_f32", "2")
     q_cases = timed("2b", phase_kernels, hist_cuda, "hist_q", "2b")
+    scan_cases = timed("2c", phase_split_scan, hist_cuda)
     X, y = make_data(1_000_000, 28)
     f32, dtrain = timed("3", phase_train, xtt, hist_cuda, X, y, 10)
     timed("3b", phase_profile, xtt, dtrain, BASE, "3b")
@@ -527,10 +784,14 @@ def main() -> int:
     timed("4", phase_predict, xtt, f32["bst"], X)
     timed("5", phase_parity, xtt)
     timed("5b", phase_parity_det, xtt, dtrain, X)
+    timed("6", phase_lossguide, xtt, hist_cuda, dtrain, X.shape[0])
+    timed("6b", phase_lossguide_parity, xtt)
 
     kernels = [_kernel_entry(name, hist_cuda.SOURCES[name], cases, n)
                for name, cases, n in (("hist_f32", f32_cases, f32["launches"]),
-                                      ("hist_q", q_cases, det["launches"]))]
+                                      ("hist_q", q_cases, det["launches"]),
+                                      ("split_scan", scan_cases,
+                                       f32["scan_launches"]))]
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -5,9 +5,14 @@ widths and row counts, with each cluster size, and a refused cluster launch
 raising; K2 (csrc/hist_q.cu) held against its plain version bitwise (exact
 int32 sums) at the same levels, widths, row counts and cluster sizes, on
 adversarial limbs, and a refused launch raising; both with nodes tiled over
-blocks at N = 128, and the trainer's launches of each counted.  Every test
-here needs a CUDA device and skips without one; the file imports neither
-JAX nor xgboost_tpu, so it runs on a machine that has only PyTorch."""
+blocks at N = 128, and the trainer's launches of each counted.  K3
+(csrc/split_scan.cu) held against its plain version bitwise (the same
+fixed summation order and arithmetic) at the six levels of a depth-6 round
+and at the best-first grower's N = 2, unconstrained and monotone, with
+ties, nodes without a candidate, dead slots and masked features.  Every
+test here needs a CUDA device and skips without one; the file imports
+neither JAX nor xgboost_tpu, so it runs on a machine that has only
+PyTorch."""
 import json
 
 import numpy as np
@@ -301,7 +306,8 @@ def test_training_on_card_launches_kernel_and_matches_cpu():
     hist_cuda.reset_launches()
     card = xtt.train(params, xtt.DMatrix(X, label=y), 4, verbose_eval=False)
     # depths 0-2 build, depth 3 does not
-    assert hist_cuda.launches == {"hist_f32": 4 * 3, "hist_q": 0}
+    assert hist_cuda.launches == {"hist_f32": 4 * 3, "hist_q": 0,
+                                  "split_scan": 4 * 3}
     cpu = xtt.train(params, xtt.DMatrix(X, label=y, device="cpu"), 4,
                     verbose_eval=False, device="cpu")
     for a, b in zip(card.trees, cpu.trees):
@@ -331,6 +337,7 @@ def test_deep_trees_train_on_both_histograms(det):
     bst = xtt.train(params, xtt.DMatrix(X, label=y), 2, verbose_eval=False)
     name = "hist_q" if det else "hist_f32"
     assert hist_cuda.launches[name] == 2 * 10
+    assert hist_cuda.launches["split_scan"] == 2 * 10
     assert max(t.max_depth for t in bst.trees) >= 9
     pred = bst.predict(xtt.DMatrix(X))
     assert np.all(np.isfinite(pred))
@@ -346,6 +353,89 @@ def test_deterministic_training_launches_only_k2_and_repeats_bytes():
         hist_cuda.reset_launches()
         bst = xtt.train(params, xtt.DMatrix(X, label=y), 3,
                         verbose_eval=False)
-        assert hist_cuda.launches == {"hist_f32": 0, "hist_q": 3 * 6}
+        assert hist_cuda.launches == {"hist_f32": 0, "hist_q": 3 * 6,
+                                      "split_scan": 3 * 6}
         models.append(json.dumps(bst.save_raw_dict()))
     assert models[0] == models[1]
+
+
+# ---------------------------------------------------------------- K3
+def _scan_case(N, F, B, seed, ties=False):
+    """A level's split-scan inputs: histograms with missing values, n_bins
+    below B, a dead slot, a node whose every bin fails min_child_weight,
+    and (``ties``) repeated bins, so that equal gains compete."""
+    from xgboost_tpu_torch.ops.split import SplitParams
+
+    rng = np.random.default_rng(seed)
+    h = rng.normal(size=(N, F, B, 2)).astype(np.float32)
+    h[..., 1] = np.abs(h[..., 1]) * 2
+    if ties:
+        h[:, :, 1::2] = h[:, :, ::2][:, :, : B // 2]
+        h[:, 1::2] = h[:, ::2][:, : F // 2]
+    nb = rng.integers(2, B + 1, size=F).astype(np.int32)
+    nb[0] = B
+    for f in range(F):
+        h[:, f, nb[f]:] = 0.0
+    tot = h[:, 0].sum(1) + np.float32([0.5, 1.5]) * (rng.random((N, 1)) < 0.7)
+    if N > 1:
+        h[-1] = 0.0
+        tot[-1] = 0.0  # a dead slot
+    if N > 2:
+        h[0, :, :, 1] = 1e-3  # no bin reaches min_child_weight
+        tot[0, 1] = h[0, 0, :, 1].sum() + 1e-3
+    fm = rng.random((N, F)) < 0.7
+    bounds = np.stack([rng.normal(size=N) - 1.5, rng.normal(size=N) + 1.5],
+                      1).astype(np.float32)
+    mono = tuple(int(c) for c in rng.integers(-1, 2, size=F))
+    T = torch.from_numpy
+    return (T(h), T(tot.astype(np.float32)), T(nb), T(fm), T(bounds), mono,
+            SplitParams)
+
+
+# the six levels of a depth-6 round, and the best-first grower's two nodes
+K3_SHAPES = [(1, 28, 256), (2, 28, 256), (4, 28, 256), (8, 28, 256),
+             (16, 28, 256), (32, 28, 256), (2, 28, 64), (5, 3, 17)]
+K3_PARAMS = [dict(min_child_weight=1.0, lambda_=1.0, alpha=0.0,
+                  max_delta_step=0.0),
+             dict(min_child_weight=0.5, lambda_=2.0, alpha=0.5,
+                  max_delta_step=0.7)]
+
+
+@needs_cuda
+@pytest.mark.parametrize("monotone", [False, True])
+@pytest.mark.parametrize("pi", [0, 1])
+@pytest.mark.parametrize("N,F,B", K3_SHAPES)
+def test_split_scan_matches_plain_bitwise(N, F, B, pi, monotone):
+    from xgboost_tpu_torch.ops.split import split_scan_plain
+
+    h, tot, nb, fm, bounds, mono, SP = _scan_case(N, F, B, seed=N + B + pi,
+                                                  ties=pi == 0)
+    p = SP(eta=0.3, gamma=0.0, monotone=mono if monotone else None,
+           **K3_PARAMS[pi])
+    for mask in (None, fm, fm[:1]):
+        want = split_scan_plain(h, tot, nb, p, mask, bounds)
+        before = hist_cuda.launches["split_scan"]
+        got = hist_cuda.split_scan_cuda(
+            h.cuda(), tot.cuda(), nb.cuda(), p,
+            None if mask is None else mask.cuda(), bounds.cuda())
+        torch.cuda.synchronize()
+        assert hist_cuda.launches["split_scan"] == before + 1
+        for name, a, b in zip(want._fields, got, want):
+            a = a.cpu()
+            if a.dtype == torch.float32:
+                a, b = a.view(torch.int32), b.view(torch.int32)
+            assert torch.equal(a, b), (name, a, b)
+
+
+@needs_cuda
+def test_split_scan_rejects_what_it_cannot_take():
+    h, tot, nb, fm, bounds, mono, SP = _scan_case(4, 5, 16, seed=0)
+    p = SP(eta=0.3, gamma=0.0, min_child_weight=1.0, lambda_=1.0, alpha=0.0,
+           max_delta_step=0.0)
+    with pytest.raises(ValueError):
+        hist_cuda.split_scan_cuda(h, tot, nb, p)  # CPU tensors
+    with pytest.raises(ValueError):
+        hist_cuda.split_scan_cuda(h.cuda(), tot[:2].cuda(), nb.cuda(), p)
+    with pytest.raises(TypeError):
+        hist_cuda.split_scan_cuda(h.double().cuda(), tot.cuda(), nb.cuda(),
+                                  p)

@@ -169,8 +169,9 @@ def test_early_stopping_and_monitor():
 
 
 @pytest.mark.parametrize("params", [
-    {"subsample": 0.8}, {"grow_policy": "lossguide"},
-    {"grow_policy": "lossguide", "max_leaves": 8}, {"num_parallel_tree": 2},
+    {"n_devices": 2}, {"process_type": "update"},
+    {"grow_policy": "lossguide", "max_leaves": 8,
+     "deterministic_histogram": 1}, {"num_parallel_tree": 2},
     {"booster": "dart"}, {"tree_method": "exact"},
     {"tree_method": "exact", "deterministic_histogram": 1},
     {"objective": "multi:softprob", "num_class": 3},

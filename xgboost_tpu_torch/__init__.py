@@ -4,8 +4,10 @@ A second package beside the JAX reference (``xgboost_tpu/``), with the same
 module layout and names.  It runs on an NVIDIA GPU unless the caller passes
 ``device="cpu"``; the per-level gradient histogram runs as a hand-written
 CUDA kernel (csrc/hist.cu, or csrc/hist_q.cu under
-``deterministic_histogram=1``).  The port covers dense data, ``hist``
-trees grown depthwise with constraints, column sampling and a leaf budget,
+``deterministic_histogram=1``), and so does the split scan
+(csrc/split_scan.cu).  The port covers dense data, ``hist`` trees grown
+depthwise or best-first (``grow_policy="lossguide"``) with constraints,
+weighted column sampling, row subsampling and a leaf budget,
 ``reg:squarederror`` and ``binary:logistic``, and the reference's JSON/UBJ
 model format.
 """

@@ -4,12 +4,17 @@ hist subset of xgboost_tpu/core.py).
 Call stack for one boosting iteration:
   train() -> Booster.update(dtrain, i)
     -> objective.get_gradient on the cached margin           [device]
+    -> _subsample_mask: the reference's row sample (threefry) [device]
     -> HistTreeGrower.grow: per level histogram (CUDA kernel
        K1 on the card, K2 under deterministic_histogram=1),
-       split scan under the column sample and constraints,
-       row routing                                            [device]
+       split scan (K3) under the column sample and
+       constraints, row routing                               [device]
+       or, under grow_policy=lossguide with max_leaves > 1,
+       BestFirstGrower.grow: one expansion at a time, a K1
+       histogram of both children and their K3 scan per
+       expansion                                       [device + host]
     -> leaf_margin_delta updates the margin cache            [device]
-    -> RegTree.from_grown appends the host model
+    -> RegTree.from_grown (or to_regtree) appends the host model
 The model dict (``save_raw_dict``) follows the reference's JSON schema, so
 models cross-load between the two packages.
 """
@@ -29,8 +34,10 @@ from .objective import ObjFunction, create_objective
 from .ops.predict import predict_margin_delta
 from .ops.split import SplitParams
 from .params import TrainParam, canonicalize, reject_unsupported
+from .tree.bestfirst import BestFirstGrower
 from .tree.grow import HistTreeGrower, leaf_margin_delta
 from .utils.device import resolve_device
+from .utils.random import bernoulli, prng_key, uniform
 
 __all__ = ["Booster"]
 
@@ -54,6 +61,7 @@ class _Cache:
         self.ellpack = ell
         self.bins = ell.bins.to(dev)
         self.cuts_pad = ell.cuts_pad.to(dev)
+        self.cuts_host = ell.cuts_pad.cpu().numpy()
         self.n_bins = ell.n_bins.to(dev)
         R_pad, R = ell.n_padded, ell.n_rows
         self.valid = torch.arange(R_pad, device=dev) < R
@@ -135,12 +143,33 @@ class Booster:
             lambda_=float(self.tparam.lambda_), alpha=float(self.tparam.alpha),
             max_delta_step=float(self.tparam.max_delta_step),
             monotone=self.tparam.monotone_constraints)
-        self._grower = HistTreeGrower(
-            self.tparam.max_depth, self._split_params,
-            interaction_sets=self.tparam.interaction_constraints,
-            max_leaves=self.tparam.max_leaves,
-            quantised=self.deterministic_histogram)
+        tp = self.tparam
+        # (reference: xgboost_tpu/core.py:1349-1432, one device)
+        lossguide = tp.grow_policy == "lossguide"
+        self._best_first = lossguide and tp.max_leaves > 1
+        if self._best_first:
+            if self.deterministic_histogram:
+                raise NotImplementedError(
+                    "deterministic_histogram is not supported with the "
+                    "best-first (lossguide + max_leaves) grower yet")
+            # depth bounded by the leaf budget alone when max_depth <= 0
+            self._grower = BestFirstGrower(
+                max(tp.max_depth, 0), self._split_params,
+                max_leaves=tp.max_leaves,
+                interaction_sets=tp.interaction_constraints)
+        else:
+            self._grower = HistTreeGrower(
+                self._resolve_max_depth(lossguide), self._split_params,
+                interaction_sets=tp.interaction_constraints,
+                max_leaves=tp.max_leaves, lossguide=lossguide,
+                quantised=self.deterministic_histogram)
         self._configured = True
+
+    def _resolve_max_depth(self, lossguide: bool) -> int:
+        """The level grower's depth where max_depth <= 0: 10 levels under
+        lossguide, 6 depthwise (reference core.py:670)."""
+        md = self.tparam.max_depth
+        return md if md > 0 else (10 if lossguide else 6)
 
     def _get_cache(self, dmat: DMatrix) -> _Cache:
         self._configure()
@@ -205,33 +234,83 @@ class Booster:
         gpair = gpair * cache.valid[:, None, None]  # (R_pad, 1, 2)
         self._boost_trees(cache, gpair, iteration)
 
+    def _subsample_mask(self, gpair, iteration: int):
+        """Row subsampling: zeroed gradient pairs drop rows from the
+        histograms and leaves (reference core.py:898, the same threefry
+        draws over the padded rows).
+
+        uniform: Bernoulli(subsample).  gradient_based: keep-probability
+        proportional to the gradient norm sqrt(g^2 + lambda h^2), kept rows
+        reweighted by 1/p so that histogram sums stay unbiased (reference
+        src/tree/gpu_hist/sampler.cuh)."""
+        tp = self.tparam
+        if tp.subsample >= 1.0:
+            return gpair
+        key = prng_key((int(self.params.get("seed", 0)) * 7919 + iteration)
+                       % (2**31))
+        R, dev = gpair.shape[0], gpair.device
+        if tp.sampling_method == "gradient_based":
+            lam = float(tp.lambda_)
+            norm = torch.sqrt(gpair[..., 0] ** 2 + lam * gpair[..., 1] ** 2)
+            norm = norm.amax(dim=1)  # (R_pad,) across output groups
+            total = torch.clamp(norm.sum(), min=1e-12)
+            target = tp.subsample * (norm > 0).sum().to(torch.float32)
+            p = torch.clamp(norm * target / total, 0.0, 1.0)
+            keep = uniform(key, R, dev) < p
+            scale = torch.where(keep, 1.0 / torch.clamp(p, min=1e-12), 0.0)
+            return gpair * scale[:, None, None]
+        mask = bernoulli(key, tp.subsample, R, dev)
+        return gpair * mask[:, None, None]
+
     def _rng(self, iteration: int, tag: int) -> np.random.Generator:
         seed = int(self.params.get("seed", 0))
         return np.random.default_rng(
             (seed * 1_000_003 + iteration * 131 + tag) % (2**63))
 
-    def _feature_masks(self, iteration: int, n_features: int):
+    def _feature_masks(self, iteration: int, n_features: int,
+                       feature_weights=None):
         """ColumnSampler (reference: src/common/random.h ColumnSampler):
         each level samples exactly max(1, frac * n_avail) of the surviving
         features without replacement, by the k smallest exponential keys
-        per row.  The draws are numpy on the host, in the reference's order,
-        so they agree with it bitwise.  None when nothing is sampled."""
+        per row, divided by ``feature_weights`` where given (the weighted
+        draw, Efraimidis-Spirakis).  The draws are numpy on the host, in
+        the reference's order, so they agree with it bitwise.  None when
+        nothing is sampled."""
         tp = self.tparam
+        fw = None
+        if feature_weights is not None:
+            # validated even when nothing is sampled, as the reference does
+            fw = np.asarray(feature_weights, np.float64).reshape(-1)
+            if fw.shape[0] != n_features:
+                raise ValueError(
+                    f"feature_weights has {fw.shape[0]} entries for "
+                    f"{n_features} features")
+            if (fw < 0).any():
+                raise ValueError("feature_weights must be non-negative")
+            if not (fw > 0).any():
+                raise ValueError("feature_weights sums to zero")
         if tp.colsample_bytree >= 1.0 and tp.colsample_bylevel >= 1.0 \
                 and tp.colsample_bynode >= 1.0:
             return None
         # the reference seeds parallel tree p with iteration * 131 + p and
         # tag 17 + p (xgboost_tpu/core.py:1517); the port grows p = 0 only
         rng = self._rng(iteration * 131, 17)
+        w_row = np.ones(n_features, np.float64) if fw is None else fw
 
         def sample(prev_mask, frac):
             if frac >= 1.0:
                 return prev_mask
             m2 = np.atleast_2d(prev_mask)
             rows, F = m2.shape
-            keys = np.where(m2, rng.exponential(size=(rows, F)), np.inf)
+            with np.errstate(divide="ignore"):
+                keys = rng.exponential(size=(rows, F)) / w_row
+            keys = np.where(m2 & (w_row > 0), keys, np.inf)
+            n_ok = np.isfinite(keys).sum(axis=1)
+            if np.any(n_ok == 0):
+                raise ValueError(
+                    "feature_weights leaves no sampleable feature")
             k = np.minimum(np.maximum(1, (frac * m2.sum(axis=1)).astype(
-                np.int64)), np.isfinite(keys).sum(axis=1))
+                np.int64)), n_ok)
             order = np.argsort(keys, axis=1, kind="stable")
             ranks = np.empty_like(order)
             np.put_along_axis(ranks, order, np.broadcast_to(
@@ -257,12 +336,20 @@ class Booster:
             raise ValueError(
                 f"monotone_constraints has {len(mono)} entries but data has "
                 f"{n_features} features")
+        fmask_fn = self._feature_masks(iteration, n_features,
+                                       cache.dmat.feature_weights)
+        # the reference draws parallel tree p's rows with iteration * 131 + p
+        gpair = self._subsample_mask(gpair, iteration * 131)
         state = self._grower.grow(
             cache.bins, gpair[:, 0, :].contiguous(), cache.valid,
-            cache.cuts_pad, cache.n_bins,
-            feature_masks=self._feature_masks(iteration, n_features))
-        cache.margin[:, 0] += leaf_margin_delta(state.pos, state.leaf_val)
-        self.trees.append(RegTree.from_grown(HistTreeGrower.to_host(state)))
+            cache.cuts_pad, cache.n_bins, feature_masks=fmask_fn)
+        if self._best_first:
+            tree, leaf_val = self._grower.to_regtree(state, cache.cuts_host)
+        else:
+            tree = RegTree.from_grown(HistTreeGrower.to_host(state))
+            leaf_val = state.leaf_val
+        cache.margin[:, 0] += leaf_margin_delta(state.pos, leaf_val)
+        self.trees.append(tree)
         self.tree_info.append(0)
         cache.n_trees_applied = len(self.trees)
 

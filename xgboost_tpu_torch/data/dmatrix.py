@@ -32,6 +32,8 @@ class DMatrix:
     """In-memory dense data matrix (reference: data.h:549).
 
     ``device``: where the matrix is staged; ``None`` means ``cuda``.
+    ``feature_weights``: (F,) non-negative weights of the column sampler's
+    draws (colsample_*), as in the reference.
     """
 
     def __init__(
@@ -44,6 +46,7 @@ class DMatrix:
         missing: float = np.nan,
         feature_names: Optional[Sequence[str]] = None,
         feature_types: Optional[Sequence[str]] = None,
+        feature_weights: Any = None,
         enable_categorical: bool = False,
         device=None,
     ) -> None:
@@ -72,6 +75,11 @@ class DMatrix:
             list(feature_names) if feature_names else None)
         self.feature_types: Optional[List[str]] = (
             list(feature_types) if feature_types else None)
+        # per-feature column-sampling weights (f32, as the reference keeps
+        # them); validated where the column sampler reads them
+        self.feature_weights: Optional[np.ndarray] = (
+            None if feature_weights is None
+            else np.asarray(feature_weights, np.float32))
         self._ellpack: Optional[EllpackPage] = None
         self._max_bin_built: Optional[int] = None
 

@@ -8,12 +8,18 @@ and their build, binding and dispatch.
 - K2 ``hist_q`` (csrc/hist_q.cu, port of _hist_kernel_q): exact int32 sums
   of the int8 gradient limbs, the ``deterministic_histogram=1`` path.
   Launched the same way, as ``plan_q`` plans.
+- K3 ``split_scan`` (csrc/split_scan.cu; no Pallas kernel, it replaces the
+  reference's native and XLA split scans): the best split per node in the
+  reference's summation order, ``split_scan_cuda``.  Built with
+  ``--fmad=false`` so that nvcc fuses no multiply-add the reference does
+  not.
 
 Each source is compiled with nvcc for sm_90a into its own shared library
 with a plain C interface at first use, into ``xgboost_tpu_torch/_build/``
-(keyed by the source's hash, so an edited source rebuilds; ``build_all``
-starts one nvcc per source, all at once), and bound with ctypes.  A failed
-build or load raises; there is no fallback to the plain version.
+(keyed by the hash of the source and its flags, so an edit rebuilds;
+``build_all`` starts one nvcc per source, all at once), and bound with
+ctypes.  A failed build or load raises; there is no fallback to the plain
+version.
 
 ``build_histogram`` and ``build_histogram_q`` are the dispatchers the grower
 calls: a CPU tensor goes to the plain PyTorch version, a CUDA tensor to the
@@ -34,21 +40,25 @@ import torch
 
 from .histogram import build_histogram as build_histogram_plain
 from .quantise import hist_accumulate_q
+from .split import ScanResult, SplitParams, is_monotone, monotone_vec
 
 __all__ = ["build_histogram", "build_histogram_cuda", "build_histogram_plain",
            "build_histogram_q", "build_histogram_q_cuda",
            "build_histogram_q_plain", "build_all", "card_max_clusters",
            "choose_block", "Plan", "load_library", "launches", "plan_f32",
            "plan_q", "reset_launches", "run_f32", "run_q", "slice_units",
-           "SOURCES"]
+           "split_scan_cuda", "SOURCES"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _BUILD_DIR = os.path.join(_PKG, "_build")
 # kernel name -> its source, relative to the repository root
 SOURCES = {"hist_f32": "xgboost_tpu_torch/csrc/hist.cu",
-           "hist_q": "xgboost_tpu_torch/csrc/hist_q.cu"}
+           "hist_q": "xgboost_tpu_torch/csrc/hist_q.cu",
+           "split_scan": "xgboost_tpu_torch/csrc/split_scan.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
+# K3 must round as the reference does: no contracted multiply-adds
+EXTRA_FLAGS = {"split_scan": ["--fmad=false"]}
 
 # kernel launches per kernel since the last reset_launches()
 launches = {name: 0 for name in SOURCES}
@@ -69,6 +79,8 @@ _ENTRY = {
     "hist_f32": ("xtb_hist_f32", [_vp, _ci, _vp, _vp, _vp] + [_ci] * 12
                  + [_vp]),
     "hist_q": ("xtb_hist_q", [_vp, _ci, _vp, _vp, _vp] + [_ci] * 13 + [_vp]),
+    "split_scan": ("xtb_split_scan", [_vp] * 4 + [_ci, _vp, _vp] + [_ci] * 3
+                   + [ctypes.c_float] * 4 + [_ci] + [_vp] * 7),
 }
 _libs: dict = {}
 _lib_lock = threading.Lock()
@@ -96,9 +108,15 @@ def _src_path(name: str) -> str:
     return os.path.join(os.path.dirname(_PKG), SOURCES[name])
 
 
+def _flags(name: str):
+    return NVCC_FLAGS + EXTRA_FLAGS.get(name, [])
+
+
 def _lib_path(name: str) -> str:
     with open(_src_path(name), "rb") as fh:
-        digest = hashlib.sha256(fh.read()).hexdigest()[:16]
+        h = hashlib.sha256(fh.read())
+    h.update(" ".join(_flags(name)).encode())
+    digest = h.hexdigest()[:16]
     return os.path.join(_BUILD_DIR, f"libxtb_{name}_{digest}.so")
 
 
@@ -117,7 +135,7 @@ def _build(names) -> None:
             fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
             os.close(fd)
             proc = subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, "-o", tmp, _src_path(name)],
+                [nvcc, *_flags(name), "-o", tmp, _src_path(name)],
                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
             jobs.append((name, lib_path, tmp, proc))
         errors = []
@@ -155,9 +173,10 @@ def load_library(name: str):
         fn = getattr(lib, entry)
         fn.argtypes = argtypes
         fn.restype = _ci
-        query = getattr(lib, f"xtb_{name}_max_clusters")
-        query.argtypes = [_ci] * 5 + [ctypes.POINTER(_ci)]
-        query.restype = _ci
+        query = getattr(lib, f"xtb_{name}_max_clusters", None)
+        if query is not None:  # the histogram kernels' occupancy query
+            query.argtypes = [_ci] * 5 + [ctypes.POINTER(_ci)]
+            query.restype = _ci
         lib.xtb_cuda_error_string.argtypes = [_ci]
         lib.xtb_cuda_error_string.restype = ctypes.c_char_p
         _libs[name] = lib
@@ -427,3 +446,65 @@ def build_histogram_q(bins, gq, pos, *, node0: int, n_nodes: int,
     fn = build_histogram_q_cuda if bins.is_cuda else build_histogram_q_plain
     return fn(bins, gq, pos, node0=node0, n_nodes=n_nodes, n_bin=n_bin,
               stride=stride)
+
+
+def split_scan_cuda(hist, totals, n_bins, params: SplitParams,
+                    feature_mask=None, node_bounds=None) -> ScanResult:
+    """Launch K3: the best split of each node of ``hist`` (N, F, B, 2) f32
+    on the inputs' card, as ``split.split_scan_plain`` computes it.
+    ``feature_mask`` (F,), (1, F) or (N, F) bool; ``node_bounds`` (N, 2)
+    f32, read under monotone constraints.  A launch the card refuses
+    raises."""
+    if not (hist.is_cuda and totals.is_cuda):
+        raise ValueError("the split scan kernel needs CUDA tensors")
+    if hist.dtype != torch.float32 or totals.dtype != torch.float32:
+        raise TypeError("hist and totals must be float32")
+    if hist.dim() != 4 or hist.shape[-1] != 2:
+        raise ValueError(f"hist must be (N, F, B, 2), got {tuple(hist.shape)}")
+    N, F, B, _ = hist.shape
+    dev = hist.device
+    if tuple(totals.shape) != (N, 2) or tuple(n_bins.shape) != (F,):
+        raise ValueError(f"totals {tuple(totals.shape)} and n_bins "
+                         f"{tuple(n_bins.shape)} do not match hist "
+                         f"{tuple(hist.shape)}")
+    hist, totals = hist.contiguous(), totals.contiguous()
+    nb = n_bins.to(dev, torch.int32).contiguous()
+    fm, fm_rows = None, 0
+    if feature_mask is not None:
+        fm = feature_mask if feature_mask.dim() == 2 else feature_mask[None]
+        if fm.shape[1] != F or fm.shape[0] not in (1, N):
+            raise ValueError(f"feature_mask {tuple(feature_mask.shape)} does "
+                             f"not match {N} nodes x {F} features")
+        fm = fm.to(dev, torch.bool).contiguous()
+        fm_rows = fm.shape[0]
+    mode = 1 if is_monotone(params) else 0
+    mono = bounds = None
+    if mode:
+        if len(params.monotone) != F:
+            raise ValueError(f"monotone_constraints has {len(params.monotone)}"
+                             f" entries for {F} features")
+        mono = monotone_vec(tuple(params.monotone), dev)
+        if node_bounds is not None:
+            bounds = node_bounds.to(dev, torch.float32).contiguous()
+    out = ScanResult(
+        gain=torch.empty(N, dtype=torch.float32, device=dev),
+        feature=torch.empty(N, dtype=torch.int64, device=dev),
+        bin=torch.empty(N, dtype=torch.int64, device=dev),
+        default_left=torch.empty(N, dtype=torch.bool, device=dev),
+        GL=torch.empty(N, dtype=torch.float32, device=dev),
+        HL=torch.empty(N, dtype=torch.float32, device=dev))
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    lib = load_library("split_scan")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        rc = lib.xtb_split_scan(
+            hist.data_ptr(), totals.data_ptr(), nb.data_ptr(), ptr(fm),
+            fm_rows, ptr(bounds), ptr(mono), N, F, B,
+            float(params.lambda_), float(params.alpha),
+            float(params.min_child_weight), float(params.max_delta_step),
+            mode, *(ptr(t) for t in out), stream)
+    _launched("split_scan", lib, rc)
+    return out

@@ -1,5 +1,5 @@
 """Training hyper-parameters (port of the subset of xgboost_tpu/params.py
-that the depthwise ``hist`` grower reads).
+that the ``hist`` growers read).
 
 ``TrainParam`` holds the tree parameters the slice supports;
 ``reject_unsupported`` fails loudly on every parameter the port does not
@@ -33,10 +33,13 @@ class TrainParam:
     max_depth: int = 6
     max_leaves: int = 0
     max_bin: int = 256
+    grow_policy: str = "depthwise"  # depthwise | lossguide
     min_child_weight: float = 1.0
     lambda_: float = 1.0
     alpha: float = 0.0
     max_delta_step: float = 0.0
+    subsample: float = 1.0
+    sampling_method: str = "uniform"  # uniform | gradient_based
     colsample_bytree: float = 1.0
     colsample_bylevel: float = 1.0
     colsample_bynode: float = 1.0
@@ -72,17 +75,25 @@ class TrainParam:
         return self
 
     def validate(self) -> None:
-        if self.max_depth < 1:
-            raise ValueError("max_depth must be >= 1 (trees bounded by "
-                             "max_leaves alone are not supported)")
+        if self.max_depth < 0:
+            raise ValueError("max_depth must be >= 0")
+        if self.max_depth == 0 and self.max_leaves == 0:
+            raise ValueError("one of max_depth / max_leaves must be positive")
         if self.max_leaves < 0:
             raise ValueError("max_leaves must be >= 0")
+        if not 0.0 < self.subsample <= 1.0:
+            raise ValueError("subsample must be in (0, 1]")
         if self.max_bin < 2:
             raise ValueError("max_bin must be >= 2")
         for name in ("colsample_bytree", "colsample_bylevel",
                      "colsample_bynode"):
             if not 0.0 < getattr(self, name) <= 1.0:
                 raise ValueError(f"{name} must be in (0, 1]")
+        if self.grow_policy not in ("depthwise", "lossguide"):
+            raise ValueError("grow_policy must be 'depthwise' or 'lossguide'")
+        if self.sampling_method not in ("uniform", "gradient_based"):
+            raise ValueError(
+                "sampling_method must be 'uniform' or 'gradient_based'")
 
 
 def _truthy(v) -> bool:
@@ -90,24 +101,22 @@ def _truthy(v) -> bool:
 
 
 def _is_default(key: str, v) -> bool:
-    if key in ("subsample", "num_parallel_tree", "num_target"):
+    if key in ("num_parallel_tree", "num_target"):
         return float(v) == 1.0
     if key == "num_class":
         return int(v) == 0
     if key == "enable_categorical":
         return not _truthy(v)
-    return {"grow_policy": "depthwise", "booster": "gbtree",
-            "tree_method": "hist", "multi_strategy": "one_output_per_tree",
+    return {"booster": "gbtree", "tree_method": "hist",
+            "multi_strategy": "one_output_per_tree",
             "process_type": "default", "n_devices": 1}[key] == v
 
 
 # parameters the port does not implement: at any value but their default
-# they raise NotImplementedError.  subsample's row mask is a
-# jax.random.bernoulli draw in the reference, which torch cannot reproduce
-# bitwise; grow_policy=lossguide is the best-first grower
-UNSUPPORTED = ("subsample", "grow_policy", "num_parallel_tree", "booster",
-               "tree_method", "num_class", "num_target", "multi_strategy",
-               "process_type", "n_devices", "enable_categorical")
+# they raise NotImplementedError
+UNSUPPORTED = ("num_parallel_tree", "booster", "tree_method", "num_class",
+               "num_target", "multi_strategy", "process_type", "n_devices",
+               "enable_categorical")
 
 
 def reject_unsupported(params: Dict[str, Any]) -> None:

@@ -1,0 +1,65 @@
+"""f32 arithmetic in the rounding of the reference's compiled programs.
+
+XLA on the CPU fuses some multiply-adds and computes ``exp`` with its own
+polynomial, so PyTorch's operators do not give the reference's bits there.
+These functions do, on any device, in plain PyTorch operations:
+
+- ``fma_f32``: a * b + c rounded once (a fused multiply-add);
+- ``exp_f32``: XLA's f32 exponential (the Cephes range reduction and
+  polynomial, every multiply-add fused), bitwise for |x| <= 88.37 and with
+  results below the smallest normal f32 flushed to zero, as XLA's CPU
+  programs run.
+"""
+from __future__ import annotations
+
+import torch
+
+_FLT_MIN = 1.1754943508222875e-38
+_EXP_POLY = (1.9875691500e-4, 1.3981999507e-3, 8.3334519073e-3,
+             4.1665795894e-2, 1.6666665459e-1, 5.0000001201e-1)
+
+
+def fma_f32(a, b, c):
+    """a * b + c for f32 tensors (or numbers), rounded once to f32 (musl's
+    fmaf: the f64 sum is exact but for one rounding, corrected where it
+    lands halfway between two f32 values)."""
+    like = next(t for t in (a, b, c) if isinstance(t, torch.Tensor))
+    a, b, c = (torch.as_tensor(t, dtype=torch.float32,
+                               device=like.device).double()
+               for t in (a, b, c))
+    xy = a * b  # exact: 24 + 24 significant bits
+    s = xy + c
+    bits = s.view(torch.int64)
+    halfway = (bits & 0x1FFFFFFF) == 0x10000000
+    exact = ((s - xy) == c) & ((s - c) == xy)
+    fix = halfway & ~exact & torch.isfinite(s)
+    neg = bits < 0
+    err = torch.where(neg == (c > xy), xy - s + c, c - s + xy)
+    bumped = (bits + torch.where(neg == (err < 0), 1, -1)).view(torch.float64)
+    return torch.where(fix, bumped, s).float()
+
+
+def exp_f32(x):
+    """exp(x) of an f32 tensor as XLA computes it on the CPU."""
+    x = torch.clamp(x, -104.0, 88.8)
+    n = torch.floor(fma_f32(x, 1.44269504088896341, 0.5))
+    r = fma_f32(n, -0.693359375, x)
+    r = fma_f32(n, 2.12194440e-4, r)
+    y = fma_f32(r, _EXP_POLY[0], _EXP_POLY[1])
+    for k in _EXP_POLY[2:]:
+        y = fma_f32(y, r, k)
+    y = 1.0 + fma_f32(y, r * r, r)
+    # 2**n as two factors, so that n = 128 does not overflow the exponent
+    ni = n.to(torch.int32)
+    lo = ni // 2
+    out = y * ((lo + 127) << 23).view(torch.float32) \
+        * ((ni - lo + 127) << 23).view(torch.float32)
+    return torch.where(out < _FLT_MIN, torch.zeros_like(out), out)
+
+
+def sigmoid_f32(x):
+    """1 / (1 + exp(-x)) as XLA computes jax.nn.sigmoid on the CPU: its
+    exponential, and a result below the smallest normal f32 flushed to
+    zero."""
+    out = torch.div(torch.ones_like(x), 1.0 + exp_f32(-x))
+    return torch.where(out < _FLT_MIN, torch.zeros_like(out), out)
