@@ -29,9 +29,15 @@ holds each CUDA kernel against its plain PyTorch version:
      a candidate, a dead slot and masked features; timings of the kernel,
      the plain version, the cumsum formulation it replaced (the port's
      scan before it) and the bound
+  2d. K4 vs plain: the sigmoid kernel (csrc/sigmoid.cu) against
+     sigmoid_f32 (XLA's f32 logistic as PyTorch operations), bitwise, on
+     the main path's 1,000,448 margins with the f32 range's edges mixed in;
+     timings of the kernel, the plain version, torch.sigmoid (a yardstick
+     the port never calls) and the bound
   3. train: 1,000,000 x 28 HIGGS-shaped rows, binary:logistic, max_bin=256,
      max_depth=6, eta=0.3, 10 rounds, evaluated on the training set; K1
-     and K3 launch 6 times per round and K2 never
+     and K3 launch 6 times per round and K2 never, K4 once for the base
+     score and once per round (and once more per round for the evaluation)
   3b. profile: device time by kernel over two training rounds and the
      card's idle share
   3c. the same training with deterministic_histogram=1: K2 and K3 launch 6
@@ -49,7 +55,8 @@ holds each CUDA kernel against its plain PyTorch version:
   6. lossguide at full width: the phase 3 data with grow_policy=lossguide,
      max_depth=0, max_leaves=255, subsample=0.8, colsample_bynode=0.8, 10
      rounds; AUC > 0.9, K1 and K3 launched once per tree and once per
-     expansion; the train loop's median of 3 runs and expansions per second
+     expansion, K4 as in phase 3; the train loop's median of 3 runs and
+     expansions per second
   6b. lossguide (max_leaves=31) card vs CPU at 20,000 rows with
      feature_weights, under uniform and gradient_based sampling: the same
      trees, predictions within 1e-4, and the card's uniform row masks
@@ -305,7 +312,7 @@ def _train_main_path(xtt, hist_cuda, params, dtrain, n_rows, rounds, kernel,
     bins already built), each run with the launch counts set to 0 just
     before and read just after.  Returns the first two boosters, the first
     run's launches, the metrics and the timed loops' median rate."""
-    want = {name: 0 for name in hist_cuda.SOURCES}
+    want = _sigmoid_launches(hist_cuda, rounds, evals=1)
     want[kernel] = want["split_scan"] = 6 * rounds
     hist_cuda.reset_launches()
     evals_result: dict = {}
@@ -319,6 +326,7 @@ def _train_main_path(xtt, hist_cuda, params, dtrain, n_rows, rounds, kernel,
     if launches != want:
         raise AssertionError(f"phase {label}: launches {launches} in "
                              f"{rounds} rounds, want {want}")
+    want["sigmoid"] = 1 + rounds  # no evaluation in the timed runs
     times = []
     for _ in range(repeats):
         hist_cuda.reset_launches()
@@ -338,6 +346,7 @@ def _train_main_path(xtt, hist_cuda, params, dtrain, n_rows, rounds, kernel,
         raise AssertionError(f"phase {label}: AUC {auc} <= 0.9")
     return dict(bst=bst, timed=timed, launches=launches[kernel],
                 scan_launches=launches["split_scan"],
+                sigmoid_launches=launches["sigmoid"],
                 logloss=logloss, auc=auc, train_s=train_s,
                 rate=n_rows * rounds / train_s / 1e6,
                 times=" ".join(f"{t:.3f}" for t in times),
@@ -358,7 +367,8 @@ def phase_train(xtt, hist_cuda, X, y, rounds: int):
         f"median {r['train_s']:.3f} s = {r['rate']:.3f} M row-rounds/s "
         f"(runs {r['times']} s); with eval "
         f"{r['with_eval_s']:.3f} s; logloss {r['logloss']:.6f} auc "
-        f"{r['auc']:.6f}; K1 and K3 launches {r['launches']} each; two f32 "
+        f"{r['auc']:.6f}; K1 and K3 launches {r['launches']} each, K4 "
+        f"{r['sigmoid_launches']}; two f32 "
         f"runs gave byte-identical models: {r['same_bytes']}")
     return r, dtrain
 
@@ -376,7 +386,8 @@ def phase_train_det(xtt, hist_cuda, dtrain, n_rows, rounds, f32):
         f"{r['times']} s; f32 path, phase 3: {f32['rate']:.3f}); with eval "
         f"{r['with_eval_s']:.3f} s; "
         f"logloss {r['logloss']:.6f} auc {r['auc']:.6f}; K2 and K3 launches "
-        f"{r['launches']} each, K1 0; two runs byte-identical: True")
+        f"{r['launches']} each, K4 {r['sigmoid_launches']}, K1 0; two runs "
+        "byte-identical: True")
     return r
 
 
@@ -584,7 +595,9 @@ def _cumsum_scan(hist, totals, n_bins, p, fm):
 def phase_split_scan(hist_cuda):
     """K3 against its plain version, bitwise, on the card's inputs and on
     their CPU copies, at the depth-6 level shapes and N = 2."""
-    from xgboost_tpu_torch.ops.split import SplitParams, split_scan_plain
+    from xgboost_tpu_torch.ops.split import (SplitParams, is_monotone,
+                                             monotone_vec, split_scan_plain)
+    from xgboost_tpu_torch.ops.split_cuda import split_scan_cuda
 
     cases = []
     for mode in ("native", "monotone"):
@@ -595,7 +608,9 @@ def phase_split_scan(hist_cuda):
                             lambda_=1.0, alpha=0.0, max_delta_step=0.0,
                             monotone=mono if mode == "monotone" else None)
             args = [t.cuda() for t in (h, tot, nb, fm, bounds)]
-            got = hist_cuda.split_scan_cuda(*args[:3], p, args[3], args[4])
+            args.append(monotone_vec(mono, args[0].device)
+                        if is_monotone(p) else None)
+            got = split_scan_cuda(*args[:3], p, *args[3:])
             torch.cuda.synchronize()
             want = split_scan_plain(h, tot, nb, p, fm, bounds)
             on_card = split_scan_plain(*args[:3], p, args[3], args[4])
@@ -609,8 +624,8 @@ def phase_split_scan(hist_cuda):
                     a, b, c = (t.view(torch.int32) for t in (a, b, c))
                 same &= torch.equal(a, b)
                 same_card &= torch.equal(c, b)
-            kernel_ms = cuda_ms(lambda: hist_cuda.split_scan_cuda(
-                *args[:3], p, args[3], args[4]))
+            kernel_ms = cuda_ms(lambda: split_scan_cuda(*args[:3], p,
+                                                        *args[3:]))
             plain_ms = cuda_ms(lambda: split_scan_plain(
                 *args[:3], p, args[3], args[4]), reps=5)
             cumsum_ms = (cuda_ms(lambda: _cumsum_scan(*args[:3], p, args[3]))
@@ -643,6 +658,65 @@ def phase_split_scan(hist_cuda):
     return cases
 
 
+# ------------------------------------------------------------------ K4
+SIGMOID_N = 1_000_448  # the main path's margins: 1,000,000 rows padded
+
+
+def _sigmoid_launches(hist_cuda, rounds, evals):
+    """Launch counts with K4's for a binary:logistic training: once for the
+    base score, once per round for the gradients and once per round for
+    each evaluation set; the other kernels' are filled in by the caller."""
+    want = {name: 0 for name in hist_cuda.SOURCES}
+    want["sigmoid"] = 1 + rounds * (1 + evals)
+    return want
+
+
+def phase_sigmoid(hist_cuda):
+    """K4 against its plain version, bitwise, on the main path's shape: the
+    margins of a logistic model, with the f32 range's edges (the clamps at
+    -104 and 88.8, overflow, infinities, NaN) mixed in."""
+    from xgboost_tpu_torch.ops.sigmoid_cuda import sigmoid_cuda
+    from xgboost_tpu_torch.utils.fp import sigmoid_f32
+
+    rng = np.random.default_rng(5)
+    x = (rng.normal(size=SIGMOID_N) * 4).astype(np.float32)
+    k = rng.choice(SIGMOID_N, size=SIGMOID_N // 8, replace=False)
+    x[k] = rng.uniform(-120, 120, size=k.size)
+    edges = np.float32([0.0, -0.0, 1e-30, -1e-30, 88.37, -88.37, 88.8, -88.8,
+                        89.0, -89.0, 104.0, -104.0, 105.0, -105.0, np.inf,
+                        -np.inf, np.nan])
+    x[:edges.size] = edges
+    x_cpu = torch.from_numpy(x)
+    x_card = x_cpu.cuda()
+    got = sigmoid_cuda(x_card).cpu()
+    want = sigmoid_f32(x_cpu)
+    on_card = sigmoid_f32(x_card).cpu()
+    nan = torch.isnan(want)
+
+    def same(a):
+        return bool(torch.equal(torch.isnan(a), nan) and torch.equal(
+            a[~nan].view(torch.int32), want[~nan].view(torch.int32)))
+
+    err = float((got[~nan] - want[~nan]).abs().max())
+    kernel_ms = cuda_ms(lambda: sigmoid_cuda(x_card))
+    plain_ms = cuda_ms(lambda: sigmoid_f32(x_card), reps=5)
+    library_ms = cuda_ms(lambda: torch.sigmoid(x_card))
+    # each margin read once and each probability written once; about 30
+    # f32 operations per element (nine multiply-adds, the clamps, scaling,
+    # the division and the flushes)
+    t_bytes = 8 * SIGMOID_N / HBM_BYTES_PER_S
+    t_ops = 30 * SIGMOID_N / F32_FLOPS
+    case = dict(kernel="sigmoid", n=SIGMOID_N, bitwise=same(got),
+                plain_on_card_bitwise=same(on_card), max_abs_err=err,
+                kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=max(t_bytes, t_ops) * 1e3,
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+    log("phase 2d kernel vs plain: " + json.dumps(case))
+    if not case["bitwise"]:
+        raise AssertionError("sigmoid disagrees with its plain version")
+    return [case]
+
+
 # ------------------------------------------------------------- lossguide
 LOSSGUIDE = {"objective": "binary:logistic", "max_bin": 256,
              "grow_policy": "lossguide", "max_depth": 0, "max_leaves": 255,
@@ -665,8 +739,8 @@ def phase_lossguide(xtt, hist_cuda, dtrain, n_rows, rounds: int = 10,
                     verbose_eval=False)
     torch.cuda.synchronize()
     splits = _splits(bst)
-    want = {"hist_f32": rounds + sum(splits), "hist_q": 0,
-            "split_scan": rounds + sum(splits)}
+    want = _sigmoid_launches(hist_cuda, rounds, evals=1)
+    want["hist_f32"] = want["split_scan"] = rounds + sum(splits)
     if hist_cuda.launches != want:
         raise AssertionError(f"phase 6: launches {hist_cuda.launches}, want "
                              f"{want} for splits {splits}")
@@ -722,6 +796,15 @@ def _kernel_entry(name, source, cases, launches):
     # the first slice, (0, 1, 1), (15, 16, 2) and (31, 16, 2), the six
     # levels' sum is phase 2's line; K3: the six depth-6 levels,
     # unconstrained (the main path's scan)
+    if name == "sigmoid":
+        c = cases[0]
+        return {
+            "name": name, "route": "cuda", "source": source,
+            "replaces": REPLACES[name], "launches": launches,
+            "max_abs_err": c["max_abs_err"], "ms": c["kernel_ms"],
+            "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
+            "bound_by": c["bound_by"], "library_ms": c["library_ms"],
+        }
     if name == "split_scan":
         main = [c for c in cases if c["mode"] == "native"
                 and c["n_nodes"] in SCAN_LEVELS]
@@ -755,7 +838,9 @@ REPLACES = {"hist_f32": "xgboost_tpu/ops/hist_pallas.py:77",
             "hist_q": "xgboost_tpu/ops/hist_pallas.py:173",
             # no Pallas kernel: the reference's native CPU scan (and its
             # XLA formulation, xgboost_tpu/ops/split.py:253, when monotone)
-            "split_scan": "native/xtb_kernels.h:647"}
+            "split_scan": "native/xtb_kernels.h:647",
+            # no Pallas kernel: XLA's jax.nn.sigmoid in the objective
+            "sigmoid": "xgboost_tpu/objective/regression.py:113"}
 
 
 def main() -> int:
@@ -775,6 +860,7 @@ def main() -> int:
     f32_cases = timed("2", phase_kernels, hist_cuda, "hist_f32", "2")
     q_cases = timed("2b", phase_kernels, hist_cuda, "hist_q", "2b")
     scan_cases = timed("2c", phase_split_scan, hist_cuda)
+    sig_cases = timed("2d", phase_sigmoid, hist_cuda)
     X, y = make_data(1_000_000, 28)
     f32, dtrain = timed("3", phase_train, xtt, hist_cuda, X, y, 10)
     timed("3b", phase_profile, xtt, dtrain, BASE, "3b")
@@ -791,7 +877,9 @@ def main() -> int:
                for name, cases, n in (("hist_f32", f32_cases, f32["launches"]),
                                       ("hist_q", q_cases, det["launches"]),
                                       ("split_scan", scan_cases,
-                                       f32["scan_launches"]))]
+                                       f32["scan_launches"]),
+                                      ("sigmoid", sig_cases,
+                                       f32["sigmoid_launches"]))]
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -9,7 +9,10 @@ blocks at N = 128, and the trainer's launches of each counted.  K3
 (csrc/split_scan.cu) held against its plain version bitwise (the same
 fixed summation order and arithmetic) at the six levels of a depth-6 round
 and at the best-first grower's N = 2, unconstrained and monotone, with
-ties, nodes without a candidate, dead slots and masked features.  Every
+ties, nodes without a candidate, dead slots and masked features, and a
+refused K3 launch raising without leaving an error for the next kernel.
+K4 (csrc/sigmoid.cu) held against its plain version bitwise over the f32
+range and its edges.  Every
 test here needs a CUDA device and skips without one; the file imports
 neither JAX nor xgboost_tpu, so it runs on a machine that has only
 PyTorch."""
@@ -20,7 +23,7 @@ import pytest
 import torch
 
 import xgboost_tpu_torch as xtt
-from xgboost_tpu_torch.ops import hist_cuda
+from xgboost_tpu_torch.ops import hist_cuda, split_cuda
 from xgboost_tpu_torch.ops.quantise import local_rho, quantise_gpair
 
 needs_cuda = pytest.mark.skipif("not torch.cuda.is_available()",
@@ -306,8 +309,9 @@ def test_training_on_card_launches_kernel_and_matches_cpu():
     hist_cuda.reset_launches()
     card = xtt.train(params, xtt.DMatrix(X, label=y), 4, verbose_eval=False)
     # depths 0-2 build, depth 3 does not
+    # and one sigmoid for the base score, then one a round
     assert hist_cuda.launches == {"hist_f32": 4 * 3, "hist_q": 0,
-                                  "split_scan": 4 * 3}
+                                  "split_scan": 4 * 3, "sigmoid": 1 + 4}
     cpu = xtt.train(params, xtt.DMatrix(X, label=y, device="cpu"), 4,
                     verbose_eval=False, device="cpu")
     for a, b in zip(card.trees, cpu.trees):
@@ -354,7 +358,7 @@ def test_deterministic_training_launches_only_k2_and_repeats_bytes():
         bst = xtt.train(params, xtt.DMatrix(X, label=y), 3,
                         verbose_eval=False)
         assert hist_cuda.launches == {"hist_f32": 0, "hist_q": 3 * 6,
-                                      "split_scan": 3 * 6}
+                                      "split_scan": 3 * 6, "sigmoid": 1 + 3}
         models.append(json.dumps(bst.save_raw_dict()))
     assert models[0] == models[1]
 
@@ -401,6 +405,19 @@ K3_PARAMS = [dict(min_child_weight=1.0, lambda_=1.0, alpha=0.0,
                   max_delta_step=0.7)]
 
 
+def _k3(h, tot, nb, p, mask=None, bounds=None):
+    """K3 on the card copies of CPU inputs, in the mode the plain version
+    takes for ``p``."""
+    from xgboost_tpu_torch.ops.split import is_monotone, monotone_vec
+
+    mono = monotone_vec(tuple(p.monotone), torch.device("cuda")) \
+        if is_monotone(p) else None
+    return split_cuda.split_scan_cuda(
+        h.cuda(), tot.cuda(), nb.cuda(), p,
+        None if mask is None else mask.cuda(),
+        None if bounds is None else bounds.cuda(), mono)
+
+
 @needs_cuda
 @pytest.mark.parametrize("monotone", [False, True])
 @pytest.mark.parametrize("pi", [0, 1])
@@ -415,9 +432,7 @@ def test_split_scan_matches_plain_bitwise(N, F, B, pi, monotone):
     for mask in (None, fm, fm[:1]):
         want = split_scan_plain(h, tot, nb, p, mask, bounds)
         before = hist_cuda.launches["split_scan"]
-        got = hist_cuda.split_scan_cuda(
-            h.cuda(), tot.cuda(), nb.cuda(), p,
-            None if mask is None else mask.cuda(), bounds.cuda())
+        got = _k3(h, tot, nb, p, mask, bounds)
         torch.cuda.synchronize()
         assert hist_cuda.launches["split_scan"] == before + 1
         for name, a, b in zip(want._fields, got, want):
@@ -433,9 +448,77 @@ def test_split_scan_rejects_what_it_cannot_take():
     p = SP(eta=0.3, gamma=0.0, min_child_weight=1.0, lambda_=1.0, alpha=0.0,
            max_delta_step=0.0)
     with pytest.raises(ValueError):
-        hist_cuda.split_scan_cuda(h, tot, nb, p)  # CPU tensors
+        split_cuda.split_scan_cuda(h, tot, nb, p)  # CPU tensors
     with pytest.raises(ValueError):
-        hist_cuda.split_scan_cuda(h.cuda(), tot[:2].cuda(), nb.cuda(), p)
+        split_cuda.split_scan_cuda(h.cuda(), tot[:2].cuda(), nb.cuda(), p)
     with pytest.raises(TypeError):
-        hist_cuda.split_scan_cuda(h.double().cuda(), tot.cuda(), nb.cuda(),
-                                  p)
+        split_cuda.split_scan_cuda(h.double().cuda(), tot.cuda(), nb.cuda(),
+                                   p)
+    with pytest.raises(ValueError):  # a constraint vector of another width
+        split_cuda.split_scan_cuda(
+            h.cuda(), tot.cuda(), nb.cuda(), p,
+            mono=torch.ones(4, dtype=torch.int32, device="cuda"))
+
+
+@needs_cuda
+def test_refused_split_scan_launch_raises_and_clears_the_error():
+    """A histogram of 8192 bins asks K3 for more shared memory than a block
+    may have; the card refuses, the wrapper raises and counts no launch, and
+    the runtime's error state is cleared, so the next K1 launch runs."""
+    h, tot, nb, _, _, _, SP = _scan_case(1, 1, 8192, seed=4)
+    p = SP(eta=0.3, gamma=0.0, min_child_weight=1.0, lambda_=1.0, alpha=0.0,
+           max_delta_step=0.0)
+    before = dict(hist_cuda.launches)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        _k3(h, tot, nb, p)
+    assert hist_cuda.launches == before
+    args = _k1(*_mk(4096, 28, 256, 0, 1, 8))
+    kw = dict(node0=0, n_nodes=1, n_bin=256)
+    torch.testing.assert_close(hist_cuda.build_histogram_cuda(*args, **kw),
+                               hist_cuda.build_histogram_plain(*args, **kw),
+                               rtol=1e-4, atol=1e-4)
+    assert hist_cuda.launches["hist_f32"] == before["hist_f32"] + 1
+
+
+# ---------------------------------------------------------------- K4
+def _sigmoid_inputs(n=1 << 16, seed=0):
+    """Margins across the f32 range the exponential handles, and its edges:
+    zeros, tiny values, the clamps at -104 and 88.8, overflow, infinities
+    and NaN."""
+    rng = np.random.default_rng(seed)
+    edges = np.float32([0.0, -0.0, 1e-30, -1e-30, 1e-8, -1e-8, 15.0, -15.0,
+                        17.0, -17.0, 87.0, -87.0, 88.37, -88.37, 88.7, -88.7,
+                        88.8, -88.8, 89.0, -89.0, 103.0, -103.0, 104.0,
+                        -104.0, 105.0, -105.0, 1e4, -1e4, np.inf, -np.inf,
+                        np.nan])
+    x = np.concatenate([rng.normal(size=n) * 4, rng.uniform(-120, 120, n),
+                        edges]).astype(np.float32)
+    return torch.from_numpy(x)
+
+
+@needs_cuda
+@pytest.mark.parametrize("n", [1, 33, 1 << 16])
+def test_sigmoid_matches_plain_bitwise(n):
+    from xgboost_tpu_torch.ops.sigmoid_cuda import sigmoid_cuda
+    from xgboost_tpu_torch.utils.fp import sigmoid_f32
+
+    x = _sigmoid_inputs(n)
+    before = hist_cuda.launches["sigmoid"]
+    got = sigmoid_cuda(x.cuda()).cpu()
+    assert hist_cuda.launches["sigmoid"] == before + 1
+    want = sigmoid_f32(x)
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan)
+    assert torch.equal(got[~nan].view(torch.int32),
+                       want[~nan].view(torch.int32))
+
+
+@needs_cuda
+def test_sigmoid_rejects_what_it_cannot_take():
+    from xgboost_tpu_torch.ops.sigmoid_cuda import sigmoid_cuda
+
+    with pytest.raises(TypeError):
+        sigmoid_cuda(torch.zeros(4, dtype=torch.float64, device="cuda"))
+    before = hist_cuda.launches["sigmoid"]
+    assert sigmoid_cuda(torch.zeros(0, device="cuda")).shape == (0,)
+    assert hist_cuda.launches["sigmoid"] == before  # nothing to launch

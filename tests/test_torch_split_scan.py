@@ -10,7 +10,9 @@ K3, csrc/split_scan.cu):
   CPU), monotone against its XLA formulation, with feature masks, bounds,
   ties, nodes without a candidate and dead slots;
 - the f32 helpers: ``fma_f32`` against the C library's fmaf, ``exp_f32``
-  and ``sigmoid_f32`` against XLA's exp and jax.nn.sigmoid."""
+  and ``sigmoid_f32`` against XLA's exp and jax.nn.sigmoid;
+- the dispatchers of K3 and K4 (ops/split_cuda.py, ops/sigmoid_cuda.py)
+  take the plain versions on CPU tensors and launch nothing."""
 import ctypes
 import ctypes.util
 
@@ -148,3 +150,42 @@ def test_exp_and_sigmoid_match_xla():
     _bits_equal(exp_f32(t).numpy(), np.asarray(jax.jit(jnp.exp)(x)))
     _bits_equal(sigmoid_f32(t).numpy(),
                 np.asarray(jax.jit(jax.nn.sigmoid)(x)))
+
+
+def test_sigmoid_dispatch_takes_plain_version_on_cpu():
+    """The objective's sigmoid on a CPU tensor is the plain version, with
+    XLA's bits across the f32 range and at its edges (the clamps, overflow,
+    infinities, NaN), and launches no kernel; K4's wrapper refuses a CPU
+    tensor."""
+    from xgboost_tpu_torch.ops import hist_cuda
+    from xgboost_tpu_torch.ops.sigmoid_cuda import sigmoid, sigmoid_cuda
+
+    rng = np.random.default_rng(2)
+    edges = [0.0, -0.0, 1e-8, -1e-8, 17.0, -17.0, 88.37, -88.37, 88.8,
+             -88.8, 89.0, -89.0, 104.0, -104.0, 105.0, -105.0, 1e4, -1e4,
+             np.inf, -np.inf, np.nan]
+    x = np.concatenate([rng.normal(size=20_000) * 4,
+                        rng.uniform(-120, 120, 20_000), edges]).astype(
+                            np.float32)
+    before = dict(hist_cuda.launches)
+    got = sigmoid(torch.from_numpy(x)).numpy()
+    assert hist_cuda.launches == before
+    _bits_equal(got, np.asarray(jax.jit(jax.nn.sigmoid)(x)))
+    with pytest.raises(ValueError, match="CUDA"):
+        sigmoid_cuda(torch.from_numpy(x))
+
+
+def test_split_dispatch_takes_plain_version_on_cpu():
+    """``evaluate_splits`` on CPU tensors runs the plain scan and launches
+    no kernel; K3's wrapper refuses CPU tensors."""
+    from xgboost_tpu_torch.ops import hist_cuda
+    from xgboost_tpu_torch.ops.split_cuda import split_scan_cuda
+
+    h, tot, nb, fm, _, _ = _case(4, 5, 16, seed=3, ties=False)
+    p = SplitParams(**PARAMS[0])
+    args = [torch.from_numpy(a) for a in (h, tot, nb)]
+    before = dict(hist_cuda.launches)
+    evaluate_splits(*args, p, torch.from_numpy(fm))
+    assert hist_cuda.launches == before
+    with pytest.raises(ValueError, match="CUDA"):
+        split_scan_cuda(*args, p)

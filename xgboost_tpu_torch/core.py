@@ -161,7 +161,7 @@ class Booster:
             self._grower = HistTreeGrower(
                 self._resolve_max_depth(lossguide), self._split_params,
                 interaction_sets=tp.interaction_constraints,
-                max_leaves=tp.max_leaves, lossguide=lossguide,
+                max_leaves=tp.max_leaves,
                 quantised=self.deterministic_histogram)
         self._configured = True
 

@@ -307,6 +307,14 @@ split_scan_kernel(const float2* __restrict__ hist,
   out_HL[n] = best.HL;
 }
 
+// The first error of a call, with the runtime's last-error state cleared,
+// so that a refused launch does not surface again at the next one (of this
+// kernel or of another in the process).
+int status(cudaError_t err) {
+  const cudaError_t last = cudaGetLastError();
+  return (int)(err != cudaSuccess ? err : last);
+}
+
 }  // namespace
 
 extern "C" {
@@ -330,7 +338,7 @@ int xtb_split_scan(const void* hist, const void* totals, const void* n_bins,
   cudaError_t err = cudaFuncSetAttribute(
       split_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
-  if (err != cudaSuccess) return (int)err;
+  if (err != cudaSuccess) return status(err);
   const Params p{lambda_, alpha, min_child_weight, max_delta_step};
   split_scan_kernel<<<N, kWarps * 32, smem,
                       static_cast<cudaStream_t>(stream)>>>(
@@ -341,7 +349,7 @@ int xtb_split_scan(const void* hist, const void* totals, const void* n_bins,
       static_cast<float*>(out_gain), static_cast<int64_t*>(out_feat),
       static_cast<int64_t*>(out_bin), static_cast<uint8_t*>(out_dleft),
       static_cast<float*>(out_GL), static_cast<float*>(out_HL));
-  return (int)cudaGetLastError();
+  return status(cudaGetLastError());
 }
 
 const char* xtb_cuda_error_string(int code) {

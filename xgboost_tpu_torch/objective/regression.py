@@ -4,14 +4,15 @@ reference: src/objective/regression_obj.cu).
 
 squarederror: grad = pred - y, hess = 1.  logistic: grad = sigmoid(x) - y,
 hess = max(p(1-p), 1e-16), both scaled by scale_pos_weight on positive rows;
-the sigmoid is XLA's (utils/fp.py), so the gradients are the reference's
-bits at every round.
+the sigmoid is XLA's (utils/fp.py on the CPU, the kernel K4 on the card:
+ops/sigmoid_cuda.py), so the gradients are the reference's bits at every
+round.
 """
 from __future__ import annotations
 
 import torch
 
-from ..utils.fp import sigmoid_f32
+from ..ops.sigmoid_cuda import sigmoid
 from . import ObjFunction, register_objective
 
 
@@ -44,20 +45,20 @@ class SquaredError(_Elementwise):
 @register_objective("binary:logistic")
 class BinaryLogistic(_Elementwise):
     def _grad(self, pred, y):
-        p = sigmoid_f32(pred)
+        p = sigmoid(pred)
         spw = float(self.params.get("scale_pos_weight", 1.0))
         w = torch.where(y == 1.0, spw, 1.0)
         return (p - y) * w, torch.clamp(p * (1 - p), min=1e-16) * w
 
     def pred_transform(self, margin):
-        return sigmoid_f32(margin)
+        return sigmoid(margin)
 
     def prob_to_margin(self, prob):
         p = torch.clamp(prob, 1e-7, 1 - 1e-7)
         return torch.log(p / (1 - p))
 
     def margin_to_prob(self, margin):
-        return sigmoid_f32(margin)
+        return sigmoid(margin)
 
     def default_metric(self):
         return "logloss"

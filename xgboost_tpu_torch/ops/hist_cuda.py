@@ -1,5 +1,5 @@
-"""Per-level gradient histograms on the card: the hand-written CUDA kernels
-and their build, binding and dispatch.
+"""The hand-written CUDA kernels' build, binding and launch counts, and the
+per-level gradient histograms on the card.
 
 - K1 ``hist_f32`` (csrc/hist.cu, port of xgboost_tpu/ops/hist_pallas.py:
   _hist_kernel): f32 (g, h) sums, the default path.  Launched in thread
@@ -10,9 +10,12 @@ and their build, binding and dispatch.
   Launched the same way, as ``plan_q`` plans.
 - K3 ``split_scan`` (csrc/split_scan.cu; no Pallas kernel, it replaces the
   reference's native and XLA split scans): the best split per node in the
-  reference's summation order, ``split_scan_cuda``.  Built with
-  ``--fmad=false`` so that nvcc fuses no multiply-add the reference does
-  not.
+  reference's summation order; its wrapper is ops/split_cuda.py.
+- K4 ``sigmoid`` (csrc/sigmoid.cu; no Pallas kernel, it replaces XLA's
+  jax.nn.sigmoid): the binary:logistic transform in XLA's f32 arithmetic;
+  its wrapper is ops/sigmoid_cuda.py.
+K3 and K4 are built with ``--fmad=false`` so that nvcc fuses no
+multiply-add the reference does not.
 
 Each source is compiled with nvcc for sm_90a into its own shared library
 with a plain C interface at first use, into ``xgboost_tpu_torch/_build/``
@@ -23,7 +26,8 @@ version.
 
 ``build_histogram`` and ``build_histogram_q`` are the dispatchers the grower
 calls: a CPU tensor goes to the plain PyTorch version, a CUDA tensor to the
-kernel.  ``launches`` counts, per kernel, the launches since the last reset.
+kernel.  ``launches`` counts, per kernel, the launches since the last reset;
+every wrapper counts through ``launched``.
 """
 from __future__ import annotations
 
@@ -40,25 +44,25 @@ import torch
 
 from .histogram import build_histogram as build_histogram_plain
 from .quantise import hist_accumulate_q
-from .split import ScanResult, SplitParams, is_monotone, monotone_vec
 
 __all__ = ["build_histogram", "build_histogram_cuda", "build_histogram_plain",
            "build_histogram_q", "build_histogram_q_cuda",
            "build_histogram_q_plain", "build_all", "card_max_clusters",
            "choose_block", "Plan", "load_library", "launches", "plan_f32",
            "plan_q", "reset_launches", "run_f32", "run_q", "slice_units",
-           "split_scan_cuda", "SOURCES"]
+           "launched", "SOURCES"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _BUILD_DIR = os.path.join(_PKG, "_build")
 # kernel name -> its source, relative to the repository root
 SOURCES = {"hist_f32": "xgboost_tpu_torch/csrc/hist.cu",
            "hist_q": "xgboost_tpu_torch/csrc/hist_q.cu",
-           "split_scan": "xgboost_tpu_torch/csrc/split_scan.cu"}
+           "split_scan": "xgboost_tpu_torch/csrc/split_scan.cu",
+           "sigmoid": "xgboost_tpu_torch/csrc/sigmoid.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
-# K3 must round as the reference does: no contracted multiply-adds
-EXTRA_FLAGS = {"split_scan": ["--fmad=false"]}
+# K3 and K4 must round as the reference does: no contracted multiply-adds
+EXTRA_FLAGS = {"split_scan": ["--fmad=false"], "sigmoid": ["--fmad=false"]}
 
 # kernel launches per kernel since the last reset_launches()
 launches = {name: 0 for name in SOURCES}
@@ -81,6 +85,7 @@ _ENTRY = {
     "hist_q": ("xtb_hist_q", [_vp, _ci, _vp, _vp, _vp] + [_ci] * 13 + [_vp]),
     "split_scan": ("xtb_split_scan", [_vp] * 4 + [_ci, _vp, _vp] + [_ci] * 3
                    + [ctypes.c_float] * 4 + [_ci] + [_vp] * 7),
+    "sigmoid": ("xtb_sigmoid", [_vp, _vp, ctypes.c_longlong, _vp]),
 }
 _libs: dict = {}
 _lib_lock = threading.Lock()
@@ -100,8 +105,8 @@ def _nvcc() -> str:
     path = "/usr/local/cuda/bin/nvcc"
     if os.path.exists(path):
         return path
-    raise RuntimeError("nvcc not found: the CUDA histogram kernels cannot be "
-                       "built (put the CUDA toolkit's bin/ on PATH)")
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built "
+                       "(put the CUDA toolkit's bin/ on PATH)")
 
 
 def _src_path(name: str) -> str:
@@ -228,7 +233,9 @@ def _check(bins, vals, pos, vals_dtype, vals_tail, n_nodes, n_bin, stride):
         raise ValueError("n_nodes, stride and n_bin must be positive")
 
 
-def _launched(name: str, lib, rc: int) -> None:
+def launched(name: str, lib, rc: int) -> None:
+    """Count one launch of kernel ``name``, or raise with the card's
+    reason if its entry point returned an error."""
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: "
                            + lib.xtb_cuda_error_string(rc).decode())
@@ -366,7 +373,7 @@ def run_f32(bins, gpair, pos, plan: Plan, *, node0: int, n_nodes: int,
             pos.data_ptr(), out.data_ptr(), R, F, n_bin, node0, n_nodes,
             stride, plan.feat_group, plan.node_tile, plan.row_blocks,
             plan.cluster, plan.threads, int(plan.staged), stream)
-    _launched("hist_f32", lib, rc)
+    launched("hist_f32", lib, rc)
     return out
 
 
@@ -408,7 +415,7 @@ def run_q(bins, gq, pos, plan: Plan, *, node0: int, n_nodes: int,
             n_nodes, stride, plan.feat_group, plan.node_tile,
             plan.row_blocks, plan.cluster, plan.threads, int(plan.staged),
             stream)
-    _launched("hist_q", lib, rc)
+    launched("hist_q", lib, rc)
     return out
 
 
@@ -446,65 +453,3 @@ def build_histogram_q(bins, gq, pos, *, node0: int, n_nodes: int,
     fn = build_histogram_q_cuda if bins.is_cuda else build_histogram_q_plain
     return fn(bins, gq, pos, node0=node0, n_nodes=n_nodes, n_bin=n_bin,
               stride=stride)
-
-
-def split_scan_cuda(hist, totals, n_bins, params: SplitParams,
-                    feature_mask=None, node_bounds=None) -> ScanResult:
-    """Launch K3: the best split of each node of ``hist`` (N, F, B, 2) f32
-    on the inputs' card, as ``split.split_scan_plain`` computes it.
-    ``feature_mask`` (F,), (1, F) or (N, F) bool; ``node_bounds`` (N, 2)
-    f32, read under monotone constraints.  A launch the card refuses
-    raises."""
-    if not (hist.is_cuda and totals.is_cuda):
-        raise ValueError("the split scan kernel needs CUDA tensors")
-    if hist.dtype != torch.float32 or totals.dtype != torch.float32:
-        raise TypeError("hist and totals must be float32")
-    if hist.dim() != 4 or hist.shape[-1] != 2:
-        raise ValueError(f"hist must be (N, F, B, 2), got {tuple(hist.shape)}")
-    N, F, B, _ = hist.shape
-    dev = hist.device
-    if tuple(totals.shape) != (N, 2) or tuple(n_bins.shape) != (F,):
-        raise ValueError(f"totals {tuple(totals.shape)} and n_bins "
-                         f"{tuple(n_bins.shape)} do not match hist "
-                         f"{tuple(hist.shape)}")
-    hist, totals = hist.contiguous(), totals.contiguous()
-    nb = n_bins.to(dev, torch.int32).contiguous()
-    fm, fm_rows = None, 0
-    if feature_mask is not None:
-        fm = feature_mask if feature_mask.dim() == 2 else feature_mask[None]
-        if fm.shape[1] != F or fm.shape[0] not in (1, N):
-            raise ValueError(f"feature_mask {tuple(feature_mask.shape)} does "
-                             f"not match {N} nodes x {F} features")
-        fm = fm.to(dev, torch.bool).contiguous()
-        fm_rows = fm.shape[0]
-    mode = 1 if is_monotone(params) else 0
-    mono = bounds = None
-    if mode:
-        if len(params.monotone) != F:
-            raise ValueError(f"monotone_constraints has {len(params.monotone)}"
-                             f" entries for {F} features")
-        mono = monotone_vec(tuple(params.monotone), dev)
-        if node_bounds is not None:
-            bounds = node_bounds.to(dev, torch.float32).contiguous()
-    out = ScanResult(
-        gain=torch.empty(N, dtype=torch.float32, device=dev),
-        feature=torch.empty(N, dtype=torch.int64, device=dev),
-        bin=torch.empty(N, dtype=torch.int64, device=dev),
-        default_left=torch.empty(N, dtype=torch.bool, device=dev),
-        GL=torch.empty(N, dtype=torch.float32, device=dev),
-        HL=torch.empty(N, dtype=torch.float32, device=dev))
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
-    lib = load_library("split_scan")
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        rc = lib.xtb_split_scan(
-            hist.data_ptr(), totals.data_ptr(), nb.data_ptr(), ptr(fm),
-            fm_rows, ptr(bounds), ptr(mono), N, F, B,
-            float(params.lambda_), float(params.alpha),
-            float(params.min_child_weight), float(params.max_delta_step),
-            mode, *(ptr(t) for t in out), stream)
-    _launched("split_scan", lib, rc)
-    return out

@@ -12,7 +12,7 @@ the reference give the same bits:
   the CPU computes in blocks of 16 (``prefix_blocked``).
 
 ``split_scan_plain`` is the plain PyTorch version; the CUDA kernel K3
-(csrc/split_scan.cu, ops/hist_cuda.py ``split_scan_cuda``) computes the
+(csrc/split_scan.cu, ops/split_cuda.py ``split_scan_cuda``) computes the
 same six outputs per node.  ``evaluate_splits`` sends a CPU tensor to the
 plain version and a CUDA tensor to K3, then forms the right sums and child
 weights as the reference does, outside the scan.  Gain formulae follow
@@ -28,6 +28,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from ..utils.fp import fma_f32
+from .split_cuda import split_scan_cuda
 
 _EPS = 1e-6  # kRtEps (include/xgboost/base.h)
 # XLA's CPU scan: in-block prefixes of 16 bins, the block totals scanned
@@ -306,10 +307,13 @@ def evaluate_splits(hist, totals, n_bins, params: SplitParams,
     node_bounds  : optional (N, 2) f32 [lower, upper] monotone weight bounds
     """
     if hist.is_cuda:
-        from .hist_cuda import split_scan_cuda as scan
+        mono = (monotone_vec(tuple(params.monotone), hist.device)
+                if is_monotone(params) else None)
+        s = ScanResult(*split_scan_cuda(hist, totals, n_bins, params,
+                                        feature_mask, node_bounds, mono))
     else:
-        scan = split_scan_plain
-    s = scan(hist, totals, n_bins, params, feature_mask, node_bounds)
+        s = split_scan_plain(hist, totals, n_bins, params, feature_mask,
+                             node_bounds)
     GR = totals[:, 0] - s.GL
     HR = totals[:, 1] - s.HL
     lo = hi = None

@@ -1,0 +1,81 @@
+"""The split scan on the card: the wrapper of K3 (csrc/split_scan.cu).
+
+K3 computes what ``ops/split.py: split_scan_plain`` computes, bit for bit:
+the best split of each node of a level's histogram, in the reference's
+summation order.  ``split.evaluate_splits`` sends a CUDA tensor here and a
+CPU tensor to the plain version.  The library is built and loaded by
+ops/hist_cuda.py's loader, and each launch is counted in
+``hist_cuda.launches["split_scan"]``.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from .hist_cuda import launched, load_library
+
+__all__ = ["split_scan_cuda"]
+
+
+def split_scan_cuda(hist, totals, n_bins, params, feature_mask=None,
+                    node_bounds=None, mono=None) -> Tuple[torch.Tensor, ...]:
+    """Launch K3 on the inputs' card: the best split of each node of
+    ``hist`` (N, F, B, 2) f32, with ``totals`` (N, 2) f32 and ``n_bins``
+    (F,).  ``params`` is a ``split.SplitParams`` (its lambda_, alpha,
+    min_child_weight and max_delta_step are read); ``feature_mask`` (F,),
+    (1, F) or (N, F) bool.  ``mono`` is the (F,) int32 constraint vector on
+    the card for the monotone scan, None for the unconstrained one, whose
+    ``node_bounds`` (N, 2) f32 are then ignored.  Returns (gain, feature,
+    bin, default_left, GL, HL), each (N,), in ``split.ScanResult``'s order.
+    A launch the card refuses raises."""
+    if not (hist.is_cuda and totals.is_cuda):
+        raise ValueError("the split scan kernel needs CUDA tensors")
+    if hist.dtype != torch.float32 or totals.dtype != torch.float32:
+        raise TypeError("hist and totals must be float32")
+    if hist.dim() != 4 or hist.shape[-1] != 2:
+        raise ValueError(f"hist must be (N, F, B, 2), got {tuple(hist.shape)}")
+    N, F, B, _ = hist.shape
+    dev = hist.device
+    if tuple(totals.shape) != (N, 2) or tuple(n_bins.shape) != (F,):
+        raise ValueError(f"totals {tuple(totals.shape)} and n_bins "
+                         f"{tuple(n_bins.shape)} do not match hist "
+                         f"{tuple(hist.shape)}")
+    hist, totals = hist.contiguous(), totals.contiguous()
+    nb = n_bins.to(dev, torch.int32).contiguous()
+    fm, fm_rows = None, 0
+    if feature_mask is not None:
+        fm = feature_mask if feature_mask.dim() == 2 else feature_mask[None]
+        if fm.shape[1] != F or fm.shape[0] not in (1, N):
+            raise ValueError(f"feature_mask {tuple(feature_mask.shape)} does "
+                             f"not match {N} nodes x {F} features")
+        fm = fm.to(dev, torch.bool).contiguous()
+        fm_rows = fm.shape[0]
+    bounds = None
+    if mono is not None:
+        if tuple(mono.shape) != (F,) or mono.dtype != torch.int32 \
+                or mono.device != dev:
+            raise ValueError(f"mono must be ({F},) int32 on {dev}")
+        if node_bounds is not None:
+            bounds = node_bounds.to(dev, torch.float32).contiguous()
+    out = (torch.empty(N, dtype=torch.float32, device=dev),
+           torch.empty(N, dtype=torch.int64, device=dev),
+           torch.empty(N, dtype=torch.int64, device=dev),
+           torch.empty(N, dtype=torch.bool, device=dev),
+           torch.empty(N, dtype=torch.float32, device=dev),
+           torch.empty(N, dtype=torch.float32, device=dev))
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    lib = load_library("split_scan")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        rc = lib.xtb_split_scan(
+            hist.data_ptr(), totals.data_ptr(), nb.data_ptr(), ptr(fm),
+            fm_rows, ptr(bounds), ptr(mono), N, F, B,
+            float(params.lambda_), float(params.alpha),
+            float(params.min_child_weight), float(params.max_delta_step),
+            0 if mono is None else 1, *(ptr(t) for t in out), stream)
+    launched("split_scan", lib, rc)
+    return out

@@ -174,14 +174,13 @@ def level_step(state: TreeState, bins, gpair, cuts_pad, n_bins,
                feature_mask=None, set_matrix=None, hist_prev=None, rho=None,
                *, depth: int, params: SplitParams, last_level: bool,
                subtract: bool = False, quantised: bool = False,
-               budget: bool = False, lossguide: bool = False):
+               budget: bool = False):
     """Expand every alive node at ``depth``: hist -> best split -> apply.
 
     ``feature_mask`` (1|N, F) bool (column sampling) and ``set_matrix``
     (n_sets, F) bool (interaction sets) restrict each node's candidate
     features; None means no restriction.  ``budget`` spends
-    ``state.splits_left`` (max_leaves), in node order, or by gain under
-    ``lossguide``.  With ``quantised`` ``gpair`` is the
+    ``state.splits_left`` (max_leaves).  With ``quantised`` ``gpair`` is the
     (R, C, 3) int8 limb array and ``rho`` its (C,) scale.
 
     Returns ``(state, hist)``; ``hist`` (N, F, B, 2) f32, or (N, F, B, 2, 3)
@@ -230,11 +229,10 @@ def level_step(state: TreeState, bins, gpair, cuts_pad, n_bins,
     can_split = alive_lvl & (best.gain > max(params.gamma, _EPS))
 
     new_budget = None
-    if budget:  # max_leaves: by gain under lossguide, else in node order
+    if budget:  # max_leaves, spent in node order under depthwise
         idx = torch.arange(node0, node0 + N, device=w.device)
         splits_left = state.splits_left[0]
-        prio = best.gain if lossguide else -idx.to(torch.float32)
-        prio = torch.where(can_split, prio, -torch.inf)
+        prio = torch.where(can_split, -idx.to(torch.float32), -torch.inf)
         ranks = torch.argsort(torch.argsort(-prio, stable=True), stable=True)
         can_split = can_split & (ranks < splits_left)
         new_budget = splits_left - can_split.sum().to(torch.int32)
@@ -283,12 +281,11 @@ class HistTreeGrower:
 
     def __init__(self, max_depth: int, params: SplitParams, *,
                  interaction_sets=None, max_leaves: int = 0,
-                 lossguide: bool = False, quantised: bool = False) -> None:
+                 quantised: bool = False) -> None:
         self.max_depth = max_depth
         self.params = params
         self.interaction_sets = interaction_sets
         self.max_leaves = max_leaves
-        self.lossguide = lossguide
         # exact limb histograms: trees independent of summation order
         # (deterministic_histogram, ops/quantise.py)
         self.quantised = quantised
@@ -328,7 +325,7 @@ class HistTreeGrower:
                 state, bins, gpair, cuts_pad, n_bins, fm, setmat, hist, rho,
                 depth=d, params=self.params, last_level=last,
                 subtract=hist is not None, quantised=self.quantised,
-                budget=self.max_leaves > 0, lossguide=self.lossguide)
+                budget=self.max_leaves > 0)
         return state
 
     @staticmethod
