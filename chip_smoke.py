@@ -29,6 +29,15 @@ holds each CUDA kernel against its plain PyTorch version:
      a candidate, a dead slot and masked features; timings of the kernel,
      the plain version, the cumsum formulation it replaced (the port's
      scan before it) and the bound
+  2e. K3's categorical mode vs plain: the split scan with a categorical
+     mask (every feature in the reference's XLA formulation; categorical
+     bins stably sorted by G/H; one-hot below max_cat_to_onehot; cat_set)
+     against split_scan_plain, bitwise in all seven outputs, at the levels
+     of a depth-8 round (N = 1 to 64 nodes x 39 features x 128 bins, 26
+     categorical features of 100 categories with empty categories and ties
+     in G/H), max_cat_to_onehot 4 (partition) and 128 (one-hot), from the
+     histogram and from its limb form (deterministic_histogram); timings
+     of the kernel and the plain version, and the bound
   2d. K4 vs plain: the sigmoid kernel (csrc/sigmoid.cu) against
      sigmoid_f32 (XLA's f32 logistic as PyTorch operations), bitwise, on
      the main path's 1,000,448 margins with the f32 range's edges mixed in;
@@ -61,6 +70,23 @@ holds each CUDA kernel against its plain PyTorch version:
      feature_weights, under uniform and gradient_based sampling: the same
      trees, predictions within 1e-4, and the card's uniform row masks
      equal to the CPU's bitwise
+
+  7. the categorical slice at full width, Criteo-shaped
+     (scripts/bench_ladder.py:616-631, numpy only): 1,048,576 rows, 13
+     numeric columns with 20% NaN and 26 categorical columns of up to 100
+     codes, binary:logistic, max_depth=8, max_bin=128 (uint8 bins), eta=0.3,
+     10 rounds, on the f32 path and under deterministic_histogram=1: ingest
+     seconds, K1/K2 and K3 launched 8 times a round, K4 as in phase 3,
+     categorical splits > 0, training-set AUC > 0.90, the train loop's
+     median of 3 runs, a two-round profile of each; the card's model JSON
+     reloads and predicts identically, and two deterministic runs write
+     byte-identical JSON
+  7b. card vs CPU on 20,000 rows of the same generator at depth 8: under
+     deterministic_histogram=1 the model JSON byte-identical with
+     max_cat_to_onehot 4 and 128 and with a monotone numeric feature; the
+     f32 path at depth 4 (as phase 5; deeper, f32 sums in another order
+     grow other trees on the CPU too) and lossguide (max_leaves=31) growing
+     the same trees (category sets included), predictions within 1e-4
 
 Run from the repository root: ``python3 chip_smoke.py``.  Exits non-zero if
 any phase fails or no CUDA device is present.  Each phase prints its
@@ -306,14 +332,16 @@ def _model_bytes(bst) -> str:
 
 
 def _train_main_path(xtt, hist_cuda, params, dtrain, n_rows, rounds, kernel,
-                     label, repeats: int = 3):
+                     label, repeats: int = 3, auc_gate: float = 0.9):
     """One path as a user runs it: train with the training-set eval, then
     the train loop alone ``repeats`` times (as bench.py times it: no evals,
     bins already built), each run with the launch counts set to 0 just
-    before and read just after.  Returns the first two boosters, the first
-    run's launches, the metrics and the timed loops' median rate."""
+    before and read just after; the histogram kernel and K3 launch once per
+    level that splits (max_depth a round).  Returns the first two boosters,
+    the first run's launches, the metrics and the timed loops' median
+    rate."""
     want = _sigmoid_launches(hist_cuda, rounds, evals=1)
-    want[kernel] = want["split_scan"] = 6 * rounds
+    want[kernel] = want["split_scan"] = params["max_depth"] * rounds
     hist_cuda.reset_launches()
     evals_result: dict = {}
     t0 = time.perf_counter()
@@ -342,8 +370,8 @@ def _train_main_path(xtt, hist_cuda, params, dtrain, n_rows, rounds, kernel,
     logloss = evals_result["train"]["logloss"][-1]
     auc = evals_result["train"]["auc"][-1]
     train_s = statistics.median(times)
-    if not auc > 0.9:
-        raise AssertionError(f"phase {label}: AUC {auc} <= 0.9")
+    if not auc > auc_gate:
+        raise AssertionError(f"phase {label}: AUC {auc} <= {auc_gate}")
     return dict(bst=bst, timed=timed, launches=launches[kernel],
                 scan_launches=launches["split_scan"],
                 sigmoid_launches=launches["sigmoid"],
@@ -463,20 +491,26 @@ def _card_vs_cpu(xtt, params, X, y, rounds, atol, label, identical=False,
     got = xtt.train(params, d_card, rounds, verbose_eval=False)
     ref = xtt.train(params, d_cpu, rounds, verbose_eval=False, device="cpu")
     for a, b in zip(got.trees, ref.trees):
+        ca, cb = a.categories or {}, b.categories or {}
         if not (np.array_equal(a.split_indices, b.split_indices)
-                and np.array_equal(a.left_children, b.left_children)):
+                and np.array_equal(a.left_children, b.left_children)
+                and sorted(ca) == sorted(cb)
+                and all(np.array_equal(ca[k], cb[k]) for k in ca)):
             raise AssertionError(f"phase {label}: card and CPU grew "
                                  "different trees")
-    diff = np.abs(got.predict(xtt.DMatrix(X)) -
-                  ref.predict(xtt.DMatrix(X, device="cpu"))).max()
+    ft = dm.get("feature_types")
+    diff = np.abs(got.predict(xtt.DMatrix(X, feature_types=ft)) -
+                  ref.predict(xtt.DMatrix(X, device="cpu",
+                                          feature_types=ft))).max()
     if diff > atol:
         raise AssertionError(f"phase {label}: card and CPU predictions "
                              f"differ by {diff}")
     leaves = max(int((t.left_children == -1).sum()) for t in got.trees)
     same = _model_bytes(got) == _model_bytes(ref)
+    n_cat = sum(len(t.categories or {}) for t in got.trees)
     log(f"phase {label} parity: card vs CPU on {X.shape[0]} rows, same "
-        f"trees (at most {leaves} leaves), max |pred diff| {diff:.3g}; "
-        f"model JSON byte-identical: {same}")
+        f"trees (at most {leaves} leaves, {n_cat} categorical splits), max "
+        f"|pred diff| {diff:.3g}; model JSON byte-identical: {same}")
     if identical and not same:
         raise AssertionError(f"phase {label}: the card's model JSON is not "
                              "the CPU's")
@@ -658,6 +692,110 @@ def phase_split_scan(hist_cuda):
     return cases
 
 
+# ------------------------------------------------- K3, categorical mode
+CAT_LEVELS = (1, 2, 4, 8, 16, 32, 64)  # nodes at depths 0-6 of a depth-8 tree
+CAT_F, CAT_B, CAT_NUM = 39, 128, 13  # Criteo: 13 numeric, 26 categorical
+
+
+def _cat_scan_inputs(N, seed):
+    """A categorical level's split-scan inputs at the Criteo shape: 13
+    numeric features of 128 bins and 26 categorical ones of 100 categories,
+    10% of the categories empty, repeated bins (ties in G/H), ~5% missing
+    mass, 80% of the features allowed per node; each numeric feature's
+    bins a shuffle of a categorical one's, so that every feature holds the
+    node's rows and both kinds of split win somewhere; the histogram as
+    comb * scale, the limb form deterministic_histogram scans."""
+    rng = np.random.default_rng(seed)
+    comb = rng.integers(-4000, 4000, size=(N, CAT_F, CAT_B, 2)).astype(
+        np.float32)
+    comb[..., 1] = np.abs(comb[..., 1]) + 1
+    comb[:, :, 1::4] = comb[:, :, ::4][:, :, : CAT_B // 4]
+    nb = np.full(CAT_F, CAT_B, np.int32)
+    nb[CAT_NUM:] = 100
+    comb[:, CAT_NUM:, 100:] = 0.0
+    comb[rng.random((N, CAT_F, CAT_B)) < 0.1] = 0.0
+    for f in range(CAT_NUM):
+        comb[:, f] = 0.0
+        comb[:, f, rng.permutation(CAT_B)[:100]] = comb[:, CAT_NUM + f, :100]
+    scale = torch.tensor([3e-4, 1e-4])
+    comb = torch.from_numpy(comb)
+    h = comb * scale
+    tot = (h[:, CAT_NUM].sum(1) * 1.05).float()
+    fm = torch.from_numpy(rng.random((N, CAT_F)) < 0.8)
+    cm = torch.zeros(CAT_F, dtype=torch.bool)
+    cm[CAT_NUM:] = True
+    return h, tot, torch.from_numpy(nb), fm, cm, (comb, scale)
+
+
+def phase_split_scan_cat():
+    """K3's categorical mode against its plain version, bitwise, at the
+    levels of a depth-8 round, partition and one-hot, from the histogram
+    and from its limb form."""
+    from xgboost_tpu_torch.ops.split import SplitParams, split_scan_plain
+    from xgboost_tpu_torch.ops.split_cuda import split_scan_cuda
+
+    cases = []
+    for onehot in (4, 128):
+        for N in CAT_LEVELS:
+            h, tot, nb, fm, cm, dq = _cat_scan_inputs(N, seed=N + onehot)
+            p = SplitParams(eta=0.3, gamma=0.0, min_child_weight=1.0,
+                            lambda_=1.0, alpha=0.0, max_delta_step=0.0,
+                            max_cat_to_onehot=onehot)
+            card = [t.cuda() for t in (h, tot, nb, fm, cm)]
+            dq_card = tuple(t.cuda() for t in dq)
+            same, err, n_cat = True, 0.0, 0
+            for limbs in (False, True):
+                got = split_scan_cuda(*card[:3], p, card[3], None, None,
+                                      card[4], dq_card if limbs else None)
+                torch.cuda.synchronize()
+                want = split_scan_plain(h, tot, nb, p, fm, None, cm,
+                                        dq if limbs else None)
+                for a, b in zip(got, want):
+                    a = a.cpu()
+                    if a.dtype == torch.float32:
+                        fin = torch.isfinite(b)
+                        if fin.any():
+                            err = max(err, float((a[fin] - b[fin]).abs()
+                                                 .max()))
+                        a, b = a.view(torch.int32), b.view(torch.int32)
+                    same &= torch.equal(a, b)
+                n_cat = int(cm[want.feature].sum())
+            kernel_ms = cuda_ms(lambda: split_scan_cuda(
+                *card[:3], p, card[3], None, None, card[4]))
+            plain_ms = cuda_ms(lambda: split_scan_plain(
+                *card[:3], p, card[3], None, card[4]), reps=5)
+            # the histogram read once, totals, n_bins, mask and cat mask,
+            # seven outputs per node (cat_set B bytes); about 30 f32
+            # operations per (node, feature, bin) and a sort's B log2 B
+            # comparisons per categorical (node, feature)
+            n_bytes = (h.numel() * 4 + N * 8 + CAT_F * 5 + N * CAT_F
+                       + N * (30 + CAT_B))
+            n_ops = (30 * N * CAT_F * CAT_B
+                     + N * (CAT_F - CAT_NUM) * CAT_B * 7)
+            t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / F32_FLOPS
+            case = dict(kernel="split_scan", mode="categorical",
+                        max_cat_to_onehot=onehot, n_nodes=N, F=CAT_F,
+                        B=CAT_B, categorical_features=CAT_F - CAT_NUM,
+                        nodes_split_on_categorical=n_cat, bitwise=same,
+                        max_abs_err=err, kernel_ms=kernel_ms,
+                        plain_ms=plain_ms,
+                        bound_ms=max(t_bytes, t_ops) * 1e3,
+                        bound_by="bytes" if t_bytes >= t_ops
+                        else "operations")
+            cases.append(case)
+            log("phase 2e kernel vs plain: " + json.dumps(case))
+    bad = [c for c in cases if not c["bitwise"]]
+    if bad:
+        raise AssertionError("split_scan's categorical mode disagrees with "
+                             f"its plain version: {bad}")
+    part = [c for c in cases if c["max_cat_to_onehot"] == 4]
+    log(f"phase 2e seven-level sum (one depth-8 round's scans, partition): "
+        f"kernel {sum(c['kernel_ms'] for c in part):.4f} ms, plain "
+        f"{sum(c['plain_ms'] for c in part):.4f} ms, bound "
+        f"{sum(c['bound_ms'] for c in part):.4f} ms")
+    return cases
+
+
 # ------------------------------------------------------------------ K4
 SIGMOID_N = 1_000_448  # the main path's margins: 1,000,000 rows padded
 
@@ -791,6 +929,112 @@ def phase_lossguide_parity(xtt):
         f"bitwise ({int(masks[0].sum())} rows kept)")
 
 
+# ---------------------------------------------------------- categorical
+CRITEO = {"objective": "binary:logistic", "max_depth": 8, "max_bin": 128,
+          "eta": 0.3}
+CRITEO_DET = dict(CRITEO, deterministic_histogram=1)
+CRITEO_TYPES = ["q"] * 13 + ["c"] * 26
+# training-set AUC gate at full size: the CPU port's held-out AUC at 20,000
+# rows of this generator, depth 8, 10 rounds, is 0.9231 (0.9223 under
+# deterministic_histogram); 2**20 rows overfit less than 20,000, so the
+# training AUC there should sit near the held-out one, above 0.90
+CRITEO_AUC_GATE = 0.90
+
+
+def make_criteo(n: int, seed: int = 7000):
+    """The Criteo-shaped rows of scripts/bench_ladder.py:616-631: 13
+    numeric columns (20% NaN) and 26 head-heavy categorical codes of at
+    most 100 categories."""
+    rng = np.random.default_rng(seed)
+    X = np.empty((n, 39), np.float32)
+    X[:, :13] = rng.normal(size=(n, 13))
+    X[:, :13][rng.random((n, 13)) < 0.2] = np.nan
+    X[:, 13:] = np.minimum(rng.geometric(0.08, size=(n, 26)) - 1, 99)
+    lin = (np.nan_to_num(X[:, 0]) * 1.2 - np.nan_to_num(X[:, 1])
+           + 0.5 * np.nan_to_num(X[:, 2]) * np.nan_to_num(X[:, 3])
+           + 0.3 * (X[:, 13] == 0))
+    y = (lin + rng.normal(scale=0.5, size=n) > 0).astype(np.float32)
+    return X, y
+
+
+def phase_categorical(xtt, hist_cuda, rounds: int = 10):
+    """The categorical slice at full width on both histogram paths."""
+    X, y = make_criteo(1 << 20)
+    t0 = time.perf_counter()
+    dtrain = xtt.DMatrix(X, label=y, feature_types=CRITEO_TYPES,
+                         enable_categorical=True)
+    ell = dtrain.ensure_ellpack(max_bin=128)
+    torch.cuda.synchronize()
+    ingest_s = time.perf_counter() - t0
+    if ell.bins.dtype != torch.uint8:
+        raise AssertionError(f"phase 7: bins are {ell.bins.dtype}, not uint8")
+    out = {}
+    for label, params, kernel in (("7", CRITEO, "hist_f32"),
+                                  ("7 deterministic", CRITEO_DET,
+                                   "hist_q")):
+        r = _train_main_path(xtt, hist_cuda, params, dtrain, X.shape[0],
+                             rounds, kernel, label,
+                             auc_gate=CRITEO_AUC_GATE)
+        n_cat = sum(len(t.categories or {}) for t in r["bst"].trees)
+        if n_cat == 0:
+            raise AssertionError(f"phase {label}: no categorical split")
+        same = _model_bytes(r["bst"]) == _model_bytes(r["timed"])
+        if params is CRITEO_DET and not same:
+            raise AssertionError(f"phase {label}: two deterministic runs "
+                                 "wrote different models")
+        log(f"phase {label} categorical train: {X.shape[0]} x 39 (13 "
+            f"numeric, 26 categorical), depth 8, max_bin 128, {rounds} "
+            f"rounds; ingest (device sketch + bins) {ingest_s:.3f} s; train "
+            f"loop median {r['train_s']:.3f} s = {r['rate']:.3f} M "
+            f"row-rounds/s (runs {r['times']} s); with eval "
+            f"{r['with_eval_s']:.3f} s; logloss {r['logloss']:.6f} auc "
+            f"{r['auc']:.6f} (gate {CRITEO_AUC_GATE}); {kernel} and K3 "
+            f"launches {r['launches']} each, K4 {r['sigmoid_launches']}; "
+            f"categorical splits {n_cat} of "
+            f"{sum(int((t.left_children != -1).sum()) for t in r['bst'].trees)}"
+            f"; two runs byte-identical: {same}")
+        phase_profile(xtt, dtrain, params, f"{label} (categorical)")
+        out[kernel] = r
+    bst = out["hist_f32"]["bst"]
+    dtest = xtt.DMatrix(X[:100_000], feature_types=CRITEO_TYPES)
+    pred = bst.predict(dtest)
+    here = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(dir=here) as tmp:
+        path = os.path.join(tmp, "criteo.json")
+        bst.save_model(path)
+        again = xtt.Booster(model_file=path)
+        if not np.array_equal(again.predict(dtest), pred) \
+                or _model_bytes(again) != _model_bytes(bst):
+            raise AssertionError("phase 7: the saved categorical model does "
+                                 "not reload to the same predictions")
+    log("phase 7 predict: 100000 rows; the JSON saved on the card reloads "
+        "and predicts identically")
+    return out
+
+
+def phase_categorical_parity(xtt):
+    """Card vs CPU on 20,000 rows of the Criteo-shaped generator."""
+    X, y = make_criteo(20_000)
+    det = CRITEO_DET
+    dm = dict(feature_types=CRITEO_TYPES, enable_categorical=True)
+    for onehot in (4, 128):
+        _card_vs_cpu(xtt, dict(det, max_cat_to_onehot=onehot), X, y, 5,
+                     1e-5, f"7b max_cat_to_onehot={onehot}", identical=True,
+                     **dm)
+    mono = "(" + ",".join(["1"] + ["0"] * 38) + ")"
+    _card_vs_cpu(xtt, dict(det, monotone_constraints=mono), X, y, 5, 1e-5,
+                 "7b monotone", identical=True, **dm)
+    # the f32 path at depth 4, as phase 5: deeper, f32 sums in another
+    # order (K1's atomics; on the CPU, the rows permuted) already grow
+    # other trees, as categories of near-equal G/H swap places in the
+    # partition's sort
+    _card_vs_cpu(xtt, dict(CRITEO, max_depth=4), X, y, 5, 1e-4, "7b f32",
+                 **dm)
+    _card_vs_cpu(xtt, dict(CRITEO, grow_policy="lossguide", max_depth=0,
+                           max_leaves=31), X, y, 3, 1e-4, "7b lossguide",
+                 **dm)
+
+
 def _kernel_entry(name, source, cases, launches):
     # K1 and K2: the line sums the three int16 shapes it has summed since
     # the first slice, (0, 1, 1), (15, 16, 2) and (31, 16, 2), the six
@@ -804,6 +1048,19 @@ def _kernel_entry(name, source, cases, launches):
             "max_abs_err": c["max_abs_err"], "ms": c["kernel_ms"],
             "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
             "bound_by": c["bound_by"], "library_ms": c["library_ms"],
+        }
+    if name == "split_scan_categorical":
+        # the seven levels of a depth-8 round, partition (max_cat_to_onehot
+        # 4, the main path's), from the f32 histogram
+        main = [c for c in cases if c["max_cat_to_onehot"] == 4]
+        return {
+            "name": name, "route": "cuda", "source": source,
+            "replaces": REPLACES[name], "launches": launches,
+            "max_abs_err": max(c["max_abs_err"] for c in cases),
+            "ms": sum(c["kernel_ms"] for c in main),
+            "plain_ms": sum(c["plain_ms"] for c in main),
+            "bound_ms": sum(c["bound_ms"] for c in main),
+            "bound_by": main[0]["bound_by"], "library_ms": None,
         }
     if name == "split_scan":
         main = [c for c in cases if c["mode"] == "native"
@@ -840,7 +1097,10 @@ REPLACES = {"hist_f32": "xgboost_tpu/ops/hist_pallas.py:77",
             # XLA formulation, xgboost_tpu/ops/split.py:253, when monotone)
             "split_scan": "native/xtb_kernels.h:647",
             # no Pallas kernel: XLA's jax.nn.sigmoid in the objective
-            "sigmoid": "xgboost_tpu/objective/regression.py:113"}
+            "sigmoid": "xgboost_tpu/objective/regression.py:113",
+            # K3's categorical mode: no Pallas kernel, the reference's XLA
+            # formulation with a cat_mask
+            "split_scan_categorical": "xgboost_tpu/ops/split.py:269"}
 
 
 def main() -> int:
@@ -860,6 +1120,7 @@ def main() -> int:
     f32_cases = timed("2", phase_kernels, hist_cuda, "hist_f32", "2")
     q_cases = timed("2b", phase_kernels, hist_cuda, "hist_q", "2b")
     scan_cases = timed("2c", phase_split_scan, hist_cuda)
+    cat_cases = timed("2e", phase_split_scan_cat)
     sig_cases = timed("2d", phase_sigmoid, hist_cuda)
     X, y = make_data(1_000_000, 28)
     f32, dtrain = timed("3", phase_train, xtt, hist_cuda, X, y, 10)
@@ -872,6 +1133,8 @@ def main() -> int:
     timed("5b", phase_parity_det, xtt, dtrain, X)
     timed("6", phase_lossguide, xtt, hist_cuda, dtrain, X.shape[0])
     timed("6b", phase_lossguide_parity, xtt)
+    cat = timed("7", phase_categorical, xtt, hist_cuda)
+    timed("7b", phase_categorical_parity, xtt)
 
     kernels = [_kernel_entry(name, hist_cuda.SOURCES[name], cases, n)
                for name, cases, n in (("hist_f32", f32_cases, f32["launches"]),
@@ -880,6 +1143,9 @@ def main() -> int:
                                        f32["scan_launches"]),
                                       ("sigmoid", sig_cases,
                                        f32["sigmoid_launches"]))]
+    kernels.append(_kernel_entry(
+        "split_scan_categorical", hist_cuda.SOURCES["split_scan"], cat_cases,
+        cat["hist_f32"]["scan_launches"]))
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -72,8 +72,13 @@ def test_dmatrix_missing_and_meta():
     np.testing.assert_array_equal(d.get_weight(), [1, 2, 3])
     with pytest.raises(ValueError):
         d.set_label([0, 1])
-    with pytest.raises(NotImplementedError):
-        DMatrix(X, feature_types=["q", "c"], device="cpu")
+    # a categorical column holds codes: a sentinel of 0.0 must not wipe out
+    # its category 0, so the sentinel applies to numeric columns only
+    dc = DMatrix(np.array([[0.0, 0.0], [1.0, 2.0]], np.float32),
+                 feature_types=["q", "c"], missing=0.0, device="cpu")
+    assert torch.isnan(dc.X[0, 0]) and dc.X[0, 1] == 0.0
+    np.testing.assert_array_equal(dc.cat_mask(), [False, True])
+    assert d.cat_mask() is None
 
 
 @pytest.mark.parametrize("shape,max_bin", [((1 << 19 | 4096, 2), 16),

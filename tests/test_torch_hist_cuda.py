@@ -10,7 +10,11 @@ blocks at N = 128, and the trainer's launches of each counted.  K3
 fixed summation order and arithmetic) at the six levels of a depth-6 round
 and at the best-first grower's N = 2, unconstrained and monotone, with
 ties, nodes without a candidate, dead slots and masked features, and a
-refused K3 launch raising without leaving an error for the next kernel.
+refused K3 launch raising without leaving an error for the next kernel;
+its categorical mode bitwise at the Criteo-shaped main path's levels (39
+features, 26 categorical, 128 bins), one-hot and partition, monotone or
+not, from the histogram or its limb form, and a categorical training on
+the card writing the CPU's model JSON.
 K4 (csrc/sigmoid.cu) held against its plain version bitwise over the f32
 range and its edges.  Every
 test here needs a CUDA device and skips without one; the file imports
@@ -478,6 +482,144 @@ def test_refused_split_scan_launch_raises_and_clears_the_error():
                                hist_cuda.build_histogram_plain(*args, **kw),
                                rtol=1e-4, atol=1e-4)
     assert hist_cuda.launches["hist_f32"] == before["hist_f32"] + 1
+
+
+# ------------------------------------------------- K3, categorical mode
+def _cat_scan_case(N, F, B, seed, n_cat):
+    """Categorical split-scan inputs: the last ``n_cat`` of F features
+    categorical with 2 to 100 categories (fewer than 4 for some, so both
+    one-hot and partition splits occur), 10% empty categories, repeated
+    bins (ties in G/H), missing mass, a node without a candidate; the
+    histogram given as comb * scale, the limb form deterministic_histogram
+    scans."""
+    rng = np.random.default_rng(seed)
+    comb = rng.integers(-4000, 4000, size=(N, F, B, 2)).astype(np.float32)
+    comb[..., 1] = np.abs(comb[..., 1]) + 1
+    comb[:, :, 1::4] = comb[:, :, ::4][:, :, :len(range(1, B, 4))]
+    nb = rng.integers(2, B + 1, size=F).astype(np.int32)
+    nb[F - n_cat:] = rng.integers(2, min(B, 100) + 1, size=n_cat)
+    nb[F - 1] = min(3, B)
+    for f in range(F):
+        comb[:, f, nb[f]:] = 0.0
+    comb[rng.random((N, F, B)) < 0.1] = 0.0
+    cm = np.zeros(F, bool)
+    cm[F - n_cat:] = True
+    scale = torch.tensor([3e-4, 1e-4], dtype=torch.float32)
+    if N > 2:
+        comb[0, :, :, 1] = np.minimum(comb[0, :, :, 1], 1.0)  # no bin
+        # reaches min_child_weight
+    comb = torch.from_numpy(comb)
+    h = comb * scale
+    tot = (h[:, 0].sum(1) * 1.05).float()
+    fm = torch.from_numpy(rng.random((N, F)) < 0.8)
+    bounds = torch.from_numpy(np.stack(
+        [rng.normal(size=N) - 1.5, rng.normal(size=N) + 1.5],
+        1).astype(np.float32))
+    mono = tuple(int(c) for c in rng.integers(-1, 2, size=F))
+    return (h, tot, torch.from_numpy(nb), torch.from_numpy(cm), fm, bounds,
+            mono, (comb, scale))
+
+
+# the depth-8 levels of the Criteo-shaped main path (39 features, 26 of
+# them categorical, 128 bins), the best-first grower's two nodes, and small
+# and wide odd shapes
+K3_CAT_SHAPES = [(1, 39, 128, 26), (8, 39, 128, 26), (64, 39, 128, 26),
+                 (2, 39, 128, 26), (3, 5, 17, 3), (2, 3, 300, 2)]
+
+
+@needs_cuda
+@pytest.mark.parametrize("limbs", [False, True])
+@pytest.mark.parametrize("monotone", [False, True])
+@pytest.mark.parametrize("onehot", [4, 128])
+@pytest.mark.parametrize("N,F,B,n_cat", K3_CAT_SHAPES)
+def test_categorical_split_scan_matches_plain_bitwise(N, F, B, n_cat, onehot,
+                                                      monotone, limbs):
+    """K3's categorical mode against split_scan_plain, every output
+    bitwise (cat_set included), one launch counted per call."""
+    from xgboost_tpu_torch.ops.split import (SplitParams, is_monotone,
+                                             monotone_vec, split_scan_plain)
+
+    h, tot, nb, cm, fm, bounds, mono, dq = _cat_scan_case(
+        N, F, B, N + B + onehot, n_cat)
+    p = SplitParams(eta=0.3, gamma=0.0, min_child_weight=0.5, lambda_=1.0,
+                    alpha=0.0, max_delta_step=0.0,
+                    monotone=mono if monotone else None,
+                    max_cat_to_onehot=onehot)
+    dev = torch.device("cuda")
+    mvec = monotone_vec(mono, dev) if is_monotone(p) else None
+    for mask in (None, fm):
+        want = split_scan_plain(h, tot, nb, p, mask, bounds, cm,
+                                dq if limbs else None)
+        before = hist_cuda.launches["split_scan"]
+        got = split_cuda.split_scan_cuda(
+            h.cuda(), tot.cuda(), nb.cuda(), p,
+            None if mask is None else mask.cuda(), bounds.cuda(), mvec,
+            cm.cuda(), tuple(t.cuda() for t in dq) if limbs else None)
+        torch.cuda.synchronize()
+        assert hist_cuda.launches["split_scan"] == before + 1
+        assert len(got) == 7
+        for name, a, b in zip(want._fields, got, want):
+            a = a.cpu()
+            if a.dtype == torch.float32:
+                a, b = a.view(torch.int32), b.view(torch.int32)
+            assert torch.equal(a, b), (name, a, b)
+
+
+@needs_cuda
+def test_refused_categorical_scan_raises():
+    """8192 bins ask the categorical mode for more shared memory than a
+    block may have: the wrapper raises and counts no launch."""
+    h, tot, nb, cm, _, _, _, _ = _cat_scan_case(1, 2, 8192, 0, 1)
+    from xgboost_tpu_torch.ops.split import SplitParams
+
+    p = SplitParams(eta=0.3, gamma=0.0, min_child_weight=1.0, lambda_=1.0,
+                    alpha=0.0, max_delta_step=0.0)
+    before = dict(hist_cuda.launches)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        split_cuda.split_scan_cuda(h.cuda(), tot.cuda(), nb.cuda(), p,
+                                   cat_mask=cm.cuda())
+    assert hist_cuda.launches == before
+    with pytest.raises(ValueError):  # the limb form without a cat mask
+        split_cuda.split_scan_cuda(h.cuda(), tot.cuda(), nb.cuda(), p,
+                                   dq=(h.cuda(), torch.ones(2,
+                                                            device="cuda")))
+
+
+def _criteo_small(R=4000, seed=0):
+    """The Criteo-shaped generator (scripts/bench_ladder.py:616-631) at a
+    small row count."""
+    rng = np.random.default_rng(seed)
+    X = np.empty((R, 39), np.float32)
+    X[:, :13] = rng.normal(size=(R, 13))
+    X[:, :13][rng.random((R, 13)) < 0.2] = np.nan
+    X[:, 13:] = np.minimum(rng.geometric(0.08, size=(R, 26)) - 1, 99)
+    lin = (np.nan_to_num(X[:, 0]) * 1.2 - np.nan_to_num(X[:, 1])
+           + 0.5 * np.nan_to_num(X[:, 2]) * np.nan_to_num(X[:, 3])
+           + 0.3 * (X[:, 13] == 0))
+    y = (lin + rng.normal(scale=0.5, size=R) > 0).astype(np.float32)
+    return X, y, ["q"] * 13 + ["c"] * 26
+
+
+@needs_cuda
+@pytest.mark.parametrize("onehot", [4, 128])
+def test_categorical_training_card_is_the_cpus(onehot):
+    """deterministic_histogram=1 with categorical features: the card's
+    model JSON is the CPU's byte for byte, K2 and K3 launched once per
+    level."""
+    X, y, ft = _criteo_small()
+    params = {"objective": "binary:logistic", "max_depth": 4, "max_bin": 128,
+              "eta": 0.3, "deterministic_histogram": 1,
+              "max_cat_to_onehot": onehot}
+    hist_cuda.reset_launches()
+    got = xtt.train(params, xtt.DMatrix(X, label=y, feature_types=ft), 3,
+                    verbose_eval=False)
+    assert hist_cuda.launches["hist_q"] == hist_cuda.launches[
+        "split_scan"] == 3 * 4
+    want = xtt.train(params, xtt.DMatrix(X, label=y, feature_types=ft,
+                                         device="cpu"), 3,
+                     verbose_eval=False, device="cpu")
+    assert json.dumps(got.save_raw_dict()) == json.dumps(want.save_raw_dict())
+    assert any(t.categories for t in got.trees)
 
 
 # ---------------------------------------------------------------- K4

@@ -1,13 +1,14 @@
 """Row and column sampling of the port against the reference's booster on
 the same inputs: uniform ``subsample`` masks bitwise (the same threefry
-draws over the padded rows); ``gradient_based`` masks bitwise except where
-the uniform draw and the keep-probability are within a few ulps (the
-probabilities divide by an f32 sum, jnp.sum's order, which the port does
-not reproduce) and kept rows' weights within rtol 1e-5; column masks with
-``feature_weights`` bitwise (numpy draws on the host in both); the
-reference's ValueErrors; and whole trainings with each sampler growing the
-reference's trees (uniform under deterministic_histogram=1 byte for byte,
-the others with predictions within 1e-4)."""
+draws over the padded rows); ``gradient_based`` masks bitwise (the
+probabilities divide by an f32 sum in jnp.sum's order and take a correctly
+rounded square root, utils/fp.py), and held as before too: bitwise except
+where the uniform draw and the keep-probability are within a few ulps,
+kept rows' weights within rtol 1e-5; column masks with ``feature_weights``
+bitwise (numpy draws on the host in both); the reference's ValueErrors;
+and whole trainings with each sampler growing the reference's trees
+(uniform and gradient_based under deterministic_histogram=1 byte for
+byte, the others with predictions within 1e-4)."""
 import json
 
 import jax.numpy as jnp
@@ -70,6 +71,34 @@ def test_gradient_based_masks_match_reference(seed, subsample):
     both = keep_a & keep_b
     np.testing.assert_allclose(b[both], a[both], rtol=1e-5)
     assert keep_a.sum() > 0
+
+
+@pytest.mark.parametrize("seed", [0, 5, 7])
+@pytest.mark.parametrize("subsample", [0.2, 0.6])
+def test_gradient_based_masks_are_the_references_bitwise(seed, subsample):
+    ref, got = _boosters({"subsample": subsample, "seed": seed,
+                          "sampling_method": "gradient_based",
+                          "lambda": 1.5})
+    g = _gpair(3072, seed + 1)
+    a = np.asarray(ref._subsample_mask(jnp.asarray(g), 131))
+    b = got._subsample_mask(torch.from_numpy(g), 131).numpy()
+    np.testing.assert_array_equal(a.view(np.uint32), b.view(np.uint32))
+
+
+@pytest.mark.parametrize("objective", ["binary:logistic", "reg:squarederror"])
+def test_gradient_based_deterministic_json_is_the_references(objective):
+    X, y = _data()
+    fw = np.array([1.0, 3.0, 0.5, 0.0, 2.0, 1.0], np.float32)
+    params = {"objective": objective, "max_depth": 4, "max_bin": 32,
+              "eta": 0.3, "seed": 9, "subsample": 0.5,
+              "sampling_method": "gradient_based",
+              "deterministic_histogram": 1}
+    ref = xtb.train(params, xtb.DMatrix(X, label=y, feature_weights=fw), 4,
+                    verbose_eval=False)
+    got = xtt.train(params, xtt.DMatrix(X, label=y, feature_weights=fw,
+                                        device="cpu"), 4,
+                    verbose_eval=False, device="cpu")
+    assert json.dumps(got.save_raw_dict()) == json.dumps(ref.save_raw_dict())
 
 
 FW = np.array([4.0, 0.0, 1.0, 0.5, 2.0, 1.0, 0.25, 3.0], np.float32)

@@ -10,7 +10,8 @@ K3, csrc/split_scan.cu):
   CPU), monotone against its XLA formulation, with feature masks, bounds,
   ties, nodes without a candidate and dead slots;
 - the f32 helpers: ``fma_f32`` against the C library's fmaf, ``exp_f32``
-  and ``sigmoid_f32`` against XLA's exp and jax.nn.sigmoid;
+  and ``sigmoid_f32`` against XLA's exp and jax.nn.sigmoid (exp on every
+  f32 of its range's edges), ``sum_f32`` against jnp.sum;
 - the dispatchers of K3 and K4 (ops/split_cuda.py, ops/sigmoid_cuda.py)
   take the plain versions on CPU tensors and launch nothing."""
 import ctypes
@@ -150,6 +151,40 @@ def test_exp_and_sigmoid_match_xla():
     _bits_equal(exp_f32(t).numpy(), np.asarray(jax.jit(jnp.exp)(x)))
     _bits_equal(sigmoid_f32(t).numpy(),
                 np.asarray(jax.jit(jax.nn.sigmoid)(x)))
+
+
+def _f32_range(lo, hi):
+    """Every f32 in [lo, hi] (lo and hi of one sign)."""
+    a, b = sorted(abs(np.float32(v)).view(np.int32) for v in (lo, hi))
+    x = np.arange(a, b + 1, dtype=np.int32).view(np.float32)
+    return -x if lo < 0 else x
+
+
+@pytest.mark.parametrize("lo,hi", [(-104.0, -87.0), (87.0, 88.8)])
+def test_exp_matches_xla_on_every_f32_at_the_range_edges(lo, hi):
+    """exp_f32 against XLA's exp on every f32 where the range reduction
+    meets the limits: results flushed below the smallest normal f32, and
+    the top, where XLA caps the exponent at 127."""
+    x = _f32_range(lo, hi)
+    _bits_equal(exp_f32(torch.from_numpy(x)).numpy(),
+                np.asarray(jax.jit(jnp.exp)(x)))
+
+
+@pytest.mark.parametrize("n", [1, 2, 31, 32, 33, 63, 64, 65, 100, 1023,
+                               1024, 1025, 1500, 2049, 20_000, 100_003])
+def test_sum_is_jnp_sums_order(n):
+    """sum_f32 against jnp.sum on XLA's CPU, bitwise, over lengths below,
+    at and above the 32-value windows and their powers, in one and two
+    dimensions (the axis-0 sums of init_estimation)."""
+    from xgboost_tpu_torch.utils.fp import sum_f32
+
+    rng = np.random.default_rng(n)
+    x = (rng.normal(size=(n, 2)) * rng.random((n, 2)) * 100).astype(
+        np.float32)
+    _bits_equal(sum_f32(torch.from_numpy(x[:, 0])).numpy(),
+                np.asarray(jnp.sum(jnp.asarray(x[:, 0]))))
+    _bits_equal(sum_f32(torch.from_numpy(x), dim=0).numpy(),
+                np.asarray(jnp.sum(jnp.asarray(x), axis=0)))
 
 
 def test_sigmoid_dispatch_takes_plain_version_on_cpu():

@@ -219,3 +219,24 @@ def test_port_imports_neither_jax_nor_reference():
         for mod in _imports(path):
             root = mod.split(".")[0]
             assert root not in ("jax", "jaxlib", "xgboost_tpu"), (path, mod)
+
+
+def test_port_imports_no_frame_library_at_module_level():
+    """The card's machine has no pandas or pyarrow: no module of the port
+    and not chip_smoke.py may import them when it is imported (a frame is
+    read through its own methods)."""
+    sources = [os.path.join(d, f) for d, _, fs in os.walk(PORT)
+               for f in fs if f.endswith(".py")]
+    sources.append(os.path.join(os.path.dirname(HERE), "chip_smoke.py"))
+    for path in sources:
+        tree = ast.parse(open(path).read(), filename=path)
+        for node in tree.body:
+            if isinstance(node, ast.Import):
+                mods = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                mods = [node.module]
+            else:
+                continue
+            for mod in mods:
+                assert mod.split(".")[0] not in ("pandas", "pyarrow"), \
+                    (path, mod)

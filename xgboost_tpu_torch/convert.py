@@ -4,7 +4,10 @@ Both packages persist the same reference JSON schema; the model dict of
 ``xgboost_tpu.Booster.save_raw_dict()`` holds Python and numpy values.
 ``booster_from_dict`` builds a port Booster from such a dict, and
 ``booster_to_dict`` gives the dict that ``xgboost_tpu.Booster().
-load_model_dict`` accepts, so both packages predict from the same trees.
+load_model_dict`` accepts, so both packages predict from the same trees:
+categorical splits (``split_type`` and the categories of each node) and
+the training frame's categories (the ``cat_categories`` attribute)
+included.
 """
 from __future__ import annotations
 

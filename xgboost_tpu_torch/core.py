@@ -16,7 +16,11 @@ Call stack for one boosting iteration:
     -> leaf_margin_delta updates the margin cache            [device]
     -> RegTree.from_grown (or to_regtree) appends the host model
 The model dict (``save_raw_dict``) follows the reference's JSON schema, so
-models cross-load between the two packages.
+models cross-load between the two packages.  Categorical features (the
+DMatrix's ``'c'`` feature types) take the categorical split scan in both
+growers; a frame's category values ride in the model as the
+``cat_categories`` attribute, and a frame coded another way is recoded onto
+them at prediction, as the reference does.
 """
 from __future__ import annotations
 
@@ -27,7 +31,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from .data.dmatrix import DMatrix
+from .data.dmatrix import DMatrix, categories_by_name, recode_dense
 from .metric import create_metric
 from .models.tree import RegTree
 from .objective import ObjFunction, create_objective
@@ -37,6 +41,7 @@ from .params import TrainParam, canonicalize, reject_unsupported
 from .tree.bestfirst import BestFirstGrower
 from .tree.grow import HistTreeGrower, leaf_margin_delta
 from .utils.device import resolve_device
+from .utils.fp import sqrt_f32, sum_f32
 from .utils.random import bernoulli, prng_key, uniform
 
 __all__ = ["Booster"]
@@ -114,6 +119,9 @@ class Booster:
         self.best_iteration: Optional[int] = None
         self.best_score: Optional[float] = None
         self._base_margin_value: Optional[np.ndarray] = None
+        # the training frame's {feature -> category values}, for recoding
+        # frames at prediction (reference: src/encoder/ordinal.h Recode)
+        self._cat_categories: Optional[Dict[int, list]] = None
         self._num_feature: Optional[int] = None
         self._caches: Dict[int, _Cache] = {}
         self._configured = False
@@ -142,7 +150,8 @@ class Booster:
             min_child_weight=float(self.tparam.min_child_weight),
             lambda_=float(self.tparam.lambda_), alpha=float(self.tparam.alpha),
             max_delta_step=float(self.tparam.max_delta_step),
-            monotone=self.tparam.monotone_constraints)
+            monotone=self.tparam.monotone_constraints,
+            max_cat_to_onehot=int(self.tparam.max_cat_to_onehot))
         tp = self.tparam
         # (reference: xgboost_tpu/core.py:1349-1432, one device)
         lossguide = tp.grow_policy == "lossguide"
@@ -214,7 +223,7 @@ class Booster:
         self._ensure_base_margin(cache)
         if cache.n_trees_applied < len(self.trees):
             new = slice(cache.n_trees_applied, len(self.trees))
-            X = cache.dmat.X.to(self.device)
+            X = self._device_X(cache.dmat)
             R = X.shape[0]
             m = self._margin_delta_for(X, new, init=cache.margin[:R])
             cache.margin = torch.cat([m, cache.margin[R:]])
@@ -226,6 +235,17 @@ class Booster:
         self._configure()
         cache = self._get_cache(dtrain)
         cache.ensure_train(self.tparam.max_bin)
+        if dtrain.cat_categories:
+            cats = {int(k): list(v) for k, v in dtrain.cat_categories.items()}
+            if self._cat_categories is None:
+                self._cat_categories = cats
+            elif cats != self._cat_categories:
+                # the bins hold the frame's raw codes: training on them
+                # against another frame's coding would mix two code spaces
+                raise ValueError(
+                    "continued training requires the training frame's "
+                    "category ordering; re-declare the categorical columns "
+                    "with the original categories")
         if self.feature_names is None and dtrain.feature_names:
             self.feature_names = list(dtrain.feature_names)
         self._sync_margin(cache)
@@ -251,9 +271,9 @@ class Booster:
         R, dev = gpair.shape[0], gpair.device
         if tp.sampling_method == "gradient_based":
             lam = float(tp.lambda_)
-            norm = torch.sqrt(gpair[..., 0] ** 2 + lam * gpair[..., 1] ** 2)
+            norm = sqrt_f32(gpair[..., 0] ** 2 + lam * gpair[..., 1] ** 2)
             norm = norm.amax(dim=1)  # (R_pad,) across output groups
-            total = torch.clamp(norm.sum(), min=1e-12)
+            total = torch.clamp(sum_f32(norm), min=1e-12)
             target = tp.subsample * (norm > 0).sum().to(torch.float32)
             p = torch.clamp(norm * target / total, 0.0, 1.0)
             keep = uniform(key, R, dev) < p
@@ -342,7 +362,8 @@ class Booster:
         gpair = self._subsample_mask(gpair, iteration * 131)
         state = self._grower.grow(
             cache.bins, gpair[:, 0, :].contiguous(), cache.valid,
-            cache.cuts_pad, cache.n_bins, feature_masks=fmask_fn)
+            cache.cuts_pad, cache.n_bins, feature_masks=fmask_fn,
+            cat_mask=cache.dmat.cat_mask())
         if self._best_first:
             tree, leaf_val = self._grower.to_regtree(state, cache.cuts_host)
         else:
@@ -379,14 +400,29 @@ class Booster:
         return [create_metric(n) for n in names]
 
     # ------------------------------------------------------------------ predict
+    def _device_X(self, dmat: DMatrix) -> torch.Tensor:
+        """The matrix on the booster's device, its categorical codes
+        recoded onto the training frame's categories where they differ."""
+        host = dmat.host_dense()
+        X = recode_dense(host, self._cat_categories, dmat.cat_categories)
+        if X is host:
+            return dmat.X.to(self.device)
+        return torch.from_numpy(X).to(self.device)
+
     def _stacked(self, tree_slice: slice):
         trees = self.trees[tree_slice]
         width = max(t.n_nodes for t in trees)
         depth = max(t.max_depth for t in trees) + 1
+        has_cat = any(t.has_categorical for t in trees)
         cols: Dict[str, list] = {}
         for t in trees:
             for k, v in t.padded_arrays(width).items():
                 cols.setdefault(k, []).append(v)
+        if has_cat:
+            n_cats = max(t.max_category for t in trees) + 1
+            cols["catm"] = [t.cat_matrix(width, n_cats) for t in trees]
+        else:
+            del cols["is_cat"]
         stacked = {k: torch.from_numpy(np.stack(v)).to(self.device)
                    for k, v in cols.items()}
         return stacked, self.tree_info[tree_slice], depth
@@ -395,7 +431,8 @@ class Booster:
         s, groups, depth = self._stacked(tree_slice)
         return predict_margin_delta(
             X, s["feat"], s["thr"], s["dleft"], s["left"], s["right"],
-            s["value"], groups, init, n_groups=self.n_groups, depth=depth)
+            s["value"], groups, init, s.get("is_cat"), s.get("catm"),
+            n_groups=self.n_groups, depth=depth)
 
     def predict(self, data: DMatrix, output_margin: bool = False,
                 iteration_range: Tuple[int, int] = (0, 0),
@@ -407,7 +444,7 @@ class Booster:
         tree_slice = slice(lo, hi)
         base = np.broadcast_to(self.base_score.reshape(-1), (self.n_groups,))
         if self.trees[tree_slice]:
-            X = data.X.to(self.device)
+            X = self._device_X(data)
             delta = self._margin_delta_for(X, tree_slice).cpu().numpy()
             margin = delta + base[None, :]
         else:
@@ -432,6 +469,26 @@ class Booster:
             return int(max(t.split_indices.max(initial=0)
                            for t in self.trees)) + 1
         return 0
+
+    def get_categories(self) -> Optional[Dict[str, list]]:
+        """The training frame's category values per categorical feature,
+        keyed by feature name (or index), None without frame categories
+        (reference: ``XGBoosterGetCategories``)."""
+        return categories_by_name(self._cat_categories, self.feature_names)
+
+    def get_dump(self, fmap: str = "", with_stats: bool = False,
+                 dump_format: str = "text") -> List[str]:
+        """Each tree as text or JSON (tree_model.cc DumpModel), features
+        named by ``feature_names``."""
+        if fmap:
+            raise NotImplementedError(
+                "a feature map file is not supported by xgboost_tpu_torch "
+                "yet")
+        if dump_format == "json":
+            return [t.dump_json(self.feature_names, with_stats)
+                    for t in self.trees]
+        return [t.dump_text(self.feature_names, with_stats)
+                for t in self.trees]
 
     def attr(self, key: str) -> Optional[str]:
         return self.attributes.get(key)
@@ -478,6 +535,9 @@ class Booster:
         attrs = dict(self.attributes)
         attrs["base_margin_exact"] = " ".join(
             repr(float(v)) for v in np.asarray(self.base_score).reshape(-1))
+        if self._cat_categories:
+            # the training frame's categories, for recoding at prediction
+            attrs["cat_categories"] = json.dumps(self._cat_categories)
         return {
             "version": [3, 1, 0],
             "learner": {
@@ -547,5 +607,9 @@ class Booster:
         self.tree_info = [int(i) for i in gb["tree_info"]]
         self.attributes = dict(learner.get("attributes", {}))
         self.attributes.pop("base_margin_exact", None)
+        cc = self.attributes.pop("cat_categories", None)
+        self._cat_categories = ({int(k): list(v)
+                                 for k, v in json.loads(cc).items()}
+                                if cc else None)
         self.feature_names = learner.get("feature_names") or None
         self.feature_types = learner.get("feature_types") or None

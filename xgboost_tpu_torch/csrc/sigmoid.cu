@@ -7,11 +7,11 @@
 // not give the reference's bits.  This kernel computes, for every element,
 // what the plain version utils/fp.py sigmoid_f32 computes, op for op:
 //
-//   exp: clamp to [-104, 88.8]; n = floor(x log2(e) + 1/2); r = x - n ln2
-//        in two parts; the Cephes degree-6 polynomial in r by Horner's
-//        rule; 1 + (y r^2 + r); times 2^n as two factors 2^lo 2^(n-lo), so
-//        that n = 128 does not overflow the exponent field; a result below
-//        the smallest normal f32 flushed to zero
+//   exp: clamp to [-104, 88.8]; n = floor(x log2(e) + 1/2), at most 127;
+//        r = x - n ln2 in two parts; the Cephes degree-6 polynomial in r by
+//        Horner's rule; 1 + (y r^2 + r); times 2^n as two factors
+//        2^lo 2^(n-lo), so that n down to -150 fits the exponent field; a
+//        result below the smallest normal f32 flushed to zero
 //   sigmoid: 1 / (1 + exp(-x)), flushed the same way
 //
 // Every multiply-add that XLA fuses is written out as __fmaf_rn and every
@@ -42,7 +42,8 @@ __device__ __forceinline__ float flush(float v) {
 
 __device__ __forceinline__ float exp_xla(float x) {
   x = fminf(fmaxf(x, -104.0f), 88.8f);
-  const float n = floorf(__fmaf_rn(x, 1.44269504088896341f, 0.5f));
+  float n = floorf(__fmaf_rn(x, 1.44269504088896341f, 0.5f));
+  n = n > 127.0f ? 127.0f : n;  // XLA's cap: 2^n stays a normal f32
   float r = __fmaf_rn(n, -0.693359375f, x);
   r = __fmaf_rn(n, 2.12194440e-4f, r);
   float y = __fmaf_rn(r, 1.9875691500e-4f, 1.3981999507e-3f);

@@ -4,8 +4,9 @@
 // the CPU runs as the native scan native/xtb_kernels.h:647
 // (xtb_split_scan_impl, unconstrained) and otherwise as the XLA formulation
 // of xgboost_tpu/ops/split.py:253 (evaluate_splits, under monotone
-// constraints).  For each node n it finds the best split over the
-// features f and bins b of its histogram hist[n, f, b, (g, h)]:
+// constraints or with categorical features).  For each node n it finds
+// the best split over the features f and bins b of its histogram
+// hist[n, f, b, (g, h)]:
 //
 //   left sums  GL, HL = prefix over bins 0..b     (missing values right)
 //              GL + missG, HL + missH               (missing values left)
@@ -25,15 +26,40 @@
 // built with --fmad=false (ops/hist_cuda.py), so nvcc contracts nothing
 // else, and without fast math, so every division is IEEE div.rn.
 //
+// Mode 2 (categorical; xgboost_tpu/ops/split.py:269-417) is mode 1's XLA
+// formulation for every feature, with the gain unconstrained (or mode 1's
+// under monotone constraints), and for each categorical feature:
+//   - its bins stably sorted by G / (H + 1e-6), +inf where H <= 0, before
+//     the blocked prefix (the stable sort of jnp.argsort);
+//   - below max_cat_to_onehot bins, one-hot: left sums at bin b are the
+//     sorted row's total minus the UNSORTED bin b, and every valid bin is
+//     a candidate; under deterministic_histogram the histogram is
+//     comb * scale, and the reference's compiled program fuses that
+//     product into the subtraction, so the kernel computes
+//     fma(-comb[b], scale, total) from the comb it is given;
+//   - cat_set[n, b], the categories routed right: the chosen bin of a
+//     one-hot split, the bins ranked after the chosen position of a
+//     partition (all zero where the best feature is numeric).
+// The sort is a rank count in shared memory: bin b's rank is the number of
+// bins whose key is lower, or equal with a lower index, so equal keys keep
+// their bin order (stable).  Keys compare as JAX's sort compares floats:
+// -0 as +0, NaN after +inf.  A row has at most a few hundred bins, so its
+// B x B comparisons stay in the warp's shared memory: no key tensor in
+// device memory and no sort launch beside the scan.  After the block's
+// best is known, its threads rank the chosen feature's bins again to
+// write cat_set, so no rank leaves the block.
+//
 // Bound on an H100 SXM (3.35 TB/s): the histogram is read once, 8 bytes a
 // (node, feature, bin), and about 30 f32 operations are done on each; at a
 // depth-6 level (32 nodes x 28 features x 256 bins) that is 1.8 MB, about
-// 0.55 us.  What holds it above that bound is the sequential prefix: each
-// (node, feature) is a chain of B dependent adds.
+// 0.55 us; at the Criteo-shaped depth-8 level of mode 2 (64 x 39 x 128)
+// 2.6 MB, about 0.76 us.  What holds it above that bound is the
+// sequential prefix: each (node, feature) is a chain of B dependent adds.
 //
 // Design.  One block per node, one warp per feature at a time.  The warp
 // copies the feature's B (g, h) pairs into its shared-memory row with
-// coalesced loads; lane 0 turns the row into its prefix sums in place, in
+// coalesced loads (mode 2: sorted through the ranks into a second row);
+// lane 0 turns the row into its prefix sums in place, in
 // the mode's order (the one sequential part); then the 32 lanes score the
 // bins in parallel (the scoring of a bin does not depend on any other),
 // each keeping its first best, and a shuffle reduction picks the warp's
@@ -114,6 +140,51 @@ __device__ __forceinline__ float gain_given_weight_xla(float G, float H,
   return -__fmaf_rn(2.0f * thr_xla(G, p.alpha), w, b);
 }
 
+// ---- mode 2, unconstrained: the XLA formulation's calc_gain
+// (xgboost_tpu/ops/split.py:84-92)
+__device__ __forceinline__ float gain_xla(float G, float H, const Params& p) {
+  if (H <= 0.0f) return 0.0f;
+  if (p.mds == 0.0f) {
+    const float t = thr_xla(G, p.alpha);
+    return t * t / (H + p.lambda_);
+  }
+  return gain_given_weight_xla(G, H,
+                               weight_xla(G, H, p, -INFINITY, INFINITY), p);
+}
+
+// One-hot left sums at bin b: the sorted row's total minus bin b, or with
+// comb (hist = comb * scale, deterministic_histogram) one rounding,
+// fma(-comb, scale, total), as XLA fuses the dequantising product.
+__device__ __forceinline__ float2 onehot_left(float2 total, float2 h,
+                                              const float2* crow, float2 sc,
+                                              int b) {
+  if (crow == nullptr) return make_float2(total.x - h.x, total.y - h.y);
+  const float2 c = crow[b];
+  return make_float2(__fmaf_rn(-c.x, sc.x, total.x),
+                     __fmaf_rn(-c.y, sc.y, total.y));
+}
+
+// The categorical sort key of a bin, as an unsigned integer whose order is
+// the order of jnp.argsort's float comparison: G / (H + 1e-6), +inf where
+// H <= 0, -0 taken as +0 and NaN as the one NaN that sorts last.
+__device__ __forceinline__ uint32_t cat_key(float2 gh) {
+  float r = gh.y > 0.0f ? gh.x / (gh.y + kEps) : INFINITY;
+  if (r == 0.0f) r = 0.0f;
+  uint32_t u = isnan(r) ? 0x7fc00000u : __float_as_uint(r);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+// The rank of bin b among keys[0..n): the stable sort's position.
+__device__ __forceinline__ int cat_rank(const uint32_t* keys, int n, int b) {
+  const uint32_t kb = keys[b];
+  int r = 0;
+  for (int j = 0; j < n; ++j) {
+    const uint32_t kj = keys[j];
+    r += (kj < kb) || (kj == kb && j < b);
+  }
+  return r;
+}
+
 // In place: row[0..n) (g, h) pairs -> their prefix sums in XLA's blocked
 // order (in-block running sums; each completed block's total pushed to the
 // level above, whose answer is the next block's exclusive prefix).
@@ -157,11 +228,16 @@ split_scan_kernel(const float2* __restrict__ hist,
                   const int* __restrict__ n_bins,
                   const uint8_t* __restrict__ fmask, int fmask_rows,
                   const float2* __restrict__ bounds,
-                  const int* __restrict__ mono, int F, int B, Params p,
-                  int mode, float* out_gain, int64_t* out_feat,
-                  int64_t* out_bin, uint8_t* out_dleft, float* out_GL,
-                  float* out_HL) {
-  extern __shared__ float2 rows[];  // kWarps x B
+                  const int* __restrict__ mono,
+                  const uint8_t* __restrict__ cat, int max_cat_to_onehot,
+                  const float2* __restrict__ comb,
+                  const float* __restrict__ scale, int F, int B, Params p,
+                  int mode, float* out_gain,
+                  int64_t* out_feat, int64_t* out_bin, uint8_t* out_dleft,
+                  float* out_GL, float* out_HL, uint8_t* out_cat_set) {
+  // kWarps rows of B (g, h) pairs; mode 2 adds kWarps rows of the raw
+  // bins and kWarps rows of B keys
+  extern __shared__ float2 rows[];
   __shared__ Cand warp_best[kWarps];
   __shared__ float2 f0_first, f0_last, f0_raw;  // feature 0's row ends
   const int n = blockIdx.x;
@@ -184,15 +260,36 @@ split_scan_kernel(const float2* __restrict__ hist,
   float parent;
   if (mode == 0) {
     parent = gain_native(tot.x, tot.y, p);
+  } else if (mono == nullptr) {
+    parent = gain_xla(tot.x, tot.y, p);
   } else {
     parent = gain_given_weight_xla(tot.x, tot.y,
                                    weight_xla(tot.x, tot.y, p, lo, hi), p);
   }
+  const float2 sc = comb ? make_float2(scale[0], scale[1])
+                         : make_float2(0.0f, 0.0f);
   float2* row = rows + (size_t)warp * B;
+  float2* raw = rows + (size_t)(kWarps + warp) * B;  // mode 2
+  uint32_t* keys =
+      reinterpret_cast<uint32_t*>(rows + (size_t)2 * kWarps * B) +
+      (size_t)warp * B;
   Cand best{-INFINITY, INT32_MAX, 1, 0.0f, 0.0f};
   for (int f = warp; f < F; f += kWarps) {
     const float2* src = hist + ((size_t)n * F + f) * B;
-    for (int b = lane; b < B; b += 32) row[b] = src[b];
+    const float2* crow = comb ? comb + ((size_t)n * F + f) * B : nullptr;
+    const bool is_cat = mode == 2 && cat[f] != 0;
+    const bool onehot = is_cat && n_bins[f] < max_cat_to_onehot;
+    if (mode == 2) {
+      for (int b = lane; b < B; b += 32) {
+        raw[b] = src[b];
+        keys[b] = cat_key(raw[b]);
+      }
+      __syncwarp();
+      for (int b = lane; b < B; b += 32)
+        row[is_cat ? cat_rank(keys, B, b) : b] = raw[b];
+    } else {
+      for (int b = lane; b < B; b += 32) row[b] = src[b];
+    }
     __syncwarp();
     if (lane == 0) {
       if (f == 0) f0_raw = row[0];
@@ -210,6 +307,8 @@ split_scan_kernel(const float2* __restrict__ hist,
       if (f == 0) {
         f0_first = row[0];
         f0_last = row[B - 1];
+        if (onehot)
+          f0_first = onehot_left(row[B - 1], raw[0], crow, sc, 0);
       }
     }
     __syncwarp();
@@ -222,8 +321,16 @@ split_scan_kernel(const float2* __restrict__ hist,
     const int c = mono ? mono[f] : 0;
     Cand lb{-INFINITY, INT32_MAX, 1, 0.0f, 0.0f};
     for (int b = lane; b < B && allowed; b += 32) {
-      if (!((b < nb - 1) || (b == nb - 1 && has_miss))) continue;
-      const float glr = row[b].x, hlr = row[b].y;
+      if (onehot ? !(b < nb)
+                 : !((b < nb - 1) || (b == nb - 1 && has_miss)))
+        continue;
+      // one-hot: left = every category but b (the unsorted bin b)
+      float glr = row[b].x, hlr = row[b].y;
+      if (onehot) {
+        const float2 l = onehot_left(last, raw[b], crow, sc, b);
+        glr = l.x;
+        hlr = l.y;
+      }
       const float gll = glr + missG, hll = hlr + missH;
       float g2;
       int dl;
@@ -253,11 +360,16 @@ split_scan_kernel(const float2* __restrict__ hist,
         for (int s = 0; s < 2; ++s) {  // 0: missing right, 1: left
           const float GL = s ? gll : glr, HL = s ? hll : hlr;
           const float GR = tot.x - GL, HR = tot.y - HL;
-          const float wL = weight_xla(GL, HL, p, lo, hi);
-          const float wR = weight_xla(GR, HR, p, lo, hi);
-          float g = gain_given_weight_xla(GL, HL, wL, p)
-              + gain_given_weight_xla(GR, HR, wR, p) - parent;
-          if ((c > 0 && wL > wR) || (c < 0 && wL < wR)) g = -INFINITY;
+          float g;
+          if (mono) {
+            const float wL = weight_xla(GL, HL, p, lo, hi);
+            const float wR = weight_xla(GR, HR, p, lo, hi);
+            g = gain_given_weight_xla(GL, HL, wL, p)
+                + gain_given_weight_xla(GR, HR, wR, p) - parent;
+            if ((c > 0 && wL > wR) || (c < 0 && wL < wR)) g = -INFINITY;
+          } else {  // mode 2 unconstrained
+            g = gain_xla(GL, HL, p) + gain_xla(GR, HR, p) - parent;
+          }
           if (!(HL >= p.mcw && HR >= p.mcw && HL > 0.0f && HR > 0.0f))
             g = -INFINITY;
           side[s] = g;
@@ -282,6 +394,27 @@ split_scan_kernel(const float2* __restrict__ hist,
   }
   if (lane == 0) warp_best[warp] = best;
   __syncthreads();
+  if (mode == 2) {
+    // every thread reduces the warps' bests, then the block writes the
+    // chosen feature's cat_set (row 0 of the keys holds its keys)
+    for (int w = 0; w < kWarps; ++w)
+      if (better(warp_best[w], best)) best = warp_best[w];
+    const int bf = best.idx == INT32_MAX ? 0 : best.idx / B;
+    const int bb = best.idx == INT32_MAX ? 0 : best.idx % B;
+    const int nbf = n_bins[bf];
+    const bool part = cat[bf] != 0 && !(nbf < max_cat_to_onehot);
+    uint32_t* k0 = reinterpret_cast<uint32_t*>(rows + (size_t)2 * kWarps * B);
+    __syncthreads();  // every warp is done with its key row
+    const float2* src = hist + ((size_t)n * F + bf) * B;
+    for (int b = threadIdx.x; b < B; b += blockDim.x) k0[b] = cat_key(src[b]);
+    __syncthreads();
+    for (int b = threadIdx.x; b < B; b += blockDim.x) {
+      bool in_set = false;
+      if (cat[bf] != 0 && b < nbf)
+        in_set = part ? cat_rank(k0, B, b) > bb : b == bb;
+      out_cat_set[(size_t)n * B + b] = in_set;
+    }
+  }
   if (threadIdx.x != 0) return;
   for (int w = 1; w < kWarps; ++w)
     if (better(warp_best[w], best)) best = warp_best[w];
@@ -322,19 +455,29 @@ extern "C" {
 // hist (N, F, B, 2) f32, totals (N, 2) f32, n_bins (F,) int32; fmask
 // (fmask_rows, F) uint8 with fmask_rows 1 (one mask for every node) or N,
 // or null; bounds (N, 2) f32 [lower, upper] or null; mono (F,) int32 or
-// null.  mode 0: the native scan (unconstrained); 1: the XLA formulation
-// (monotone).  Outputs (N,): gain f32, feature and bin int64, dleft uint8,
-// GL and HL f32.  Returns a cudaError_t.
+// null; cat (F,) uint8, the categorical features, for mode 2, with comb
+// (N, F, B, 2) f32 and scale (2,) f32 (hist = comb * scale) or both null.
+// mode 0: the
+// native scan (unconstrained); 1: the XLA formulation (monotone); 2: the
+// XLA formulation with categorical features (monotone where mono is
+// given).  Outputs (N,): gain f32, feature and bin int64, dleft uint8, GL
+// and HL f32; mode 2 also cat_set (N, B) uint8.  Returns a cudaError_t.
 int xtb_split_scan(const void* hist, const void* totals, const void* n_bins,
                    const void* fmask, int fmask_rows, const void* bounds,
-                   const void* mono, int N, int F, int B, float lambda_,
-                   float alpha, float min_child_weight, float max_delta_step,
-                   int mode, void* out_gain, void* out_feat, void* out_bin,
+                   const void* mono, const void* cat, int max_cat_to_onehot,
+                   const void* comb, const void* scale, int N, int F, int B,
+                   float lambda_, float alpha,
+                   float min_child_weight, float max_delta_step, int mode,
+                   void* out_gain, void* out_feat, void* out_bin,
                    void* out_dleft, void* out_GL, void* out_HL,
-                   void* stream) {
-  if (N < 1 || F < 1 || B < 1 || (mode != 0 && mode != 1))
+                   void* out_cat_set, void* stream) {
+  if (N < 1 || F < 1 || B < 1 || mode < 0 || mode > 2
+      || (mode == 1 && mono == nullptr)
+      || (mode == 2 && (cat == nullptr || out_cat_set == nullptr))
+      || (comb != nullptr && (mode != 2 || scale == nullptr)))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)kWarps * B * sizeof(float2);
+  const size_t smem = (size_t)kWarps * B
+      * (mode == 2 ? 2 * sizeof(float2) + sizeof(uint32_t) : sizeof(float2));
   cudaError_t err = cudaFuncSetAttribute(
       split_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
@@ -345,10 +488,13 @@ int xtb_split_scan(const void* hist, const void* totals, const void* n_bins,
       static_cast<const float2*>(hist), static_cast<const float2*>(totals),
       static_cast<const int*>(n_bins), static_cast<const uint8_t*>(fmask),
       fmask_rows, static_cast<const float2*>(bounds),
-      static_cast<const int*>(mono), F, B, p, mode,
-      static_cast<float*>(out_gain), static_cast<int64_t*>(out_feat),
-      static_cast<int64_t*>(out_bin), static_cast<uint8_t*>(out_dleft),
-      static_cast<float*>(out_GL), static_cast<float*>(out_HL));
+      static_cast<const int*>(mono), static_cast<const uint8_t*>(cat),
+      max_cat_to_onehot, static_cast<const float2*>(comb),
+      static_cast<const float*>(scale), F, B, p, mode,
+      static_cast<float*>(out_gain),
+      static_cast<int64_t*>(out_feat), static_cast<int64_t*>(out_bin),
+      static_cast<uint8_t*>(out_dleft), static_cast<float*>(out_GL),
+      static_cast<float*>(out_HL), static_cast<uint8_t*>(out_cat_set));
   return status(cudaGetLastError());
 }
 

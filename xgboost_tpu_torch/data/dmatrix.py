@@ -1,15 +1,21 @@
 """Dense in-memory DMatrix (port of the dense path of
-xgboost_tpu/data/dmatrix.py).
+xgboost_tpu/data/dmatrix.py, categorical columns included).
 
 Holds the raw matrix (f32, NaN = missing) as a tensor on its device, the
 labels and metadata on the host, and lazily builds the binned EllpackPage on
 the first training touch.  Cuts come from the device sketch for a matrix
 on the card and from the exact host grid for one on the CPU, as the
 reference chooses per backend; bins are computed on the device.
+
+Categorical features (feature type ``'c'``) hold integer category codes:
+from numpy with ``feature_types``, or from a pandas frame's ``category``
+columns, whose category values are kept (``cat_categories``) so that a
+frame coded another way is recoded at prediction.  The frame is read
+through its own methods: this module never imports pandas.
 """
 from __future__ import annotations
 
-from typing import Any, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -19,13 +25,91 @@ from .ellpack import EllpackPage, build_ellpack
 from .quantile import sketch_dense
 
 
-def _normalize_dense(arr: np.ndarray, missing: float) -> np.ndarray:
-    """1-D promotion + custom-missing -> NaN."""
+def _normalize_dense(arr: np.ndarray, missing: float,
+                     feature_types: Optional[Sequence[str]] = None
+                     ) -> np.ndarray:
+    """1-D promotion + custom-missing -> NaN.  The sentinel applies to the
+    numeric columns only: categorical columns hold codes, and a sentinel of
+    0.0 must not wipe out category 0."""
     if arr.ndim == 1:
         arr = arr[:, None]
     if not (missing is None or np.isnan(missing)):
-        arr = np.where(arr == missing, np.float32(np.nan), arr)
+        hit = arr == missing
+        if feature_types is not None:
+            hit = hit & np.asarray([t != "c" for t in feature_types],
+                                   bool)[None, :]
+        arr = np.where(hit, np.float32(np.nan), arr)
     return arr
+
+
+def categories_by_name(cat_categories: Optional[dict],
+                       feature_names: Optional[Sequence[str]],
+                       ) -> Optional[Dict[str, list]]:
+    """``{feature index -> category values}`` keyed by feature name (the
+    index as a string where unnamed): the form of every ``get_categories``
+    (reference: src/data/cat_container.h)."""
+    if not cat_categories:
+        return None
+    names = feature_names
+    return {
+        (names[fi] if names and fi < len(names) else str(fi)): list(vals)
+        for fi, vals in sorted(cat_categories.items())
+    }
+
+
+def recode_dense(X: np.ndarray, train_cats: Optional[dict],
+                 data_cats: Optional[dict]) -> np.ndarray:
+    """Remap the categorical codes of a dense matrix from ``data_cats`` (the
+    frame it was built from) onto ``train_cats`` (the training frame's
+    category -> code mapping; reference: encoder/ordinal.h Recode).  ``X``
+    comes back untouched when the orderings agree; a category never seen
+    in training raises."""
+    if not train_cats or not data_cats or train_cats == {
+            int(k): list(v) for k, v in data_cats.items()}:
+        return X
+    X = np.array(X, copy=True)
+    for f, train_vals in train_cats.items():
+        new_vals = data_cats.get(f)
+        if new_vals is None or list(new_vals) == list(train_vals):
+            continue
+        lookup = {v: i for i, v in enumerate(train_vals)}
+        codes = X[:, f]
+        remapped = np.full_like(codes, np.nan)
+        for new_code, v in enumerate(new_vals):
+            hit = codes == new_code
+            if v in lookup:
+                remapped[hit] = lookup[v]
+            elif hit.any():
+                raise ValueError(
+                    f"feature {f} has category {v!r} not seen in "
+                    "training (encoder recode)")
+        X[:, f] = remapped
+    return X
+
+
+def _from_frame(df):
+    """A pandas frame -> (f32 matrix, names, types, {feature -> category
+    values}): ``category`` columns become their codes (NaN for pandas' -1)
+    and type ``'c'``, float columns ``'q'``, other columns ``'int'``."""
+    names = [str(c) for c in df.columns]
+    types: List[str] = []
+    cols = []
+    cats: Dict[int, list] = {}
+    for fi, c in enumerate(df.columns):
+        col = df[c]
+        if str(col.dtype) == "category":
+            codes = col.cat.codes.to_numpy().astype(np.float32)
+            codes[codes < 0] = np.nan
+            cols.append(codes)
+            types.append("c")
+            cats[fi] = [v.item() if hasattr(v, "item") else v
+                        for v in col.cat.categories.tolist()]
+        else:
+            cols.append(col.to_numpy().astype(np.float32))
+            types.append("q" if col.dtype.kind == "f" else "int")
+    arr = (np.stack(cols, axis=1) if cols
+           else np.zeros((len(df), 0), np.float32))
+    return arr, names, types, cats
 
 
 class DMatrix:
@@ -33,7 +117,10 @@ class DMatrix:
 
     ``device``: where the matrix is staged; ``None`` means ``cuda``.
     ``feature_weights``: (F,) non-negative weights of the column sampler's
-    draws (colsample_*), as in the reference.
+    draws (colsample_*), as in the reference.  ``feature_types``: ``'q'``
+    numeric, ``'c'`` categorical (codes 0, 1, ...); a pandas frame brings
+    its own.  ``enable_categorical`` is accepted, as the reference accepts
+    it: the feature types alone decide which features are categorical.
     """
 
     def __init__(
@@ -50,16 +137,20 @@ class DMatrix:
         enable_categorical: bool = False,
         device=None,
     ) -> None:
-        if enable_categorical or (feature_types and "c" in feature_types):
-            raise NotImplementedError(
-                "categorical data is not supported by xgboost_tpu_torch yet")
         if isinstance(data, torch.Tensor):
             data = data.detach().cpu().numpy()
         if hasattr(data, "tocsr"):
             raise NotImplementedError(
                 "sparse input is not supported by xgboost_tpu_torch yet")
+        # {feature index -> category values} of a frame's category columns
+        self.cat_categories: Optional[Dict[int, list]] = None
+        if hasattr(data, "iloc") and hasattr(data, "columns"):  # pandas
+            data, auto_names, auto_types, cats = _from_frame(data)
+            feature_names = feature_names or auto_names
+            feature_types = feature_types or auto_types
+            self.cat_categories = cats or None
         self._host = _normalize_dense(np.asarray(data, dtype=np.float32),
-                                      missing)
+                                      missing, feature_types)
         self.device = resolve_device(device)
         self.X = torch.from_numpy(self._host).to(self.device)
         self.label: Optional[np.ndarray] = None
@@ -99,6 +190,10 @@ class DMatrix:
     def set_base_margin(self, margin: Any) -> None:
         self.base_margin = self._rows(margin, "base_margin")
 
+    def host_dense(self) -> np.ndarray:
+        """The (R, F) f32 host copy, NaN = missing."""
+        return self._host
+
     def num_row(self) -> int:
         return self._host.shape[0]
 
@@ -112,11 +207,23 @@ class DMatrix:
     def get_weight(self) -> Optional[np.ndarray]:
         return self.weight
 
+    def get_categories(self) -> Optional[Dict[str, list]]:
+        """The frame's category values per categorical feature, keyed by
+        feature name (or index), None for numeric or numpy input."""
+        return categories_by_name(self.cat_categories, self.feature_names)
+
+    def cat_mask(self) -> Optional[np.ndarray]:
+        """(F,) bool: which features are categorical; None when none is."""
+        ft = self.feature_types
+        if not ft or "c" not in ft:
+            return None
+        return np.asarray([t == "c" for t in ft], dtype=bool)
+
     def ensure_ellpack(self, max_bin: int = 256,
                        row_align: int = 1024) -> EllpackPage:
         """Sketch and bin once per ``max_bin``."""
         if self._ellpack is None or self._max_bin_built != max_bin:
-            cuts = sketch_dense(self.X, max_bin)
+            cuts = sketch_dense(self.X, max_bin, cat_mask=self.cat_mask())
             self._ellpack = build_ellpack(self.X, cuts, row_align=row_align)
             self._max_bin_built = max_bin
         return self._ellpack

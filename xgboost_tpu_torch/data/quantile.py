@@ -1,5 +1,6 @@
 """Quantile sketch -> histogram bin boundaries (port of the dense,
-unweighted paths of xgboost_tpu/data/quantile.py).
+unweighted paths of xgboost_tpu/data/quantile.py, categorical features
+included: they get identity cuts, code c in bin c).
 
 Two sketches, as in the reference: the exact host grid (numpy) for data on
 the CPU, and the accelerator sketch (a device sort of a row subsample) for
@@ -148,15 +149,81 @@ def _device_grid(X: torch.Tensor, max_bin: int):
             np.where(nvalid_h > 0, vmax, 0.0), np.where(nvalid_h > 0, vmin, 0.0))
 
 
-def sketch_dense(X, max_bin: int,
-                 use_device: Optional[bool] = None) -> HistogramCuts:
+def categorical_cuts(n_cats: int) -> np.ndarray:
+    """Identity cuts of a categorical feature, [1 .. n_cats]: code c lands
+    in bin c (the count of cuts <= c)."""
+    return np.arange(1, max(n_cats, 1) + 1, dtype=np.float32)
+
+
+def _assemble_cuts(F: int, max_bin: int, cat_n_cats, num_seg) -> HistogramCuts:
+    """Per-feature cut segments stitched together: identity cuts for the
+    categorical features (``cat_n_cats``: {feature -> n_cats}), ``num_seg(f)
+    -> (segment, min)`` for the numeric ones."""
+    ptrs, values = [0], []
+    mins = np.zeros(F, np.float32)
+    for f in range(F):
+        if f in cat_n_cats:
+            n_cats = cat_n_cats[f]
+            if n_cats > max_bin:
+                raise ValueError(
+                    f"categorical feature {f} has {n_cats} categories; "
+                    f"raise max_bin (currently {max_bin})")
+            seg = categorical_cuts(n_cats)
+            mins[f] = -1e-5
+        else:
+            seg, mins[f] = num_seg(f)
+        values.append(seg)
+        ptrs.append(ptrs[-1] + len(seg))
+    return HistogramCuts(
+        np.asarray(ptrs, np.int32),
+        (np.concatenate(values).astype(np.float32) if values
+         else np.zeros(0, np.float32)),
+        mins)
+
+
+def _sketch_categorical(X, max_bin: int, use_device: Optional[bool],
+                        cat_mask: np.ndarray) -> HistogramCuts:
+    """Identity cuts for the categorical columns, n_cats = the largest code
+    + 1, and the numeric columns sketched alone, on X's device (reference
+    quantile.py:179-195)."""
+    F = X.shape[1]
+    num_idx = np.nonzero(~cat_mask)[0]
+    cat_idx = np.nonzero(cat_mask)[0]
+    if isinstance(X, torch.Tensor):
+        sel = torch.from_numpy(num_idx).to(X.device)
+        Xn = X.index_select(1, sel)
+        Xc = X.index_select(1, torch.from_numpy(cat_idx).to(X.device))
+        # the largest code per column; -inf where a column is all missing
+        top = torch.where(torch.isnan(Xc), -torch.inf, Xc).amax(dim=0) \
+            if X.shape[0] else torch.full((len(cat_idx),), -torch.inf)
+        top = top.cpu().numpy()
+    else:
+        X = np.asarray(X, dtype=np.float32)
+        Xn, Xc = X[:, num_idx], X[:, cat_idx]
+        top = np.where(np.isnan(Xc), -np.inf, Xc).max(axis=0, initial=-np.inf)
+    base = (sketch_dense(Xn, max_bin, use_device=use_device)
+            if len(num_idx) else None)
+    cat_n_cats = {int(f): (int(t) + 1 if np.isfinite(t) else 1)
+                  for f, t in zip(cat_idx, top)}
+    num_pos = {int(f): i for i, f in enumerate(num_idx)}
+    return _assemble_cuts(
+        F, max_bin, cat_n_cats,
+        lambda f: (base.feature_cuts(num_pos[f]), base.min_vals[num_pos[f]]))
+
+
+def sketch_dense(X, max_bin: int, use_device: Optional[bool] = None,
+                 cat_mask: Optional[np.ndarray] = None) -> HistogramCuts:
     """HistogramCuts from a dense (R, F) float matrix with NaN = missing.
 
     ``use_device``: None takes the reference's rule per backend, the device
     sketch for a CUDA tensor and the exact host grid otherwise; True runs
     the device sketch on X's device whatever it is (the tests run it on
-    CPU tensors); False runs the host grid.
+    CPU tensors); False runs the host grid.  ``cat_mask``: (F,) bool of the
+    categorical features, which get identity cuts.
     """
+    if cat_mask is not None and np.any(cat_mask):
+        return _sketch_categorical(X, max_bin, use_device,
+                                   np.asarray(cat_mask, bool))
     if use_device is None:
         use_device = isinstance(X, torch.Tensor) and X.is_cuda
     if use_device and X.shape[0] * X.shape[1] > 0:

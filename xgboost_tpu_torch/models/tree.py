@@ -1,16 +1,20 @@
-"""RegTree: the persisted tree model, struct-of-arrays (port of the scalar,
-numeric part of xgboost_tpu/models/tree.py).
+"""RegTree: the persisted tree model, struct-of-arrays (port of the scalar
+part of xgboost_tpu/models/tree.py, categorical splits included).
 
 Arrays are numpy columns in the reference's JSON field layout
 (left_children, right_children, parents, split_indices, split_conditions,
-default_left, base_weights, loss_changes, sum_hessian), so ``to_json_dict``
-emits the schema the reference reads.  Node numbering is creation order
-(root 0, children appended in level order), matching the depthwise updater.
+default_left, base_weights, loss_changes, sum_hessian, split_type and the
+categories of each categorical split), so ``to_json_dict`` emits the
+schema the reference reads.  Node numbering is creation order (root 0,
+children appended in level order), matching the depthwise updater.  A
+categorical node sends the categories of its set right, every other
+category left (common/categorical.h Decision).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import List
+import json
+from typing import List, Optional
 
 import numpy as np
 
@@ -26,10 +30,27 @@ class RegTree:
     base_weights: np.ndarray  # f32
     loss_changes: np.ndarray  # f32
     sum_hessian: np.ndarray  # f32
+    split_type: Optional[np.ndarray] = None  # int32: 0 numeric, 1 categorical
+    categories: Optional[dict] = None  # node -> int32 categories routed right
 
     @property
     def n_nodes(self) -> int:
         return len(self.left_children)
+
+    def is_leaf(self, nid: int) -> bool:
+        return self.left_children[nid] == -1
+
+    @property
+    def has_categorical(self) -> bool:
+        return bool(self.categories)
+
+    @property
+    def max_category(self) -> int:
+        """The largest category any split names, -1 without any."""
+        if not self.categories:
+            return -1
+        return max((int(c.max()) for c in self.categories.values() if len(c)),
+                   default=-1)
 
     @property
     def max_depth(self) -> int:
@@ -63,7 +84,10 @@ class RegTree:
             base_weights=np.zeros(n, np.float32),
             loss_changes=np.zeros(n, np.float32),
             sum_hessian=np.zeros(n, np.float32),
+            split_type=np.zeros(n, np.int32),
+            categories={},
         )
+        has_cat = getattr(gt, "is_cat", None) is not None
         for h in order:
             i = id_of[h]
             t.base_weights[i] = gt.base_weight[h]
@@ -77,14 +101,21 @@ class RegTree:
                 t.split_indices[i] = gt.feat[h]
                 t.split_conditions[i] = gt.thr[h]
                 t.loss_changes[i] = gt.gain[h]
+                if has_cat and gt.is_cat[h]:
+                    t.split_type[i] = 1
+                    t.categories[i] = np.nonzero(gt.cat_set[h])[0].astype(
+                        np.int32)
             else:
                 t.split_conditions[i] = gt.leaf_val[h]
         return t
 
     def padded_arrays(self, width: int) -> dict:
-        """Node arrays padded to ``width`` for the stacked predictor."""
+        """Node arrays padded to ``width`` for the stacked predictor;
+        ``is_cat`` marks the categorical splits."""
         n = self.n_nodes
         leaf = self.left_children == -1
+        st = (self.split_type if self.split_type is not None
+              else np.zeros(n, np.int32))
 
         def pad(a, fill=0):
             out = np.full(width, fill, dtype=a.dtype)
@@ -98,11 +129,28 @@ class RegTree:
             left=pad(self.left_children, -1),
             right=pad(self.right_children, -1),
             value=pad(np.where(leaf, self.split_conditions, 0.0).astype(np.float32)),
+            is_cat=pad(st == 1),
         )
+
+    def cat_matrix(self, width: int, n_cats: int) -> np.ndarray:
+        """(width, n_cats) bool: the categories each node routes right."""
+        out = np.zeros((width, max(n_cats, 1)), dtype=bool)
+        for nid, cats in (self.categories or {}).items():
+            out[nid, cats[cats < n_cats]] = True
+        return out
 
     # ---- xgboost JSON schema (tree_model.cc SaveModel) ----
     def to_json_dict(self, n_features: int, tree_id: int = 0) -> dict:
         n = self.n_nodes
+        st = (self.split_type if self.split_type is not None
+              else np.zeros(n, np.int32))
+        cat_nodes, cat_segs, cat_sizes, cat_flat = [], [], [], []
+        for nid in sorted(self.categories or {}):
+            cats = self.categories[nid]
+            cat_nodes.append(int(nid))
+            cat_segs.append(len(cat_flat))
+            cat_sizes.append(len(cats))
+            cat_flat.extend(int(c) for c in cats)
         return {
             "id": int(tree_id),
             "tree_param": {
@@ -115,12 +163,12 @@ class RegTree:
             "parents": self.parents.tolist(),
             "split_indices": self.split_indices.tolist(),
             "split_conditions": [float(x) for x in self.split_conditions],
-            "split_type": [0] * n,
+            "split_type": st.tolist(),
             "default_left": self.default_left.astype(np.int32).tolist(),
-            "categories": [],
-            "categories_nodes": [],
-            "categories_segments": [],
-            "categories_sizes": [],
+            "categories": cat_flat,
+            "categories_nodes": cat_nodes,
+            "categories_segments": cat_segs,
+            "categories_sizes": cat_sizes,
             "base_weights": [float(x) for x in self.base_weights],
             "loss_changes": [float(x) for x in self.loss_changes],
             "sum_hessian": [float(x) for x in self.sum_hessian],
@@ -128,9 +176,12 @@ class RegTree:
 
     @staticmethod
     def from_json_dict(d: dict) -> "RegTree":
-        if d.get("categories_nodes") or any(d.get("split_type", [])):
-            raise NotImplementedError(
-                "categorical trees are not supported by xgboost_tpu_torch yet")
+        cats = {}
+        flat = d.get("categories", [])
+        for nid, seg, size in zip(d.get("categories_nodes", []),
+                                  d.get("categories_segments", []),
+                                  d.get("categories_sizes", [])):
+            cats[int(nid)] = np.asarray(flat[seg: seg + size], np.int32)
         if int(d.get("tree_param", {}).get("size_leaf_vector", "1") or 1) > 1:
             raise NotImplementedError(
                 "vector-leaf trees are not supported by xgboost_tpu_torch yet")
@@ -145,4 +196,82 @@ class RegTree:
             base_weights=np.asarray(d.get("base_weights", np.zeros(n)), np.float32),
             loss_changes=np.asarray(d.get("loss_changes", np.zeros(n)), np.float32),
             sum_hessian=np.asarray(d.get("sum_hessian", np.zeros(n)), np.float32),
+            split_type=np.asarray(d.get("split_type", np.zeros(n))).astype(
+                np.int32),
+            categories=cats or None,
         )
+
+    # ---- dumps (tree_model.cc DumpModel) ----
+    def _missing(self, nid: int) -> int:
+        return int(self.left_children[nid] if self.default_left[nid]
+                   else self.right_children[nid])
+
+    def dump_text(self, feature_names: Optional[List[str]] = None,
+                  with_stats: bool = False) -> str:
+        """The text dump: ``[f<c]`` for a numeric split, ``[f:{cats}]``
+        for a categorical one (its categories go right, "no")."""
+        lines: List[str] = []
+
+        def fname(fid: int) -> str:
+            return feature_names[fid] if feature_names else f"f{fid}"
+
+        def rec(nid: int, depth: int):
+            indent = "\t" * depth
+            if self.is_leaf(nid):
+                s = f"{indent}{nid}:leaf={self.split_conditions[nid]:.6g}"
+                if with_stats:
+                    s += f",cover={self.sum_hessian[nid]:.6g}"
+            elif self.categories and nid in self.categories:
+                cats = ",".join(str(c) for c in self.categories[nid])
+                s = (f"{indent}{nid}:[{fname(self.split_indices[nid])}:"
+                     f"{{{cats}}}] yes={self.left_children[nid]},"
+                     f"no={self.right_children[nid]},"
+                     f"missing={self._missing(nid)}")
+            else:
+                s = (f"{indent}{nid}:[{fname(self.split_indices[nid])}<"
+                     f"{self.split_conditions[nid]:.6g}] "
+                     f"yes={self.left_children[nid]},"
+                     f"no={self.right_children[nid]},"
+                     f"missing={self._missing(nid)}")
+                if with_stats:
+                    s += (f",gain={self.loss_changes[nid]:.6g},"
+                          f"cover={self.sum_hessian[nid]:.6g}")
+            lines.append(s)
+            if not self.is_leaf(nid):
+                rec(self.left_children[nid], depth + 1)
+                rec(self.right_children[nid], depth + 1)
+
+        rec(0, 0)
+        return "\n".join(lines) + "\n"
+
+    def dump_json(self, feature_names: Optional[List[str]] = None,
+                  with_stats: bool = False) -> str:
+        """The JSON dump (tree_model.cc JsonGenerator): nested nodeid /
+        split / children objects; a categorical split's condition is its
+        list of categories."""
+        def fname(fid: int) -> str:
+            return feature_names[fid] if feature_names else f"f{fid}"
+
+        def rec(nid: int, depth: int) -> dict:
+            if self.is_leaf(nid):
+                d = {"nodeid": int(nid),
+                     "leaf": float(self.split_conditions[nid])}
+                if with_stats:
+                    d["cover"] = float(self.sum_hessian[nid])
+                return d
+            yes = int(self.left_children[nid])
+            no = int(self.right_children[nid])
+            d = {"nodeid": int(nid), "depth": int(depth),
+                 "split": fname(int(self.split_indices[nid]))}
+            if self.categories and nid in self.categories:
+                d["split_condition"] = [int(c) for c in self.categories[nid]]
+            else:
+                d["split_condition"] = float(self.split_conditions[nid])
+            d.update(yes=yes, no=no, missing=self._missing(nid))
+            if with_stats:
+                d.update(gain=float(self.loss_changes[nid]),
+                         cover=float(self.sum_hessian[nid]))
+            d["children"] = [rec(yes, depth + 1), rec(no, depth + 1)]
+            return d
+
+        return json.dumps(rec(0, 0))

@@ -11,6 +11,8 @@ from typing import Dict, Type
 
 import torch
 
+from ..utils.fp import sum_f32
+
 _REGISTRY: Dict[str, Type["ObjFunction"]] = {}
 
 
@@ -61,8 +63,8 @@ class ObjFunction:
             torch.zeros((labels.shape[0], self.n_groups()),
                         dtype=torch.float32, device=labels.device),
             labels, weights)
-        G = g[..., 0].sum(dim=0)
-        H = g[..., 1].sum(dim=0)
+        G = sum_f32(g[..., 0], dim=0)
+        H = sum_f32(g[..., 1], dim=0)
         return -G / torch.clamp(H, min=1e-6)
 
     def default_metric(self) -> str:

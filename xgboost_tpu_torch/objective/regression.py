@@ -13,6 +13,7 @@ from __future__ import annotations
 import torch
 
 from ..ops.sigmoid_cuda import sigmoid
+from ..utils.fp import sum_f32
 from . import ObjFunction, register_objective
 
 
@@ -39,7 +40,8 @@ class SquaredError(_Elementwise):
 
     def init_estimation(self, labels, weights):
         w = torch.ones_like(labels) if weights is None else weights
-        return (labels * w).sum() / torch.clamp(w.sum(), min=1e-6)
+        # the sums in jnp.sum's order, so the mean is the reference's bits
+        return sum_f32(labels * w) / torch.clamp(sum_f32(w), min=1e-6)
 
 
 @register_objective("binary:logistic")

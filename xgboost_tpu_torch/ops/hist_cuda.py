@@ -83,8 +83,9 @@ _ENTRY = {
     "hist_f32": ("xtb_hist_f32", [_vp, _ci, _vp, _vp, _vp] + [_ci] * 12
                  + [_vp]),
     "hist_q": ("xtb_hist_q", [_vp, _ci, _vp, _vp, _vp] + [_ci] * 13 + [_vp]),
-    "split_scan": ("xtb_split_scan", [_vp] * 4 + [_ci, _vp, _vp] + [_ci] * 3
-                   + [ctypes.c_float] * 4 + [_ci] + [_vp] * 7),
+    "split_scan": ("xtb_split_scan", [_vp] * 4 + [_ci] + [_vp] * 3 + [_ci]
+                   + [_vp] * 2 + [_ci] * 3 + [ctypes.c_float] * 4 + [_ci]
+                   + [_vp] * 8),
     "sigmoid": ("xtb_sigmoid", [_vp, _vp, ctypes.c_longlong, _vp]),
 }
 _libs: dict = {}

@@ -26,8 +26,8 @@ from __future__ import annotations
 import torch
 
 __all__ = ["QUANT_BITS", "MAX_ROWS", "local_rho", "quantise_gpair",
-           "hist_accumulate_q", "node_sums_q", "dequantise",
-           "quantised_root_state", "check_row_budget", "prepare_quantised"]
+           "hist_accumulate_q", "node_sums_q", "dequantise_parts",
+           "dequantise", "quantised_root_state", "check_row_budget", "prepare_quantised"]
 
 QUANT_BITS = 22
 _QMAX = float((1 << QUANT_BITS) - 1)
@@ -97,11 +97,18 @@ def node_sums_q(gq, pos, node0: int, n_nodes: int):
     return torch.stack(rows).reshape(n_nodes, C, L)
 
 
-def dequantise(hist_q, rho):
-    """int32 limb sums (..., C, 3) -> f32 (..., C): the one rounding step."""
+def dequantise_parts(hist_q, rho):
+    """int32 limb sums (..., C, 3) -> (combined (..., C) f32, scale (C,)
+    f32), whose product is ``dequantise``."""
     f = hist_q.to(torch.float32)
     combined = f[..., 0] + 256.0 * f[..., 1] + 65536.0 * f[..., 2]
-    return combined * torch.div(rho, _qmax(rho))
+    return combined, torch.div(rho, _qmax(rho))
+
+
+def dequantise(hist_q, rho):
+    """int32 limb sums (..., C, 3) -> f32 (..., C): the one rounding step."""
+    combined, scale = dequantise_parts(hist_q, rho)
+    return combined * scale
 
 
 def quantised_root_state(state, gq, rho):

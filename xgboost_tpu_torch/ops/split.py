@@ -9,7 +9,14 @@ the reference give the same bits:
   both missing directions scored with its f32 gain arithmetic, the left
   direction kept on ties, and the first best in (feature, bin) order;
 - monotone: the reference's XLA formulation, whose ``jnp.cumsum`` XLA on
-  the CPU computes in blocks of 16 (``prefix_blocked``).
+  the CPU computes in blocks of 16 (``prefix_blocked``);
+- categorical (a ``cat_mask`` is given): the XLA formulation for every
+  feature, numeric ones too, as the reference never takes its native scan
+  then: each categorical feature's bins stably sorted by G / (H + 1e-6)
+  (empty bins last), the blocked prefix over the sorted bins, features of
+  fewer than ``max_cat_to_onehot`` bins scored one-hot (one category
+  against the rest), the gain unconstrained or monotone.  A categorical
+  split sends the categories of ``cat_set`` right.
 
 ``split_scan_plain`` is the plain PyTorch version; the CUDA kernel K3
 (csrc/split_scan.cu, ops/split_cuda.py ``split_scan_cuda``) computes the
@@ -48,6 +55,9 @@ class SplitParams(NamedTuple):
     # per-feature {-1, 0, +1}; None (or all zero) disables the constrained
     # evaluation
     monotone: Optional[Tuple[int, ...]] = None
+    # categorical features of fewer bins are split one-hot
+    # (src/tree/param.h max_cat_to_onehot)
+    max_cat_to_onehot: int = 4
 
 
 class BestSplit(NamedTuple):
@@ -59,6 +69,8 @@ class BestSplit(NamedTuple):
     right_sum: torch.Tensor  # (N, 2)
     left_weight: torch.Tensor  # (N,) child weights (monotone-clipped)
     right_weight: torch.Tensor  # (N,)
+    is_cat: torch.Tensor  # (N,) bool categorical split chosen
+    cat_set: torch.Tensor  # (N, B) bool categories routed right
 
 
 class ScanResult(NamedTuple):
@@ -70,6 +82,10 @@ class ScanResult(NamedTuple):
     default_left: torch.Tensor  # (N,) bool
     GL: torch.Tensor  # (N,) f32 left child's gradient sum
     HL: torch.Tensor  # (N,) f32 left child's hessian sum
+    # the categorical scan's (N, B) bool categories routed right: the
+    # chosen category of a one-hot split, the bins ranked after the chosen
+    # one of a partition; all False where the best feature is numeric
+    cat_set: Optional[torch.Tensor] = None
 
 
 def is_monotone(params: SplitParams) -> bool:
@@ -145,14 +161,18 @@ def prefix_blocked(x, block: int = SCAN_BLOCK):
 
 
 # ---------------------------------------------------------------- scans
-def _candidate_ok(n_bins, has_miss, B: int, fmask):
+def _candidate_ok(n_bins, has_miss, B: int, fmask, onehot=None):
     """(N, F, B) bool: bins below the top valid one, the top one when the
-    feature has missing values, of the features the node may split on."""
+    feature has missing values, every valid bin of a one-hot feature
+    (``onehot`` (F,) bool), of the features the node may split on."""
     bin_idx = torch.arange(B, device=has_miss.device)
     nb = n_bins.to(has_miss.device).long()
     ok = (bin_idx[None, None, :] < (nb[None, :, None] - 1)) \
         | ((bin_idx[None, None, :] == (nb[None, :, None] - 1))
            & has_miss[:, :, None])
+    if onehot is not None:
+        ok = torch.where(onehot[None, :, None],
+                         bin_idx[None, None, :] < nb[None, :, None], ok)
     if fmask is not None:
         ok = ok & fmask[:, :, None]
     return ok
@@ -233,40 +253,85 @@ def _scan_native(hist, totals, n_bins, p: SplitParams, fmask) -> ScanResult:
         GL=GL, HL=HL)
 
 
-def _scan_monotone(hist, totals, n_bins, p: SplitParams, fmask,
-                   node_bounds) -> ScanResult:
-    """The reference's XLA formulation under monotone constraints, its
-    cumsum in XLA's blocked order."""
+def _cat_order(hist, cat_mask):
+    """(N, F, B) int64: each categorical feature's bins in the stable order
+    of G / (H + 1e-6), bins with H <= 0 last (+inf), the identity for the
+    numeric features (reference split.py:278-285)."""
+    B = hist.shape[2]
+    ratio = hist[..., 0] / (hist[..., 1] + _EPS)
+    ratio = torch.where(hist[..., 1] > 0, ratio, torch.inf)
+    iota = torch.arange(B, dtype=torch.float32, device=hist.device)
+    key = torch.where(cat_mask[None, :, None], ratio, iota)
+    return torch.sort(key, dim=2, stable=True).indices
+
+
+def _scan_xla(hist, totals, n_bins, p: SplitParams, fmask, node_bounds,
+              cat_mask=None, dq=None) -> ScanResult:
+    """The reference's XLA formulation (split.py:253-417), its cumsum in
+    XLA's blocked order: under monotone constraints, and for every feature
+    when a ``cat_mask`` is given, with the categorical features' bins
+    sorted and their ``cat_set`` formed.  ``dq``: the (comb, scale) whose
+    product ``hist`` is under deterministic_histogram (ops/quantise.py
+    ``dequantise_parts``), for the one-hot sums XLA computes from them."""
     N, F, B, _ = hist.shape
-    cum = prefix_blocked(hist.permute(0, 1, 3, 2))  # (N, F, 2, B)
+    mono = is_monotone(p)
+    order = onehot = None
+    hist_eval = hist
+    if cat_mask is not None:
+        # categorical features of fewer bins are split one-hot
+        onehot = cat_mask & (n_bins.to(hist.device) < p.max_cat_to_onehot)
+        order = _cat_order(hist, cat_mask)
+        hist_eval = hist.gather(2, order[..., None].expand(N, F, B, 2))
+    cum = prefix_blocked(hist_eval.permute(0, 1, 3, 2))  # (N, F, 2, B)
     GL_r, HL_r = cum[:, :, 0], cum[:, :, 1]
-    miss = totals[:, None, :] - cum[:, :, :, -1]  # (N, F, 2)
+    feat_sum = cum[:, :, :, -1]  # (N, F, 2): the sorted bins' blocked total
+    if onehot is not None:
+        # one-hot: left = every category but b, by the UNSORTED bin b
+        oh = onehot[None, :, None]
+        if dq is not None:
+            # hist = comb * scale, and XLA fuses that product into this
+            # subtraction: one rounding, fma(-comb, scale, total)
+            comb, scale = dq
+            og = fma_f32(-comb[..., 0], scale[0], feat_sum[:, :, None, 0])
+            oh_h = fma_f32(-comb[..., 1], scale[1], feat_sum[:, :, None, 1])
+        else:
+            og = feat_sum[:, :, None, 0] - hist[..., 0]
+            oh_h = feat_sum[:, :, None, 1] - hist[..., 1]
+        GL_r = torch.where(oh, og, GL_r)
+        HL_r = torch.where(oh, oh_h, HL_r)
+    miss = totals[:, None, :] - feat_sum  # (N, F, 2)
     GL_l = GL_r + miss[:, :, None, 0]  # missing -> left
     HL_l = HL_r + miss[:, :, None, 1]
 
     lo_n = hi_n = lo = hi = None  # unbounded: calc_weight skips the clamp
-    if node_bounds is not None:
-        lo_n, hi_n = node_bounds[:, 0], node_bounds[:, 1]
-        lo, hi = lo_n[:, None, None], hi_n[:, None, None]
-    cvec = monotone_vec(p.monotone, hist.device)[None, :, None]
-    w_parent = calc_weight(totals[:, 0], totals[:, 1], p, lo_n, hi_n)
-    parent_gain = gain_given_weight(totals[:, 0], totals[:, 1], w_parent,
-                                    p)[:, None, None]
+    if mono:
+        if node_bounds is not None:
+            lo_n, hi_n = node_bounds[:, 0], node_bounds[:, 1]
+            lo, hi = lo_n[:, None, None], hi_n[:, None, None]
+        cvec = monotone_vec(p.monotone, hist.device)[None, :, None]
+        w_parent = calc_weight(totals[:, 0], totals[:, 1], p, lo_n, hi_n)
+        parent_gain = gain_given_weight(totals[:, 0], totals[:, 1],
+                                        w_parent, p)[:, None, None]
+    else:
+        parent_gain = calc_gain(totals[:, 0], totals[:, 1], p)[:, None, None]
 
     def side_gain(GL, HL):
         GR = totals[:, None, None, 0] - GL
         HR = totals[:, None, None, 1] - HL
-        wL = calc_weight(GL, HL, p, lo, hi)
-        wR = calc_weight(GR, HR, p, lo, hi)
-        gain = gain_given_weight(GL, HL, wL, p) \
-            + gain_given_weight(GR, HR, wR, p) - parent_gain
-        viol = ((cvec > 0) & (wL > wR)) | ((cvec < 0) & (wL < wR))
-        gain = torch.where(viol, -torch.inf, gain)
+        if mono:
+            wL = calc_weight(GL, HL, p, lo, hi)
+            wR = calc_weight(GR, HR, p, lo, hi)
+            gain = gain_given_weight(GL, HL, wL, p) \
+                + gain_given_weight(GR, HR, wR, p) - parent_gain
+            viol = ((cvec > 0) & (wL > wR)) | ((cvec < 0) & (wL < wR))
+            gain = torch.where(viol, -torch.inf, gain)
+        else:
+            gain = calc_gain(GL, HL, p) + calc_gain(GR, HR, p) - parent_gain
         valid = ((HL >= p.min_child_weight) & (HR >= p.min_child_weight)
                  & (HL > 0.0) & (HR > 0.0))
         return torch.where(valid, gain, -torch.inf)
 
-    ok = _candidate_ok(n_bins, miss[:, :, 1].abs() > _EPS, B, fmask)
+    ok = _candidate_ok(n_bins, miss[:, :, 1].abs() > _EPS, B, fmask, onehot)
     gain_r = torch.where(ok, side_gain(GL_r, HL_r), -torch.inf)
     gain_l = torch.where(ok, side_gain(GL_l, HL_l), -torch.inf)
     use_left = gain_l >= gain_r
@@ -274,17 +339,37 @@ def _scan_monotone(hist, totals, n_bins, p: SplitParams, fmask,
     best = gain.reshape(N, F * B).argmax(dim=1)  # first maximum, as jnp
     g, dleft, gll, hll, glr, hlr = _pick(best, gain, use_left, GL_l, HL_l,
                                          GL_r, HL_r)
-    return ScanResult(gain=g, feature=best // B, bin=best % B,
-                      default_left=dleft, GL=torch.where(dleft, gll, glr),
-                      HL=torch.where(dleft, hll, hlr))
+    feat, sbin = best // B, best % B
+    cat_set = None
+    if cat_mask is not None:
+        # categories routed right: one-hot the chosen bin, partition the
+        # bins ranked after the chosen position (reference :384-402)
+        rank = torch.empty_like(order)
+        rank.scatter_(2, order, torch.arange(B, device=hist.device)
+                      .expand(N, F, B).contiguous())
+        rank_at = rank[torch.arange(N, device=hist.device), feat]  # (N, B)
+        bb = torch.arange(B, device=hist.device)[None, :]
+        in_range = bb < n_bins.to(hist.device).long()[feat][:, None]
+        cat_set = torch.where(onehot[feat][:, None], bb == sbin[:, None],
+                              rank_at > sbin[:, None])
+        cat_set = cat_set & in_range & cat_mask[feat][:, None]
+    return ScanResult(gain=g, feature=feat, bin=sbin, default_left=dleft,
+                      GL=torch.where(dleft, gll, glr),
+                      HL=torch.where(dleft, hll, hlr), cat_set=cat_set)
 
 
 def split_scan_plain(hist, totals, n_bins, params: SplitParams,
-                     feature_mask=None, node_bounds=None) -> ScanResult:
-    """K3's plain PyTorch version: the scan of ``evaluate_splits``."""
+                     feature_mask=None, node_bounds=None,
+                     cat_mask=None, dq=None) -> ScanResult:
+    """K3's plain PyTorch version: the scan of ``evaluate_splits``;
+    ``cat_mask`` (F,) bool on hist's device selects the categorical scan,
+    and ``dq`` is its (comb, scale) under deterministic_histogram."""
+    if dq is not None and cat_mask is None:
+        raise ValueError("dq is read by the categorical scan only")
     fm = _node_mask(feature_mask, hist.shape[0])
-    if is_monotone(params):
-        return _scan_monotone(hist, totals, n_bins, params, fm, node_bounds)
+    if cat_mask is not None or is_monotone(params):
+        return _scan_xla(hist, totals, n_bins, params, fm, node_bounds,
+                         cat_mask, dq)
     return _scan_native(hist, totals, n_bins, params, fm)
 
 
@@ -296,7 +381,8 @@ def _node_mask(feature_mask, N: int):
 
 
 def evaluate_splits(hist, totals, n_bins, params: SplitParams,
-                    feature_mask=None, node_bounds=None) -> BestSplit:
+                    feature_mask=None, node_bounds=None,
+                    cat_mask=None, dq=None) -> BestSplit:
     """Best split per node.
 
     hist   : (N, F, B, 2) f32 per-node per-feature bin (G, H) sums
@@ -305,15 +391,21 @@ def evaluate_splits(hist, totals, n_bins, params: SplitParams,
     feature_mask : optional (F,) or (N, F) bool, the features a node may
                    split on (column sampling, interaction constraints)
     node_bounds  : optional (N, 2) f32 [lower, upper] monotone weight bounds
+    cat_mask     : optional (F,) bool on hist's device, the categorical
+                   features; given, every feature takes the categorical scan
+    dq           : optional (comb (N, F, B, 2) f32, scale (2,) f32) with
+                   hist = comb * scale, under deterministic_histogram: the
+                   categorical scan's one-hot sums are formed from them
     """
     if hist.is_cuda:
         mono = (monotone_vec(tuple(params.monotone), hist.device)
                 if is_monotone(params) else None)
         s = ScanResult(*split_scan_cuda(hist, totals, n_bins, params,
-                                        feature_mask, node_bounds, mono))
+                                        feature_mask, node_bounds, mono,
+                                        cat_mask, dq))
     else:
         s = split_scan_plain(hist, totals, n_bins, params, feature_mask,
-                             node_bounds)
+                             node_bounds, cat_mask, dq)
     GR = totals[:, 0] - s.GL
     HR = totals[:, 1] - s.HL
     lo = hi = None
@@ -325,4 +417,10 @@ def evaluate_splits(hist, totals, n_bins, params: SplitParams,
         left_sum=torch.stack([s.GL, s.HL], dim=1),
         right_sum=torch.stack([GR, HR], dim=1),
         left_weight=calc_weight(s.GL, s.HL, params, lo, hi),
-        right_weight=calc_weight(GR, HR, params, lo, hi))
+        right_weight=calc_weight(GR, HR, params, lo, hi),
+        is_cat=(torch.zeros_like(s.default_left) if cat_mask is None
+                else cat_mask[s.feature]),
+        cat_set=(torch.zeros((hist.shape[0], hist.shape[2]), dtype=torch.bool,
+                             device=hist.device)
+                 if s.cat_set is None else s.cat_set))
+

@@ -19,16 +19,21 @@ __all__ = ["split_scan_cuda"]
 
 
 def split_scan_cuda(hist, totals, n_bins, params, feature_mask=None,
-                    node_bounds=None, mono=None) -> Tuple[torch.Tensor, ...]:
+                    node_bounds=None, mono=None, cat_mask=None,
+                    dq=None) -> Tuple[torch.Tensor, ...]:
     """Launch K3 on the inputs' card: the best split of each node of
     ``hist`` (N, F, B, 2) f32, with ``totals`` (N, 2) f32 and ``n_bins``
     (F,).  ``params`` is a ``split.SplitParams`` (its lambda_, alpha,
     min_child_weight and max_delta_step are read); ``feature_mask`` (F,),
     (1, F) or (N, F) bool.  ``mono`` is the (F,) int32 constraint vector on
     the card for the monotone scan, None for the unconstrained one, whose
-    ``node_bounds`` (N, 2) f32 are then ignored.  Returns (gain, feature,
-    bin, default_left, GL, HL), each (N,), in ``split.ScanResult``'s order.
-    A launch the card refuses raises."""
+    ``node_bounds`` (N, 2) f32 are then ignored.  ``cat_mask`` (F,) bool on
+    the card selects the categorical scan (``params.max_cat_to_onehot`` is
+    read); ``dq`` = (comb (N, F, B, 2) f32, scale (2,) f32) with hist =
+    comb * scale (deterministic_histogram) makes its one-hot sums
+    fma(-comb, scale, total), as the reference's compiled program does.  Returns (gain, feature, bin, default_left, GL, HL), each (N,),
+    in ``split.ScanResult``'s order, and with a ``cat_mask`` also the (N, B)
+    bool ``cat_set``.  A launch the card refuses raises."""
     if not (hist.is_cuda and totals.is_cuda):
         raise ValueError("the split scan kernel needs CUDA tensors")
     if hist.dtype != torch.float32 or totals.dtype != torch.float32:
@@ -51,6 +56,23 @@ def split_scan_cuda(hist, totals, n_bins, params, feature_mask=None,
                              f"not match {N} nodes x {F} features")
         fm = fm.to(dev, torch.bool).contiguous()
         fm_rows = fm.shape[0]
+    cat = None
+    if cat_mask is not None:
+        if tuple(cat_mask.shape) != (F,) or cat_mask.device != dev:
+            raise ValueError(f"cat_mask must be ({F},) on {dev}")
+        cat = cat_mask.to(torch.uint8).contiguous()
+    comb = scale = None
+    if dq is not None:
+        if cat is None:
+            raise ValueError("dq is read by the categorical scan only")
+        comb, scale = dq
+        if tuple(comb.shape) != tuple(hist.shape) \
+                or comb.dtype != torch.float32 or comb.device != dev \
+                or tuple(scale.shape) != (2,) \
+                or scale.dtype != torch.float32 or scale.device != dev:
+            raise ValueError("dq must be (comb like hist, scale (2,)) f32 "
+                             f"on {dev}")
+        comb, scale = comb.contiguous(), scale.contiguous()
     bounds = None
     if mono is not None:
         if tuple(mono.shape) != (F,) or mono.dtype != torch.int32 \
@@ -64,6 +86,9 @@ def split_scan_cuda(hist, totals, n_bins, params, feature_mask=None,
            torch.empty(N, dtype=torch.bool, device=dev),
            torch.empty(N, dtype=torch.float32, device=dev),
            torch.empty(N, dtype=torch.float32, device=dev))
+    if cat is not None:
+        out = out + (torch.empty((N, B), dtype=torch.bool, device=dev),)
+    mode = 2 if cat is not None else 0 if mono is None else 1
 
     def ptr(t):
         return None if t is None else t.data_ptr()
@@ -73,9 +98,11 @@ def split_scan_cuda(hist, totals, n_bins, params, feature_mask=None,
     with torch.cuda.device(dev):
         rc = lib.xtb_split_scan(
             hist.data_ptr(), totals.data_ptr(), nb.data_ptr(), ptr(fm),
-            fm_rows, ptr(bounds), ptr(mono), N, F, B,
+            fm_rows, ptr(bounds), ptr(mono), ptr(cat),
+            int(params.max_cat_to_onehot), ptr(comb), ptr(scale), N, F, B,
             float(params.lambda_), float(params.alpha),
             float(params.min_child_weight), float(params.max_delta_step),
-            0 if mono is None else 1, *(ptr(t) for t in out), stream)
+            mode, *(ptr(t) for t in out[:6]),
+            ptr(out[6]) if cat is not None else None, stream)
     launched("split_scan", lib, rc)
     return out

@@ -45,6 +45,11 @@ class TrainParam:
     colsample_bynode: float = 1.0
     monotone_constraints: Optional[Tuple[int, ...]] = None
     interaction_constraints: Optional[Tuple[Tuple[int, ...], ...]] = None
+    # categorical splits: one-hot below this many categories, the sorted
+    # partition from it on (src/tree/param.h max_cat_to_onehot)
+    max_cat_to_onehot: int = 4
+    # accepted as the reference accepts it; no split code reads it
+    max_cat_threshold: int = 64
 
     @staticmethod
     def from_dict(params: Dict[str, Any]) -> "TrainParam":
@@ -96,17 +101,11 @@ class TrainParam:
                 "sampling_method must be 'uniform' or 'gradient_based'")
 
 
-def _truthy(v) -> bool:
-    return str(v).lower() in ("1", "true", "yes")
-
-
 def _is_default(key: str, v) -> bool:
     if key in ("num_parallel_tree", "num_target"):
         return float(v) == 1.0
     if key == "num_class":
         return int(v) == 0
-    if key == "enable_categorical":
-        return not _truthy(v)
     return {"booster": "gbtree", "tree_method": "hist",
             "multi_strategy": "one_output_per_tree",
             "process_type": "default", "n_devices": 1}[key] == v
@@ -115,8 +114,7 @@ def _is_default(key: str, v) -> bool:
 # parameters the port does not implement: at any value but their default
 # they raise NotImplementedError
 UNSUPPORTED = ("num_parallel_tree", "booster", "tree_method", "num_class",
-               "num_target", "multi_strategy", "process_type", "n_devices",
-               "enable_categorical")
+               "num_target", "multi_strategy", "process_type", "n_devices")
 
 
 def reject_unsupported(params: Dict[str, Any]) -> None:

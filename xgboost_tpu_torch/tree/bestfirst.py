@@ -13,7 +13,8 @@ elementwise rewrite of ``pos``), one histogram for both children (their
 ids are consecutive, so one launch of the level dispatcher covers them
 with ``node0`` = the left child, two nodes, stride 1: K1 on the card), and
 the split scan of the two (K3 on the card).  The host reads one pair
-(node, gain) per expansion, as the reference pops its queue.
+(node, gain) per expansion, as the reference pops its queue.  A
+categorical split routes by set membership, as the level grower's does.
 The state's tensors are updated in place.
 """
 from __future__ import annotations
@@ -61,9 +62,16 @@ class BFState:
     cand_lw: torch.Tensor  # (N,) f32 clipped child weights
     cand_rw: torch.Tensor  # (N,) f32
     n_nodes: int = 1  # table slots in use
+    # categorical splits (None without categorical features): the applied
+    # ones and each open leaf's candidate
+    is_cat: Optional[torch.Tensor] = None  # (N,) bool
+    cat_set: Optional[torch.Tensor] = None  # (N, B) bool, routed right
+    cand_is_cat: Optional[torch.Tensor] = None
+    cand_cat_set: Optional[torch.Tensor] = None
 
 
-def _init_state(gpair, valid, n_slots: int, n_sets: int) -> BFState:
+def _init_state(gpair, valid, n_slots: int, n_sets: int,
+                n_cat_bin: int = 0) -> BFState:
     dev = gpair.device
     pos = torch.where(valid, 0, -1).to(torch.int32)
     totals = torch.zeros((n_slots, 2), dtype=torch.float32, device=dev)
@@ -72,7 +80,7 @@ def _init_state(gpair, valid, n_slots: int, n_sets: int) -> BFState:
     def full(v, dtype):
         return torch.full((n_slots,), v, dtype=dtype, device=dev)
 
-    return BFState(
+    st = BFState(
         pos=pos, parent=full(-1, torch.int32), left=full(-1, torch.int32),
         right=full(-1, torch.int32), depth=full(0, torch.int32),
         feat=full(-1, torch.int64), sbin=full(0, torch.int64),
@@ -87,10 +95,18 @@ def _init_state(gpair, valid, n_slots: int, n_sets: int) -> BFState:
         cand_lsum=torch.zeros((n_slots, 2), dtype=torch.float32, device=dev),
         cand_rsum=torch.zeros((n_slots, 2), dtype=torch.float32, device=dev),
         cand_lw=full(0.0, torch.float32), cand_rw=full(0.0, torch.float32))
+    if n_cat_bin:
+        st.is_cat = full(False, torch.bool)
+        st.cand_is_cat = full(False, torch.bool)
+        st.cat_set = torch.zeros((n_slots, n_cat_bin), dtype=torch.bool,
+                                 device=dev)
+        st.cand_cat_set = torch.zeros_like(st.cat_set)
+    return st
 
 
 def _eval_nodes(st: BFState, hist, n_bins, feature_mask, set_matrix,
-                i0: int, n: int, params: SplitParams, max_depth: int) -> None:
+                cat_mask, i0: int, n: int, params: SplitParams,
+                max_depth: int) -> None:
     """Split candidates of the consecutive nodes [i0, i0 + n) from their
     histogram, in place."""
     ids = slice(i0, i0 + n)
@@ -102,7 +118,8 @@ def _eval_nodes(st: BFState, hist, n_bins, feature_mask, set_matrix,
                    & set_matrix[None, :, :]).any(dim=1)
         fm = allowed if fm is None else allowed & fm
     bounds = torch.stack([st.lower[ids], st.upper[ids]], dim=1)
-    best = evaluate_splits(hist, st.totals[ids], n_bins, params, fm, bounds)
+    best = evaluate_splits(hist, st.totals[ids], n_bins, params, fm, bounds,
+                           cat_mask)
     gain = best.gain
     if max_depth > 0:
         gain = torch.where(st.depth[ids] < max_depth, gain, -torch.inf)
@@ -114,6 +131,9 @@ def _eval_nodes(st: BFState, hist, n_bins, feature_mask, set_matrix,
     st.cand_rsum[ids] = best.right_sum
     st.cand_lw[ids] = best.left_weight
     st.cand_rw[ids] = best.right_weight
+    if st.cand_is_cat is not None:
+        st.cand_is_cat[ids] = best.is_cat
+        st.cand_cat_set[ids] = best.cat_set
 
 
 def _apply_split(st: BFState, bins, set_matrix, nid: int, l_id: int,
@@ -151,7 +171,13 @@ def _apply_split(st: BFState, bins, set_matrix, nid: int, l_id: int,
         st.upper[l_id] = torch.where(c_at > 0, mid, hi)
         st.upper[r_id] = torch.where(c_at < 0, mid, hi)
     binval = bins.index_select(1, fc.reshape(1))[:, 0].long()
-    goleft = torch.where(binval >= n_bin, dl, binval <= sb)
+    goleft = binval <= sb
+    if st.is_cat is not None:  # categorical: in the set goes right
+        st.is_cat[nid] = st.cand_is_cat[nid]
+        st.cat_set[nid] = st.cand_cat_set[nid]
+        in_set = st.cand_cat_set[nid][binval.clamp(0, n_bin - 1)]
+        goleft = torch.where(st.cand_is_cat[nid], ~in_set, goleft)
+    goleft = torch.where(binval >= n_bin, dl, goleft)
     child = torch.where(goleft, l_id, r_id).to(torch.int32)
     st.pos = torch.where(st.pos == nid, child, st.pos)
 
@@ -179,24 +205,31 @@ class BestFirstGrower:
         self.interaction_sets = interaction_sets
         self.n_slots = 2 * max_leaves  # any L-leaf binary tree: 2L-1 nodes
         self._setmat = {}  # (n_features, device) -> set matrix there
+        self._catmask = {}  # (mask bytes, device) -> cat mask there
 
-    # the interaction sets on the device, made once (as the level grower)
+    # the interaction sets and categorical mask on the device, made once
+    # (as the level grower)
     _set_matrix = HistTreeGrower._set_matrix
+    _cat_mask = HistTreeGrower._cat_mask
 
     def grow(self, bins, gpair, valid, cuts_pad, n_bins,
-             feature_masks: Optional[FeatureMasks] = None) -> BFState:
-        """bins (R_pad, F), gpair (R_pad, 2) f32, valid (R_pad,) bool."""
+             feature_masks: Optional[FeatureMasks] = None,
+             cat_mask=None) -> BFState:
+        """bins (R_pad, F), gpair (R_pad, 2) f32, valid (R_pad,) bool;
+        ``cat_mask`` (F,) numpy bool of the categorical features or None."""
         B = cuts_pad.shape[1]
         setmat = self._set_matrix(bins.shape[1], bins.device)
+        cm = self._cat_mask(cat_mask, bins.device)
         st = _init_state(gpair, valid, self.n_slots,
-                         1 if setmat is None else setmat.shape[0])
+                         1 if setmat is None else setmat.shape[0],
+                         0 if cm is None else B)
         p, md = self.params, self.max_depth
         # column sampling: a fresh bylevel/bynode draw per expansion (the
         # reference's ColumnSampler draws as nodes are created)
         fm = None if feature_masks is None else feature_masks(0, 1)
         hist = build_histogram(bins, gpair, st.pos, node0=0, n_nodes=1,
                                n_bin=B)
-        _eval_nodes(st, hist, n_bins, fm, setmat, 0, 1, p, md)
+        _eval_nodes(st, hist, n_bins, fm, setmat, cm, 0, 1, p, md)
         gamma_eps = max(p.gamma, _EPS)
         for _ in range(self.max_leaves - 1):
             nid, gain = _pick_best(st.cand_gain)
@@ -207,7 +240,7 @@ class BestFirstGrower:
             fm = None if feature_masks is None else feature_masks(0, 2)
             hist = build_histogram(bins, gpair, st.pos, node0=l_id,
                                    n_nodes=2, n_bin=B)
-            _eval_nodes(st, hist, n_bins, fm, setmat, l_id, 2, p, md)
+            _eval_nodes(st, hist, n_bins, fm, setmat, cm, l_id, 2, p, md)
             st.n_nodes += 2
         return st
 
@@ -233,6 +266,13 @@ class BestFirstGrower:
                                          sbin.clamp(max=B - 1).numpy()])
         leaf_val = torch.zeros(self.n_slots, dtype=torch.float32)
         leaf_val[:n] = torch.where(leaf, eta_w, 0.0)
+        split_type = np.zeros(n, np.int32)
+        cats = {}
+        if st.is_cat is not None:
+            is_cat, cat_set = host(st.is_cat).numpy(), host(st.cat_set).numpy()
+            split_type = is_cat.astype(np.int32)
+            for i in np.nonzero(is_cat & ~leaf.numpy())[0]:
+                cats[int(i)] = np.nonzero(cat_set[i])[0].astype(np.int32)
         tree = RegTree(
             left_children=left.numpy().astype(np.int32),
             right_children=right.numpy().astype(np.int32),
@@ -243,5 +283,7 @@ class BestFirstGrower:
             base_weights=w.numpy(),
             loss_changes=torch.where(leaf, 0.0, gain).numpy(),
             sum_hessian=totals[:, 1].numpy().copy(),
+            split_type=split_type,
+            categories=cats,
         )
         return tree, leaf_val.to(st.pos.device)

@@ -15,6 +15,11 @@ the card), the sibling subtraction runs on the limbs, and ``dequantise`` is
 the one rounding step before the split scan, so the trees do not depend on
 the order of any sum.
 
+With categorical features (``cat_mask``) the split scan is the categorical
+one (ops/split.py) and a categorical split routes a row by its bin's
+membership in the node's ``cat_set``: in the set goes right, the missing
+sentinel takes the default direction (common/categorical.h Decision).
+
 Everything in the level loop stays on the device: no value is read back to
 the host until the finished tree is copied out.  The state's tensors are
 updated in place, level after level.
@@ -29,7 +34,7 @@ import torch
 
 from ..ops.hist_cuda import build_histogram, build_histogram_q
 from ..ops.histogram import combine_sibling_hists, node_sums
-from ..ops.quantise import dequantise, prepare_quantised
+from ..ops.quantise import dequantise_parts, prepare_quantised
 from ..ops.split import (BestSplit, SplitParams, calc_weight,
                          evaluate_splits, monotone_vec)
 
@@ -56,6 +61,9 @@ class TreeState:
     upper: torch.Tensor  # (max_nodes,) f32 monotone weight upper bound
     setcompat: torch.Tensor  # (max_nodes, n_sets) bool interaction sets alive
     splits_left: torch.Tensor  # (1,) int32 remaining split budget
+    # categorical splits (None without categorical features)
+    is_cat: Optional[torch.Tensor] = None  # (max_nodes,) bool
+    cat_set: Optional[torch.Tensor] = None  # (max_nodes, B) bool, go right
 
 
 def max_nodes_for_depth(max_depth: int) -> int:
@@ -85,9 +93,10 @@ def make_set_matrix(interaction_sets, n_features: int) -> np.ndarray:
 
 
 def init_tree_state(gpair, valid, *, max_nodes: int, n_sets: int = 1,
-                    max_splits: int = 0) -> TreeState:
+                    max_splits: int = 0, n_cat_bin: int = 0) -> TreeState:
     """All valid rows at the root; root totals summed.  ``max_splits``: the
-    split budget (max_leaves - 1), 0 = unlimited."""
+    split budget (max_leaves - 1), 0 = unlimited.  ``n_cat_bin``: B for the
+    categorical split arrays, 0 without categorical features."""
     dev = gpair.device
     pos = torch.where(valid, 0, -1).to(torch.int32)
     totals = torch.zeros((max_nodes, 2), dtype=torch.float32, device=dev)
@@ -113,7 +122,10 @@ def init_tree_state(gpair, valid, *, max_nodes: int, n_sets: int = 1,
         upper=full(torch.inf),
         setcompat=torch.ones((max_nodes, n_sets), dtype=torch.bool,
                              device=dev),
-        splits_left=torch.full((1,), budget, dtype=torch.int32, device=dev))
+        splits_left=torch.full((1,), budget, dtype=torch.int32, device=dev),
+        is_cat=zeros(torch.bool) if n_cat_bin else None,
+        cat_set=(torch.zeros((max_nodes, n_cat_bin), dtype=torch.bool,
+                             device=dev) if n_cat_bin else None))
 
 
 def _children(left, right):
@@ -135,6 +147,9 @@ def _record_level(st: TreeState, best: BestSplit, sl: slice, can_split,
     st.gain[sl] = torch.where(can_split, best.gain, 0.0)
     st.base_weight[sl] = w
     st.sum_hess[sl] = totals_lvl[:, 1]
+    if st.is_cat is not None:
+        st.is_cat[sl] = can_split & best.is_cat
+        st.cat_set[sl] = best.cat_set & can_split[:, None]
     # children of level slots node0..node0+N-1 are 2*node0+1 .. 2*node0+2N
     ch = slice(2 * sl.start + 1, 2 * sl.stop + 1)
     st.alive[ch] = _children(can_split, can_split)
@@ -157,21 +172,28 @@ def _record_level(st: TreeState, best: BestSplit, sl: slice, can_split,
 
 
 def _update_positions(bins, pos, best: BestSplit, can_split, node0: int,
-                      N: int, B: int):
-    """Route rows of splitting nodes to their children."""
+                      N: int, B: int, has_cat: bool = False):
+    """Route rows of splitting nodes to their children: a numeric split
+    by bin <= the split bin, a categorical one by the bin not being in the
+    node's set."""
     local = pos.long() - node0
     in_lvl = (local >= 0) & (local < N)
     lc = local.clamp(0, N - 1)
     fr = best.feature[lc].clamp(0, bins.shape[1] - 1)
     binval = bins.gather(1, fr[:, None])[:, 0].long()
+    goleft_split = binval <= best.bin[lc]
+    if has_cat:
+        member = best.cat_set.reshape(-1)[lc * B + binval.clamp(0, B - 1)]
+        goleft_split = torch.where(best.is_cat[lc], ~member, goleft_split)
     goleft = torch.where(binval >= B, best.default_left[lc],
-                         binval <= best.bin[lc])  # sentinel B = missing
+                         goleft_split)  # sentinel B = missing
     child = 2 * pos + 1 + (~goleft).to(torch.int32)
     return torch.where(in_lvl & can_split[lc], child, pos)
 
 
 def level_step(state: TreeState, bins, gpair, cuts_pad, n_bins,
                feature_mask=None, set_matrix=None, hist_prev=None, rho=None,
+               cat_mask=None,
                *, depth: int, params: SplitParams, last_level: bool,
                subtract: bool = False, quantised: bool = False,
                budget: bool = False):
@@ -179,7 +201,8 @@ def level_step(state: TreeState, bins, gpair, cuts_pad, n_bins,
 
     ``feature_mask`` (1|N, F) bool (column sampling) and ``set_matrix``
     (n_sets, F) bool (interaction sets) restrict each node's candidate
-    features; None means no restriction.  ``budget`` spends
+    features; None means no restriction.  ``cat_mask`` (F,) bool on the
+    device marks the categorical features.  ``budget`` spends
     ``state.splits_left`` (max_leaves).  With ``quantised`` ``gpair`` is the
     (R, C, 3) int8 limb array and ``rho`` its (C,) scale.
 
@@ -214,7 +237,14 @@ def level_step(state: TreeState, bins, gpair, cuts_pad, n_bins,
         hist = combine_sibling_hists(left, hist_prev, alive_lvl)
     else:
         hist = build(bins, gpair, state.pos, node0=node0, n_nodes=N, n_bin=B)
-    hist_eval = dequantise(hist, rho) if quantised else hist
+    hist_eval, dq = hist, None
+    if quantised:
+        comb, scale = dequantise_parts(hist, rho)
+        hist_eval = comb * scale
+        if cat_mask is not None:
+            # the reference's compiled level fuses this product into the
+            # categorical scan's one-hot sums: the scan takes its factors
+            dq = (comb, scale)
 
     fmask, compat_lvl, member = feature_mask, None, None
     if set_matrix is not None:
@@ -225,7 +255,8 @@ def level_step(state: TreeState, bins, gpair, cuts_pad, n_bins,
         allowed = (compat_lvl[:, :, None] & set_matrix[None, :, :]).any(dim=1)
         fmask = allowed if fmask is None else allowed & fmask
     best = evaluate_splits(hist_eval, totals_lvl, n_bins, params, fmask,
-                           torch.stack([lower_lvl, upper_lvl], dim=1))
+                           torch.stack([lower_lvl, upper_lvl], dim=1),
+                           cat_mask, dq)
     can_split = alive_lvl & (best.gain > max(params.gamma, _EPS))
 
     new_budget = None
@@ -245,7 +276,7 @@ def level_step(state: TreeState, bins, gpair, cuts_pad, n_bins,
                   totals_lvl, compat_lvl, member, new_budget, lower_lvl,
                   upper_lvl, params)
     state.pos = _update_positions(bins, state.pos, best, can_split, node0, N,
-                                  B)
+                                  B, cat_mask is not None)
     return state, hist
 
 
@@ -268,6 +299,8 @@ class GrownTree(NamedTuple):
     gain: np.ndarray
     base_weight: np.ndarray
     sum_hess: np.ndarray
+    is_cat: Optional[np.ndarray] = None
+    cat_set: Optional[np.ndarray] = None
 
 
 # (depth, n_nodes) -> (1|n_nodes, F) bool: the column sampler's per-level
@@ -291,6 +324,7 @@ class HistTreeGrower:
         self.quantised = quantised
         self.max_nodes = max_nodes_for_depth(max_depth)
         self._setmat = {}  # (n_features, device) -> set matrix there
+        self._catmask = {}  # (mask bytes, device) -> cat mask there
 
     def _set_matrix(self, n_features: int, device):
         """The interaction sets on ``device``, made once; None without
@@ -303,14 +337,29 @@ class HistTreeGrower:
                 self.interaction_sets, n_features)).to(device)
         return self._setmat[key]
 
+    def _cat_mask(self, cat_mask, device):
+        """The (F,) categorical mask on ``device``, made once; None without
+        categorical features."""
+        if cat_mask is None or not np.any(cat_mask):
+            return None
+        cm = np.asarray(cat_mask, bool)
+        key = (cm.tobytes(), device)
+        if key not in self._catmask:
+            self._catmask[key] = torch.from_numpy(cm).to(device)
+        return self._catmask[key]
+
     def grow(self, bins, gpair, valid, cuts_pad, n_bins,
-             feature_masks: Optional[FeatureMasks] = None) -> TreeState:
-        """bins (R_pad, F), gpair (R_pad, 2) f32, valid (R_pad,) bool."""
+             feature_masks: Optional[FeatureMasks] = None,
+             cat_mask=None) -> TreeState:
+        """bins (R_pad, F), gpair (R_pad, 2) f32, valid (R_pad,) bool;
+        ``cat_mask`` (F,) numpy bool of the categorical features or None."""
         setmat = self._set_matrix(bins.shape[1], bins.device)
+        cm = self._cat_mask(cat_mask, bins.device)
         state = init_tree_state(
             gpair, valid, max_nodes=self.max_nodes,
             n_sets=1 if setmat is None else setmat.shape[0],
-            max_splits=self.max_leaves - 1 if self.max_leaves > 0 else 0)
+            max_splits=self.max_leaves - 1 if self.max_leaves > 0 else 0,
+            n_cat_bin=0 if cm is None else cuts_pad.shape[1])
         rho = None
         if self.quantised:
             gpair, rho, state = prepare_quantised(gpair, valid, state)
@@ -323,7 +372,7 @@ class HistTreeGrower:
                 else feature_masks(d, 1 << d)
             state, hist = level_step(
                 state, bins, gpair, cuts_pad, n_bins, fm, setmat, hist, rho,
-                depth=d, params=self.params, last_level=last,
+                cm, depth=d, params=self.params, last_level=last,
                 subtract=hist is not None, quantised=self.quantised,
                 budget=self.max_leaves > 0)
         return state
@@ -331,4 +380,5 @@ class HistTreeGrower:
     @staticmethod
     def to_host(state: TreeState) -> GrownTree:
         return GrownTree(**{f: getattr(state, f).cpu().numpy()
-                            for f in GrownTree._fields})
+                            for f in GrownTree._fields
+                            if getattr(state, f) is not None})
