@@ -26,9 +26,10 @@ holds each CUDA kernel against its plain PyTorch version:
      split_scan_plain, bitwise, at the six level shapes of a depth-6 round
      (N = 1 to 32 nodes x 28 features x 256 bins) and the best-first
      grower's N = 2, unconstrained and monotone, with ties, nodes without
-     a candidate, a dead slot and masked features; timings of the kernel,
-     the plain version, the cumsum formulation it replaced (the port's
-     scan before it) and the bound
+     a candidate, a dead slot and masked features; timings of the kernel
+     (per call with the host's launch, batched, and its device time per
+     launch from torch.profiler), the plain version, the cumsum
+     formulation it replaced (the port's scan before it) and the bound
   2e. K3's categorical mode vs plain: the split scan with a categorical
      mask (every feature in the reference's XLA formulation; categorical
      bins stably sorted by G/H; one-hot below max_cat_to_onehot; cat_set)
@@ -37,18 +38,24 @@ holds each CUDA kernel against its plain PyTorch version:
      categorical features of 100 categories with empty categories and ties
      in G/H), max_cat_to_onehot 4 (partition) and 128 (one-hot), from the
      histogram and from its limb form (deterministic_histogram); timings
-     of the kernel and the plain version, and the bound
-  2d. K4 vs plain: the sigmoid kernel (csrc/sigmoid.cu) against
+     of the kernel (per call, batched, device time per launch) and the
+     plain version, and the bound
+  2d. K4 vs plain: the sigmoid entry (csrc/sigmoid.cu) against
      sigmoid_f32 (XLA's f32 logistic as PyTorch operations), bitwise, on
      the main path's 1,000,448 margins with the f32 range's edges mixed in;
-     timings of the kernel, the plain version, torch.sigmoid (a yardstick
-     the port never calls) and the bound
+     timings of the kernel (per call, batched, device time per launch),
+     the plain version, torch.sigmoid (a yardstick the port never calls)
+     and the bound; then the gradient entry against
+     logistic_gradient_plain, bitwise, on the same margins with and
+     without weights and scale_pos_weight, timed as the sigmoid and beside
+     the port's gradient before it (K4's sigmoid and nine PyTorch ops)
   3. train: 1,000,000 x 28 HIGGS-shaped rows, binary:logistic, max_bin=256,
      max_depth=6, eta=0.3, 10 rounds, evaluated on the training set; K1
      and K3 launch 6 times per round and K2 never, K4 once for the base
      score and once per round (and once more per round for the evaluation)
   3b. profile: device time by kernel over two training rounds and the
-     card's idle share
+     card's idle share; every kernel one get_gradient call issues at the
+     main path's rows: one launch of K4's gradient entry
   3c. the same training with deterministic_histogram=1: K2 and K3 launch 6
      times per round and K1 never, and two runs write byte-identical models
   3d. profile of 3c
@@ -78,7 +85,9 @@ holds each CUDA kernel against its plain PyTorch version:
      10 rounds, on the f32 path and under deterministic_histogram=1: ingest
      seconds, K1/K2 and K3 launched 8 times a round, K4 as in phase 3,
      categorical splits > 0, training-set AUC > 0.90, the train loop's
-     median of 3 runs, a two-round profile of each; the card's model JSON
+     median of 3 runs, a two-round profile of each, the bound of one
+     round's histograms on this data (each launch's rows counted in one
+     more round); the card's model JSON
      reloads and predicts identically, and two deterministic runs write
      byte-identical JSON
   7b. card vs CPU on 20,000 rows of the same generator at depth 8: under
@@ -147,6 +156,50 @@ def cuda_ms(fn, reps: int = 20) -> float:
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def batched_ms(fn, reps: int = 20) -> float:
+    """``reps`` back-to-back calls between two CUDA events, over ``reps``."""
+    fn()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def device_per_call(fn, reps: int = 20):
+    """Device time and kernel launches of one call of ``fn``, from
+    torch.profiler over ``reps`` calls: (ms a call, launches a call,
+    {kernel: launches a call}).  The ms is the device time of the
+    launches the profiler saw over their number, times the launches a
+    call (it may miss the first); None where it saw no device time (not
+    measured)."""
+    from torch.profiler import DeviceType, ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us, count, kernels = 0.0, 0, {}
+    for r in prof.key_averages():
+        if r.device_type != DeviceType.CUDA:
+            continue
+        t = getattr(r, "self_device_time_total", None)
+        us += r.self_cuda_time_total if t is None else t
+        count += r.count
+        kernels[r.key[:60]] = kernels.get(r.key[:60], 0) + r.count
+    per_call = round(count / reps)
+    if not per_call:  # the profiler saw (almost) nothing
+        return None, 0, {}
+    return (us / 1e3 / count * per_call, per_call,
+            {k: round(n / reps, 2) for k, n in kernels.items()})
 
 
 def phase_device(hist_cuda):
@@ -660,6 +713,10 @@ def phase_split_scan(hist_cuda):
                 same_card &= torch.equal(c, b)
             kernel_ms = cuda_ms(lambda: split_scan_cuda(*args[:3], p,
                                                         *args[3:]))
+            kernel_batched = batched_ms(lambda: split_scan_cuda(
+                *args[:3], p, *args[3:]))
+            device_ms, _, _ = device_per_call(lambda: split_scan_cuda(
+                *args[:3], p, *args[3:]))
             plain_ms = cuda_ms(lambda: split_scan_plain(
                 *args[:3], p, args[3], args[4]), reps=5)
             cumsum_ms = (cuda_ms(lambda: _cumsum_scan(*args[:3], p, args[3]))
@@ -674,6 +731,7 @@ def phase_split_scan(hist_cuda):
             case = dict(kernel="split_scan", mode=mode, n_nodes=N, F=SCAN_F,
                         B=SCAN_B, bitwise=same, plain_on_card_bitwise=same_card,
                         max_abs_err=err, kernel_ms=kernel_ms,
+                        batched_ms=kernel_batched, device_ms=device_ms,
                         plain_ms=plain_ms, cumsum_scan_ms=cumsum_ms,
                         bound_ms=max(t_bytes, t_ops) * 1e3,
                         bound_by="bytes" if t_bytes >= t_ops else "operations")
@@ -685,11 +743,24 @@ def phase_split_scan(hist_cuda):
                              f"{bad}")
     lv = [c for c in cases if c["mode"] == "native"]
     log(f"phase 2c six-level sum (one depth-6 round's scans, unconstrained):"
-        f" kernel {sum(c['kernel_ms'] for c in lv):.4f} ms, cumsum "
+        f" kernel {sum(c['kernel_ms'] for c in lv):.4f} ms (batched "
+        f"{sum(c['batched_ms'] for c in lv):.4f}, device "
+        f"{_sum_device(lv)}), cumsum "
         f"formulation {sum(c['cumsum_scan_ms'] for c in lv):.4f} ms, plain "
         f"{sum(c['plain_ms'] for c in lv):.4f} ms, bound "
         f"{sum(c['bound_ms'] for c in lv):.4f} ms")
+    mv = [c for c in cases if c["mode"] == "monotone"]
+    log(f"phase 2c six-level sum, monotone: kernel "
+        f"{sum(c['kernel_ms'] for c in mv):.4f} ms (batched "
+        f"{sum(c['batched_ms'] for c in mv):.4f}, device {_sum_device(mv)})")
     return cases
+
+
+def _sum_device(cases) -> str:
+    """The cases' device ms summed, or "not measured"."""
+    if any(c["device_ms"] is None for c in cases):
+        return "not measured"
+    return f"{sum(c['device_ms'] for c in cases):.4f} ms"
 
 
 # ------------------------------------------------- K3, categorical mode
@@ -762,6 +833,10 @@ def phase_split_scan_cat():
                 n_cat = int(cm[want.feature].sum())
             kernel_ms = cuda_ms(lambda: split_scan_cuda(
                 *card[:3], p, card[3], None, None, card[4]))
+            kernel_batched = batched_ms(lambda: split_scan_cuda(
+                *card[:3], p, card[3], None, None, card[4]))
+            device_ms, _, _ = device_per_call(lambda: split_scan_cuda(
+                *card[:3], p, card[3], None, None, card[4]))
             plain_ms = cuda_ms(lambda: split_scan_plain(
                 *card[:3], p, card[3], None, card[4]), reps=5)
             # the histogram read once, totals, n_bins, mask and cat mask,
@@ -778,6 +853,7 @@ def phase_split_scan_cat():
                         B=CAT_B, categorical_features=CAT_F - CAT_NUM,
                         nodes_split_on_categorical=n_cat, bitwise=same,
                         max_abs_err=err, kernel_ms=kernel_ms,
+                        batched_ms=kernel_batched, device_ms=device_ms,
                         plain_ms=plain_ms,
                         bound_ms=max(t_bytes, t_ops) * 1e3,
                         bound_by="bytes" if t_bytes >= t_ops
@@ -790,7 +866,9 @@ def phase_split_scan_cat():
                              f"its plain version: {bad}")
     part = [c for c in cases if c["max_cat_to_onehot"] == 4]
     log(f"phase 2e seven-level sum (one depth-8 round's scans, partition): "
-        f"kernel {sum(c['kernel_ms'] for c in part):.4f} ms, plain "
+        f"kernel {sum(c['kernel_ms'] for c in part):.4f} ms (batched "
+        f"{sum(c['batched_ms'] for c in part):.4f}, device "
+        f"{_sum_device(part)}), plain "
         f"{sum(c['plain_ms'] for c in part):.4f} ms, bound "
         f"{sum(c['bound_ms'] for c in part):.4f} ms")
     return cases
@@ -809,50 +887,138 @@ def _sigmoid_launches(hist_cuda, rounds, evals):
     return want
 
 
-def phase_sigmoid(hist_cuda):
-    """K4 against its plain version, bitwise, on the main path's shape: the
-    margins of a logistic model, with the f32 range's edges (the clamps at
-    -104 and 88.8, overflow, infinities, NaN) mixed in."""
-    from xgboost_tpu_torch.ops.sigmoid_cuda import sigmoid_cuda
-    from xgboost_tpu_torch.utils.fp import sigmoid_f32
-
-    rng = np.random.default_rng(5)
-    x = (rng.normal(size=SIGMOID_N) * 4).astype(np.float32)
-    k = rng.choice(SIGMOID_N, size=SIGMOID_N // 8, replace=False)
+def _margins(n: int, seed: int = 5):
+    """The main path's margins of a logistic model, with the f32 range's
+    edges (the clamps at -104 and 88.8, overflow, infinities, NaN) mixed
+    in."""
+    rng = np.random.default_rng(seed)
+    x = (rng.normal(size=n) * 4).astype(np.float32)
+    k = rng.choice(n, size=n // 8, replace=False)
     x[k] = rng.uniform(-120, 120, size=k.size)
     edges = np.float32([0.0, -0.0, 1e-30, -1e-30, 88.37, -88.37, 88.8, -88.8,
                         89.0, -89.0, 104.0, -104.0, 105.0, -105.0, np.inf,
                         -np.inf, np.nan])
     x[:edges.size] = edges
-    x_cpu = torch.from_numpy(x)
+    return x
+
+
+def _same_bits(a, want) -> bool:
+    """Bitwise equal, NaN where ``want`` has NaN."""
+    nan = torch.isnan(want)
+    return bool(torch.equal(torch.isnan(a), nan) and torch.equal(
+        a[~nan].view(torch.int32), want[~nan].view(torch.int32)))
+
+
+def _parent_gradient(x, y, w, spw):
+    """The port's binary:logistic gradient before K4 took it whole: K4's
+    sigmoid and about nine PyTorch operations (a timing yardstick only)."""
+    from xgboost_tpu_torch.ops.sigmoid_cuda import sigmoid_cuda
+
+    p = sigmoid_cuda(x)
+    wp = torch.where(y == 1.0, spw, 1.0)
+    g, h = (p - y) * wp, torch.clamp(p * (1 - p), min=1e-16) * wp
+    if w is not None:
+        g, h = g * w, h * w
+    return torch.stack([g, h], dim=-1)[:, None, :].to(torch.float32)
+
+
+def phase_sigmoid(hist_cuda):
+    """K4's two entries against their plain versions, bitwise, on the main
+    path's shape: the sigmoid of the margins, and the binary:logistic
+    gradient pairs with and without weights and scale_pos_weight."""
+    from xgboost_tpu_torch.ops.sigmoid_cuda import (logistic_gradient_cuda,
+                                                    logistic_gradient_plain,
+                                                    sigmoid_cuda)
+    from xgboost_tpu_torch.utils.fp import sigmoid_f32
+
+    x_cpu = torch.from_numpy(_margins(SIGMOID_N))
     x_card = x_cpu.cuda()
     got = sigmoid_cuda(x_card).cpu()
     want = sigmoid_f32(x_cpu)
     on_card = sigmoid_f32(x_card).cpu()
     nan = torch.isnan(want)
-
-    def same(a):
-        return bool(torch.equal(torch.isnan(a), nan) and torch.equal(
-            a[~nan].view(torch.int32), want[~nan].view(torch.int32)))
-
     err = float((got[~nan] - want[~nan]).abs().max())
-    kernel_ms = cuda_ms(lambda: sigmoid_cuda(x_card))
-    plain_ms = cuda_ms(lambda: sigmoid_f32(x_card), reps=5)
-    library_ms = cuda_ms(lambda: torch.sigmoid(x_card))
     # each margin read once and each probability written once; about 30
     # f32 operations per element (nine multiply-adds, the clamps, scaling,
     # the division and the flushes)
     t_bytes = 8 * SIGMOID_N / HBM_BYTES_PER_S
     t_ops = 30 * SIGMOID_N / F32_FLOPS
-    case = dict(kernel="sigmoid", n=SIGMOID_N, bitwise=same(got),
-                plain_on_card_bitwise=same(on_card), max_abs_err=err,
-                kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+    case = dict(kernel="sigmoid", n=SIGMOID_N, bitwise=_same_bits(got, want),
+                plain_on_card_bitwise=_same_bits(on_card, want),
+                max_abs_err=err, kernel_ms=cuda_ms(lambda: sigmoid_cuda(x_card)),
+                batched_ms=batched_ms(lambda: sigmoid_cuda(x_card)),
+                device_ms=device_per_call(lambda: sigmoid_cuda(x_card))[0],
+                plain_ms=cuda_ms(lambda: sigmoid_f32(x_card), reps=5),
+                library_ms=cuda_ms(lambda: torch.sigmoid(x_card)),
+                library_batched_ms=batched_ms(lambda: torch.sigmoid(x_card)),
+                library_device_ms=device_per_call(
+                    lambda: torch.sigmoid(x_card))[0],
                 bound_ms=max(t_bytes, t_ops) * 1e3,
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
     log("phase 2d kernel vs plain: " + json.dumps(case))
-    if not case["bitwise"]:
-        raise AssertionError("sigmoid disagrees with its plain version")
-    return [case]
+    cases = [case]
+    rng = np.random.default_rng(6)
+    y_cpu = torch.from_numpy((rng.random(SIGMOID_N) < 0.4).astype(np.float32))
+    w_cpu = torch.from_numpy((rng.random(SIGMOID_N) + 0.01).astype(
+        np.float32))
+    y_card, w_card = y_cpu.cuda(), w_cpu.cuda()
+    for weighted, spw in ((False, 1.0), (True, 1.0), (True, 2.5)):
+        wc, wk = (w_cpu, w_card) if weighted else (None, None)
+        got = logistic_gradient_cuda(x_card, y_card, wk, spw).cpu()
+        want = logistic_gradient_plain(x_cpu, y_cpu, wc, spw)
+        nan = torch.isnan(want)
+        err = float((got[~nan] - want[~nan]).abs().max())
+
+        def kernel():
+            return logistic_gradient_cuda(x_card, y_card, wk, spw)
+        device_ms, n_kernels, _ = device_per_call(kernel)
+        _, parent_kernels, _ = device_per_call(
+            lambda: _parent_gradient(x_card, y_card, wk, spw))
+        # margin and label (and weight) read once, the pairs written once;
+        # about 40 f32 operations per element
+        t_bytes = (16 + 4 * weighted) * SIGMOID_N / HBM_BYTES_PER_S
+        t_ops = 40 * SIGMOID_N / F32_FLOPS
+        case = dict(kernel="logistic_grad", n=SIGMOID_N, weighted=weighted,
+                    scale_pos_weight=spw, bitwise=_same_bits(got, want),
+                    max_abs_err=err, kernel_ms=cuda_ms(kernel),
+                    batched_ms=batched_ms(kernel), device_ms=device_ms,
+                    launches_per_call=n_kernels,
+                    plain_ms=cuda_ms(lambda: logistic_gradient_plain(
+                        x_card, y_card, wk, spw), reps=5),
+                    parent_ms=cuda_ms(lambda: _parent_gradient(
+                        x_card, y_card, wk, spw)),
+                    parent_launches_per_call=parent_kernels,
+                    bound_ms=max(t_bytes, t_ops) * 1e3,
+                    bound_by="bytes" if t_bytes >= t_ops else "operations")
+        log("phase 2d kernel vs plain: " + json.dumps(case))
+        cases.append(case)
+    bad = [c for c in cases if not c["bitwise"]]
+    if bad:
+        raise AssertionError(f"K4 disagrees with its plain version: {bad}")
+    return cases
+
+
+def phase_gradient_profile(xtt):
+    """The main path's binary:logistic gradient is one launch of K4's
+    gradient entry: every kernel one get_gradient call issues, from
+    torch.profiler, at the main path's 1,000,448 rows."""
+    from xgboost_tpu_torch.objective import create_objective
+
+    rng = np.random.default_rng(7)
+    margin = torch.from_numpy(_margins(SIGMOID_N)[:, None]).cuda()
+    y = torch.from_numpy((rng.random(SIGMOID_N) < 0.4).astype(
+        np.float32)).cuda()
+    obj = create_objective("binary:logistic", {})
+    for _ in range(3):  # the profiler now and then sees no events at all
+        ms, n, kernels = device_per_call(
+            lambda: obj.get_gradient(margin, y, None))
+        if n:
+            break
+    log(f"phase 3b gradient: one get_gradient at {SIGMOID_N} rows issues "
+        f"{n:g} kernel(s), {ms} ms of device time: {kernels}")
+    if n != 1 or not all("logistic_grad" in k for k in kernels):
+        raise AssertionError(f"phase 3b: get_gradient issued {kernels}, want "
+                             "one launch of K4's gradient entry")
 
 
 # ------------------------------------------------------------- lossguide
@@ -957,6 +1123,41 @@ def make_criteo(n: int, seed: int = 7000):
     return X, y
 
 
+def _round_hist_bound(xtt, hist_cuda, dtrain, params, kernel, label):
+    """The bound of one round's histograms on this data: one round trained
+    with each launch's rows counted (the launch function wrapped), each
+    level's least bytes as phase 2 counts them (pos of every row, bins and
+    gradients of the level's rows, the histogram written once) at 3.35
+    TB/s, summed over the levels."""
+    name = "run_f32" if kernel == "hist_f32" else "run_q"
+    launch = getattr(hist_cuda, name)
+    levels = []
+
+    def counted(bins, vals, pos, plan, *, node0, n_nodes, n_bin, stride=1):
+        local = pos.long() - node0
+        n_in = int(((local >= 0) & (local % stride == 0)
+                    & (local // stride < n_nodes)).sum())
+        R, F = bins.shape
+        row_bytes = vals[0].numel() * vals.element_size()
+        cell_bytes = 8 if kernel == "hist_f32" else 4 * vals[0].numel()
+        levels.append((4 * R + n_in * (F * bins.element_size() + row_bytes)
+                       + n_nodes * F * n_bin * cell_bytes) / HBM_BYTES_PER_S)
+        return launch(bins, vals, pos, plan, node0=node0, n_nodes=n_nodes,
+                      n_bin=n_bin, stride=stride)
+
+    setattr(hist_cuda, name, counted)
+    try:
+        xtt.train(params, dtrain, 1, verbose_eval=False)
+    finally:
+        setattr(hist_cuda, name, launch)
+    bound_ms = sum(levels) * 1e3
+    log(f"phase {label} bound: one round's {len(levels)} histograms of "
+        f"{kernel} on this data move at least "
+        f"{bound_ms * 1e-3 * HBM_BYTES_PER_S / 1e6:.1f} MB, {bound_ms:.4f} ms "
+        "at 3.35 TB/s")
+    return bound_ms
+
+
 def phase_categorical(xtt, hist_cuda, rounds: int = 10):
     """The categorical slice at full width on both histogram paths."""
     X, y = make_criteo(1 << 20)
@@ -994,6 +1195,8 @@ def phase_categorical(xtt, hist_cuda, rounds: int = 10):
             f"{sum(int((t.left_children != -1).sum()) for t in r['bst'].trees)}"
             f"; two runs byte-identical: {same}")
         phase_profile(xtt, dtrain, params, f"{label} (categorical)")
+        r["bound_ms"] = _round_hist_bound(xtt, hist_cuda, dtrain, params,
+                                          kernel, label)
         out[kernel] = r
     bst = out["hist_f32"]["bst"]
     dtest = xtt.DMatrix(X[:100_000], feature_types=CRITEO_TYPES)
@@ -1125,6 +1328,7 @@ def main() -> int:
     X, y = make_data(1_000_000, 28)
     f32, dtrain = timed("3", phase_train, xtt, hist_cuda, X, y, 10)
     timed("3b", phase_profile, xtt, dtrain, BASE, "3b")
+    timed("3b gradient", phase_gradient_profile, xtt)
     det = timed("3c", phase_train_det, xtt, hist_cuda, dtrain, X.shape[0],
                 10, f32)
     timed("3d", phase_profile, xtt, dtrain, DET, "3d (deterministic)")

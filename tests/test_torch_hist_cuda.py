@@ -15,8 +15,10 @@ its categorical mode bitwise at the Criteo-shaped main path's levels (39
 features, 26 categorical, 128 bins), one-hot and partition, monotone or
 not, from the histogram or its limb form, and a categorical training on
 the card writing the CPU's model JSON.
-K4 (csrc/sigmoid.cu) held against its plain version bitwise over the f32
-range and its edges.  Every
+K3 also at widths past its chunks and levels, up to the widest it takes.
+K4 (csrc/sigmoid.cu) held against its plain versions bitwise over the f32
+range and its edges: the sigmoid, and the binary:logistic gradient pairs
+with and without weights and scale_pos_weight.  Every
 test here needs a CUDA device and skips without one; the file imports
 neither JAX nor xgboost_tpu, so it runs on a machine that has only
 PyTorch."""
@@ -447,6 +449,28 @@ def test_split_scan_matches_plain_bitwise(N, F, B, pi, monotone):
 
 
 @needs_cuda
+@pytest.mark.parametrize("monotone", [False, True])
+@pytest.mark.parametrize("B", [2, 16, 255, 257, 1024, 3500, 4100])
+def test_split_scan_takes_every_width(B, monotone):
+    """K3 bitwise at widths around its chunks and levels: one block of 16,
+    the 256-bin chunks of the native chain, the third level of the blocked
+    prefix past 256 bins and the fourth past 4096; the widest take fewer
+    warps than features."""
+    from xgboost_tpu_torch.ops.split import split_scan_plain
+
+    h, tot, nb, fm, bounds, mono, SP = _scan_case(3, 9, B, seed=B)
+    p = SP(eta=0.3, gamma=0.0, monotone=mono if monotone else None,
+           **K3_PARAMS[0])
+    want = split_scan_plain(h, tot, nb, p, fm, bounds)
+    got = _k3(h, tot, nb, p, fm, bounds)
+    for name, a, b in zip(want._fields, got, want):
+        a = a.cpu()
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        assert torch.equal(a, b), (name, a, b)
+
+
+@needs_cuda
 def test_split_scan_rejects_what_it_cannot_take():
     h, tot, nb, fm, bounds, mono, SP = _scan_case(4, 5, 16, seed=0)
     p = SP(eta=0.3, gamma=0.0, min_child_weight=1.0, lambda_=1.0, alpha=0.0,
@@ -466,10 +490,11 @@ def test_split_scan_rejects_what_it_cannot_take():
 
 @needs_cuda
 def test_refused_split_scan_launch_raises_and_clears_the_error():
-    """A histogram of 8192 bins asks K3 for more shared memory than a block
-    may have; the card refuses, the wrapper raises and counts no launch, and
-    the runtime's error state is cleared, so the next K1 launch runs."""
-    h, tot, nb, _, _, _, SP = _scan_case(1, 1, 8192, seed=4)
+    """A histogram of 32768 bins asks K3 for more shared memory than a
+    block may have, even with one warp; the card refuses, the wrapper
+    raises and counts no launch, and the runtime's error state is cleared,
+    so the next K1 launch runs."""
+    h, tot, nb, _, _, _, SP = _scan_case(1, 1, 32768, seed=4)
     p = SP(eta=0.3, gamma=0.0, min_child_weight=1.0, lambda_=1.0, alpha=0.0,
            max_delta_step=0.0)
     before = dict(hist_cuda.launches)
@@ -521,10 +546,11 @@ def _cat_scan_case(N, F, B, seed, n_cat):
 
 
 # the depth-8 levels of the Criteo-shaped main path (39 features, 26 of
-# them categorical, 128 bins), the best-first grower's two nodes, and small
-# and wide odd shapes
+# them categorical, 128 bins), the best-first grower's two nodes, small and
+# wide odd shapes, and the widest the scan took with 8 warps a block
 K3_CAT_SHAPES = [(1, 39, 128, 26), (8, 39, 128, 26), (64, 39, 128, 26),
-                 (2, 39, 128, 26), (3, 5, 17, 3), (2, 3, 300, 2)]
+                 (2, 39, 128, 26), (3, 5, 17, 3), (2, 3, 300, 2),
+                 (2, 3, 1450, 2)]
 
 
 @needs_cuda
@@ -567,9 +593,10 @@ def test_categorical_split_scan_matches_plain_bitwise(N, F, B, n_cat, onehot,
 
 @needs_cuda
 def test_refused_categorical_scan_raises():
-    """8192 bins ask the categorical mode for more shared memory than a
-    block may have: the wrapper raises and counts no launch."""
-    h, tot, nb, cm, _, _, _, _ = _cat_scan_case(1, 2, 8192, 0, 1)
+    """16384 bins ask the categorical mode for more shared memory than a
+    block may have, even with one warp: the wrapper raises and counts no
+    launch."""
+    h, tot, nb, cm, _, _, _, _ = _cat_scan_case(1, 2, 16384, 0, 1)
     from xgboost_tpu_torch.ops.split import SplitParams
 
     p = SplitParams(eta=0.3, gamma=0.0, min_child_weight=1.0, lambda_=1.0,
@@ -664,3 +691,48 @@ def test_sigmoid_rejects_what_it_cannot_take():
     before = hist_cuda.launches["sigmoid"]
     assert sigmoid_cuda(torch.zeros(0, device="cuda")).shape == (0,)
     assert hist_cuda.launches["sigmoid"] == before  # nothing to launch
+
+
+@needs_cuda
+@pytest.mark.parametrize("spw", [1.0, 2.5])
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("n,offset", [(1, 0), (33, 0), (1 << 16, 0),
+                                      (1 << 16, 1)])
+def test_logistic_gradient_matches_plain_bitwise(n, offset, weighted, spw):
+    """K4's gradient entry against logistic_gradient_plain, bitwise, over
+    margins at the f32 range's edges, labels 0, 1 and between, weights
+    with subnormal products; ``offset`` 1 gives inputs that are not
+    16-byte aligned (the scalar path).  One launch counted per call."""
+    from xgboost_tpu_torch.ops.sigmoid_cuda import (logistic_gradient_cuda,
+                                                    logistic_gradient_plain)
+
+    x = _sigmoid_inputs(n)[offset:]
+    rng = np.random.default_rng(n)
+    y = torch.from_numpy((rng.random(x.numel()) < 0.4).astype(np.float32))
+    y[:3] = torch.tensor([0.5, 1e-40, 2.0])
+    w = torch.from_numpy(rng.random(x.numel()).astype(np.float32) + 0.01)
+    w[:2] = torch.tensor([1e-39, 3e38])
+    wt = w if weighted else None
+    want = logistic_gradient_plain(x, y, wt, spw)
+    before = hist_cuda.launches["sigmoid"]
+    got = logistic_gradient_cuda(x.cuda(), y.cuda(),
+                                 None if wt is None else wt.cuda(), spw).cpu()
+    assert hist_cuda.launches["sigmoid"] == before + 1
+    assert got.shape == want.shape == (x.numel(), 1, 2)
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan)
+    assert torch.equal(got[~nan].view(torch.int32),
+                       want[~nan].view(torch.int32))
+
+
+@needs_cuda
+def test_logistic_gradient_rejects_what_it_cannot_take():
+    from xgboost_tpu_torch.ops.sigmoid_cuda import logistic_gradient_cuda
+
+    x = torch.zeros(8, device="cuda")
+    with pytest.raises(ValueError, match="CUDA"):
+        logistic_gradient_cuda(x.cpu(), x.cpu())
+    with pytest.raises(TypeError):
+        logistic_gradient_cuda(x.double(), x)
+    with pytest.raises(ValueError):
+        logistic_gradient_cuda(x, x[:4])

@@ -58,3 +58,64 @@ def test_init_estimation_and_links(name):
 def test_unknown_objective_is_not_implemented():
     with pytest.raises(NotImplementedError, match="multi:softprob"):
         create_objective("multi:softprob", {})
+
+
+def _logistic_inputs(R=100_000, seed=3):
+    """Margins across the f32 range and at its edges (the exponential's
+    clamps, overflow, infinities, NaN, subnormals), labels 0 and 1 with a
+    few others (between, above, subnormal), weights with products that
+    fall below the smallest normal f32."""
+    rng = np.random.default_rng(seed)
+    m = (rng.normal(size=R) * 4).astype(np.float32)
+    m[: R // 4] = rng.uniform(-120, 120, R // 4)
+    edges = np.float32([0.0, -0.0, 1e-30, -1e-30, 1e-45, 88.37, -88.37,
+                        88.8, -88.8, 89.0, -89.0, 104.0, -104.0, 105.0,
+                        -105.0, 3.4e38, -3.4e38, np.inf, -np.inf, np.nan])
+    m[:edges.size] = edges
+    y = (rng.random(R) < 0.4).astype(np.float32)
+    y[:4] = [0.5, 2.0, 1e-40, -1e-40]
+    w = (rng.random(R) + 0.01).astype(np.float32)
+    w[:3] = [1e-39, 3e38, 0.0]
+    return m, y, w
+
+
+@pytest.mark.parametrize("spw", [1.0, 2.0, 0.37])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_logistic_gradient_plain_is_the_references_bits(weighted, spw):
+    """K4's plain gradient entry against the reference's binary:logistic
+    get_gradient, bitwise (NaN where it has NaN), with and without weights
+    and scale_pos_weight, with margins at the f32 range's edges."""
+    from xgboost_tpu_torch.ops.sigmoid_cuda import logistic_gradient_plain
+
+    m, y, w = _logistic_inputs()
+    ref = np.asarray(ref_create("binary:logistic",
+                                {"scale_pos_weight": spw}).get_gradient(
+        jnp.asarray(m[:, None]), jnp.asarray(y),
+        jnp.asarray(w) if weighted else None))
+    got = logistic_gradient_plain(torch.from_numpy(m), torch.from_numpy(y),
+                                  torch.from_numpy(w) if weighted else None,
+                                  spw).numpy()
+    assert got.shape == ref.shape == (m.size, 1, 2)
+    assert got.dtype == np.float32
+    nan = np.isnan(ref)
+    np.testing.assert_array_equal(np.isnan(got), nan)
+    np.testing.assert_array_equal(got[~nan].view(np.uint32),
+                                  ref[~nan].view(np.uint32))
+
+
+def test_logistic_dispatch_takes_plain_version_on_cpu():
+    """binary:logistic's get_gradient on CPU tensors is the plain version
+    and launches no kernel; K4's gradient entry refuses CPU tensors."""
+    from xgboost_tpu_torch.ops import hist_cuda
+    from xgboost_tpu_torch.ops.sigmoid_cuda import (logistic_gradient_cuda,
+                                                    logistic_gradient_plain)
+
+    m, y, w = (torch.from_numpy(a) for a in _logistic_inputs(R=1000))
+    obj = create_objective("binary:logistic", {"scale_pos_weight": 2.0})
+    before = dict(hist_cuda.launches)
+    got = obj.get_gradient(m[:, None], y, w)
+    assert hist_cuda.launches == before
+    want = logistic_gradient_plain(m, y, w, 2.0)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    with pytest.raises(ValueError, match="CUDA"):
+        logistic_gradient_cuda(m, y, w, 2.0)

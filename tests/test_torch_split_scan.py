@@ -13,7 +13,12 @@ K3, csrc/split_scan.cu):
   and ``sigmoid_f32`` against XLA's exp and jax.nn.sigmoid (exp on every
   f32 of its range's edges), ``sum_f32`` against jnp.sum;
 - the dispatchers of K3 and K4 (ops/split_cuda.py, ops/sigmoid_cuda.py)
-  take the plain versions on CPU tensors and launch nothing."""
+  take the plain versions on CPU tensors and launch nothing;
+- what K3's design relies on: its lanes' order of the blocked prefix
+  (blocks of 16 from 0.0, the totals one level up, the exclusive prefixes
+  added from the top down) against ``prefix_blocked`` and jnp.cumsum, and
+  the answer's independence from how the features are grouped over warps
+  and blocks, in all three modes."""
 import ctypes
 import ctypes.util
 
@@ -224,3 +229,149 @@ def test_split_dispatch_takes_plain_version_on_cpu():
     assert hist_cuda.launches == before
     with pytest.raises(ValueError, match="CUDA"):
         split_scan_cuda(*args, p)
+
+
+# ------------------------------------------- what K3's design relies on
+def _lane_prefix(x):
+    """K3's blocked prefix (modes 1 and 2) as its lanes compute it, in f32
+    numpy over rows: lane j sums block j of 16 values from 0.0 (zero
+    padding past the end), the block totals go to the level above, until
+    a level holds at most 16 values, which one lane sums in order; then,
+    from the top down, each block's exclusive prefix (0.0 for the first)
+    is added to the block."""
+    with np.errstate(invalid="ignore"):  # inf - inf in the sums
+        return _lane_levels(x)
+
+
+def _lane_levels(x):
+    levels = [x.astype(np.float32).copy()]
+    while levels[-1].shape[1] > 16:
+        a = levels[-1]
+        n = a.shape[1]
+        tot = np.zeros((a.shape[0], -(-n // 16)), np.float32)
+        for j in range(tot.shape[1]):  # lane j
+            s = np.zeros(a.shape[0], np.float32)
+            for i in range(16 * j, 16 * j + 16):
+                s = s + (a[:, i] if i < n else np.float32(0.0))
+                if i < n:
+                    a[:, i] = s
+            tot[:, j] = s
+        levels.append(tot)
+    top = levels[-1]
+    s = np.zeros(top.shape[0], np.float32)
+    for i in range(top.shape[1]):
+        s = s + top[:, i]
+        top[:, i] = s
+    for a, up in zip(levels[-2::-1], levels[:0:-1]):
+        for i in range(a.shape[1]):
+            e = up[:, i // 16 - 1] if i >= 16 else np.float32(0.0)
+            a[:, i] = a[:, i] + e
+    return levels[0]
+
+
+def _same_bits_or_nan(a, b):
+    a, b = np.asarray(a, np.float32), np.asarray(b, np.float32)
+    nan = np.isnan(b)
+    np.testing.assert_array_equal(np.isnan(a), nan)
+    np.testing.assert_array_equal(a[~nan].view(np.uint32),
+                                  b[~nan].view(np.uint32))
+
+
+@pytest.mark.parametrize("B", [2, 15, 16, 17, 255, 256, 257, 300, 1024,
+                               4096, 4100])
+def test_lane_decomposition_of_the_blocked_prefix(B):
+    """The lanes' order of K3's blocked prefix is prefix_blocked's and
+    jnp.cumsum's on XLA's CPU, bitwise, with -0.0, +-inf and ties in the
+    input and a third level past 256 values (a fourth past 4096)."""
+    rng = np.random.default_rng(B)
+    x = (rng.normal(size=(3, B)) * rng.random((3, B)) * 100).astype(
+        np.float32)
+    x[:, 1::3] = x[:, ::3][:, : len(range(1, B, 3))]  # ties
+    x[0, ::5] = -0.0
+    x[1, :] = -0.0
+    x[2, B // 2] = np.inf
+    x[2, B // 3] = -np.inf if B > 2 else x[2, 0]
+    got = _lane_prefix(x)
+    _same_bits_or_nan(got, prefix_blocked(torch.from_numpy(x)).numpy())
+    _same_bits_or_nan(got, np.asarray(
+        jax.jit(lambda v: jnp.cumsum(v, axis=-1))(x)))
+
+
+def _grouping_case(mode, seed):
+    """A level's inputs with cross-feature ties placed on purpose: every
+    odd feature repeats the even one before it, and odd bins repeat even
+    ones, so that equal gains compete within and across features."""
+    rng = np.random.default_rng(seed)
+    N, F, B = 6, 8, 40
+    h = rng.normal(size=(N, F, B, 2)).astype(np.float32)
+    h[..., 1] = np.abs(h[..., 1]) * 2
+    h[:, :, 1::2] = h[:, :, ::2]
+    h[:, 1::2] = h[:, ::2]
+    nb = rng.integers(B // 2, B + 1, size=F).astype(np.int32)
+    nb[1::2] = nb[::2]
+    for f in range(F):
+        h[:, f, nb[f]:] = 0.0
+    tot = (h[:, 0].sum(1) * np.float32(1.05)).astype(np.float32)
+    h[0, :, :, 1] = 1e-4  # no candidate at node 0
+    tot[0, 1] = np.float32(B * 1e-4 + 1e-3)
+    cm = None
+    mono = None
+    if mode == "monotone":
+        mono = tuple(int(c) for c in rng.integers(-1, 2, size=F))
+    if mode == "categorical":
+        cm = np.zeros(F, bool)
+        cm[4:] = True
+        nb[6:] = 3  # one-hot below max_cat_to_onehot
+        h[:, 6:, 3:] = 0.0
+    bounds = np.stack([rng.normal(size=N) - 1.5, rng.normal(size=N) + 1.5],
+                      1).astype(np.float32)
+    T = torch.from_numpy
+    return (T(h), T(tot), T(nb), T(bounds), None if cm is None else T(cm),
+            SplitParams(**PARAMS[0], monotone=mono))
+
+
+@pytest.mark.parametrize("mode", ["native", "monotone", "categorical"])
+def test_answer_does_not_depend_on_the_grouping_of_the_reduction(mode):
+    """K3's warps may group the features in any way: the plain scan run
+    with one feature allowed at a time, its per-feature candidates reduced
+    by (gain desc, flat index asc) in random groupings, gives the
+    all-features answer wherever a candidate exists, bitwise (cat_set
+    too), with cross-feature ties placed on purpose."""
+    from xgboost_tpu_torch.ops.split import split_scan_plain
+
+    h, tot, nb, bounds, cm, p = _grouping_case(mode, seed=len(mode))
+    N, F, B, _ = h.shape
+    full = split_scan_plain(h, tot, nb, p, None, bounds, cm)
+    per_feature = []
+    for f in range(F):
+        only = torch.zeros(F, dtype=torch.bool)
+        only[f] = True
+        per_feature.append(split_scan_plain(h, tot, nb, p, only, bounds, cm))
+    rng = np.random.default_rng(0)
+    has = full.gain > -torch.inf
+    assert has.sum() >= N - 1
+    ties = 0
+    for n in range(N):
+        if not has[n]:
+            continue
+        cands = [(float(r.gain[n]), int(r.feature[n]) * B + int(r.bin[n]), r)
+                 for r in per_feature if r.gain[n] > -torch.inf]
+        ties += len(cands) - len({c[0] for c in cands})
+
+        def best_of(group):
+            return min(group, key=lambda c: (-c[0], c[1]))
+        for _ in range(8):  # random groupings, reduced in random order
+            order = rng.permutation(len(cands))
+            cuts = np.sort(rng.choice(np.arange(1, len(cands)),
+                                      size=rng.integers(0, len(cands)),
+                                      replace=False))
+            groups = np.split(order, cuts)
+            bests = [best_of([cands[i] for i in g]) for g in groups]
+            rng.shuffle(bests)
+            got = best_of(bests)[2]
+            for name in full._fields:
+                a, b = getattr(got, name), getattr(full, name)
+                if b is None:
+                    continue
+                _bits_equal(a[n].numpy(), b[n].numpy())
+    assert ties > 0  # the ties were placed where the reduction meets them

@@ -40,42 +40,65 @@
 //   - cat_set[n, b], the categories routed right: the chosen bin of a
 //     one-hot split, the bins ranked after the chosen position of a
 //     partition (all zero where the best feature is numeric).
-// The sort is a rank count in shared memory: bin b's rank is the number of
-// bins whose key is lower, or equal with a lower index, so equal keys keep
-// their bin order (stable).  Keys compare as JAX's sort compares floats:
-// -0 as +0, NaN after +inf.  A row has at most a few hundred bins, so its
-// B x B comparisons stay in the warp's shared memory: no key tensor in
-// device memory and no sort launch beside the scan.  After the block's
-// best is known, its threads rank the chosen feature's bins again to
-// write cat_set, so no rank leaves the block.
+// The sort is a bitonic sort, by one warp in its shared memory, of the
+// 64-bit words (key << 32 | bin): the bin breaks ties, so equal keys keep
+// their bin order, the permutation of a stable sort.  Keys compare as
+// JAX's sort compares floats: -0 as +0, NaN after +inf.
 //
 // Bound on an H100 SXM (3.35 TB/s): the histogram is read once, 8 bytes a
 // (node, feature, bin), and about 30 f32 operations are done on each; at a
 // depth-6 level (32 nodes x 28 features x 256 bins) that is 1.8 MB, about
 // 0.55 us; at the Criteo-shaped depth-8 level of mode 2 (64 x 39 x 128)
-// 2.6 MB, about 0.76 us.  What holds it above that bound is the
-// sequential prefix: each (node, feature) is a chain of B dependent adds.
+// 2.6 MB, about 0.76 us.  What holds it above that bound is the order of
+// the sums: mode 0's prefix is a chain of B dependent adds for every
+// (node, feature).
 //
-// Design.  One block per node, one warp per feature at a time.  The warp
-// copies the feature's B (g, h) pairs into its shared-memory row with
-// coalesced loads (mode 2: sorted through the ranks into a second row);
-// lane 0 turns the row into its prefix sums in place, in
-// the mode's order (the one sequential part); then the 32 lanes score the
-// bins in parallel (the scoring of a bin does not depend on any other),
-// each keeping its first best, and a shuffle reduction picks the warp's
-// first best (higher gain, then lower flat index).  The warps of the block
-// then reduce their bests the same way, and thread 0 writes the node's
-// answer, with the reference's answers where no candidate exists.
+// Design.  One warp per feature, and a thread block cluster of G blocks
+// (at most 8, of about 8 warps each, fewer where the shared memory is
+// short) per node, so that a node's features spread over G SMs and a
+// warp takes ceil(F / (G W)) features.  A warp copies its feature's B
+// (g, h) pairs into a shared-memory row with coalesced loads; the row
+// leaves one spare pair after every 16, so that lanes working on
+// neighbouring blocks of 16 meet no bank conflict.  Mode 2 sorts a
+// categorical feature's bins first.  The prefix is spread over the lanes:
+//   - mode 0, the one chain: each lane takes 8 consecutive bins into
+//     registers; the running sum passes from lane to lane by shuffles and
+//     each lane adds its own bins in order (B dependent register adds and
+//     B / 8 shuffles);
+//   - modes 1 and 2, XLA's blocks: lane j sums block j of 16 bins from
+//     0.0; the block totals go to a level above, scanned the same way
+//     (recursively, until a level holds at most 16 values, which one lane
+//     sums in order); then every level adds each block's exclusive prefix
+//     (0.0 for the first) to the block, from the top down.
+// Then the 32 lanes score the bins in parallel (the scoring of a bin does
+// not depend on any other), each keeping its first best, and a shuffle
+// reduction picks the warp's first best (higher gain, then lower flat
+// index f * B + b).  That order is total, so the reduction of the warps'
+// bests gives the same answer however the features were grouped: every
+// warp reads the cluster's warps' bests through distributed shared
+// memory; warp 0 of the first block writes the node's answer (with the
+// reference's answers where no candidate exists) and, in mode 2, the warp
+// that scanned the chosen feature writes cat_set from the order it still
+// holds.  One launch, no scratch in device memory.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <atomic>
+
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kWarps = 8;
+constexpr int kMaxWarps = 32;
+constexpr int kBlockWarps = 8;  // warps a block aims at: features per SM
+constexpr int kMaxCluster = 8;  // the portable cluster limit
 constexpr int kScanBlock = 16;  // XLA's CPU scan block
-constexpr int kMaxLevels = 8;   // blocked scans of up to 16^8 bins
+constexpr int kChainBins = 8;   // mode 0: bins a lane holds at a time
+constexpr int kMaxDevices = 64;
 constexpr float kEps = 1e-6f;
+constexpr unsigned kFull = 0xffffffffu;
 
 struct Params {
   float lambda_, alpha, mcw, mds;
@@ -94,12 +117,54 @@ __device__ __forceinline__ bool better(const Cand& a, const Cand& b) {
 
 __device__ __forceinline__ Cand shfl_down(const Cand& c, int off) {
   Cand o;
-  o.gain = __shfl_down_sync(0xffffffffu, c.gain, off);
-  o.idx = __shfl_down_sync(0xffffffffu, c.idx, off);
-  o.dl = __shfl_down_sync(0xffffffffu, c.dl, off);
-  o.GL = __shfl_down_sync(0xffffffffu, c.GL, off);
-  o.HL = __shfl_down_sync(0xffffffffu, c.HL, off);
+  o.gain = __shfl_down_sync(kFull, c.gain, off);
+  o.idx = __shfl_down_sync(kFull, c.idx, off);
+  o.dl = __shfl_down_sync(kFull, c.dl, off);
+  o.GL = __shfl_down_sync(kFull, c.GL, off);
+  o.HL = __shfl_down_sync(kFull, c.HL, off);
   return o;
+}
+
+// lane 0 ends with the warp's best of the lanes' candidates
+__device__ __forceinline__ Cand warp_best_of(Cand c) {
+  for (int off = 16; off > 0; off /= 2) {
+    const Cand o = shfl_down(c, off);
+    if (better(o, c)) c = o;
+  }
+  return c;
+}
+
+// ---- the shared-memory layout of a warp, in float2 units
+// a row of n pairs with one spare pair after every 16
+__host__ __device__ __forceinline__ int pad(int i) { return i + (i >> 4); }
+__host__ __device__ __forceinline__ int padded_len(int n) {
+  return n + (n >> 4) + 1;
+}
+
+// the levels above the row in the blocked prefix: one total per block of
+// the level below, while the level below holds more than one block
+__host__ __device__ __forceinline__ int scan_levels_len(int B) {
+  int len = 0;
+  for (int n = B; n > kScanBlock;) {
+    n = (n + kScanBlock - 1) / kScanBlock;
+    len += padded_len(n);
+  }
+  return len;
+}
+
+__host__ __device__ __forceinline__ int pow2_at_least(int n) {
+  int p = 1;
+  while (p < n) p <<= 1;
+  return p;
+}
+
+// a warp's words: the row; modes 1 and 2 the levels; mode 2 the raw bins
+// and the sort's 64-bit words
+__host__ __device__ __forceinline__ int warp_words(int mode, int B) {
+  int w = padded_len(B);
+  if (mode >= 1) w += scan_levels_len(B);
+  if (mode == 2) w += B + pow2_at_least(B);
+  return w;
 }
 
 // ---- mode 0: xtb_calc_gain (native/xtb_kernels.h:637)
@@ -174,55 +239,158 @@ __device__ __forceinline__ uint32_t cat_key(float2 gh) {
   return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
 }
 
-// The rank of bin b among keys[0..n): the stable sort's position.
-__device__ __forceinline__ int cat_rank(const uint32_t* keys, int n, int b) {
-  const uint32_t kb = keys[b];
-  int r = 0;
-  for (int j = 0; j < n; ++j) {
-    const uint32_t kj = keys[j];
-    r += (kj < kb) || (kj == kb && j < b);
-  }
-  return r;
-}
-
-// In place: row[0..n) (g, h) pairs -> their prefix sums in XLA's blocked
-// order (in-block running sums; each completed block's total pushed to the
-// level above, whose answer is the next block's exclusive prefix).
-__device__ void prefix_blocked(float2* row, int n) {
-  int top = 0;
-  for (int m = n; m > kScanBlock; m = (m + kScanBlock - 1) / kScanBlock)
-    ++top;
-  float2 s[kMaxLevels], e[kMaxLevels];
-  int cnt[kMaxLevels];
-  for (int l = 0; l < kMaxLevels; ++l) {
-    s[l] = make_float2(0.0f, 0.0f);
-    e[l] = make_float2(0.0f, 0.0f);
-    cnt[l] = 0;
-  }
-  for (int i = 0; i < n; ++i) {
-    float2 v = row[i];
-    for (int l = 0;; ++l) {
-      s[l].x = s[l].x + v.x;
-      s[l].y = s[l].y + v.y;
-      float2 out = s[l];
-      if (l < top) {
-        out.x = s[l].x + e[l].x;
-        out.y = s[l].y + e[l].y;
-      }
-      if (l == 0) {
-        row[i] = out;
-      } else {  // the block below completed: its next exclusive prefix
-        e[l - 1] = out;
-        s[l - 1] = make_float2(0.0f, 0.0f);
-        cnt[l - 1] = 0;
-      }
-      if (l == top || ++cnt[l] < kScanBlock) break;
-      v = s[l];
+// The warp copies a feature's B pairs from device memory to dst[at(b)],
+// 8 loads a lane in flight before the first store.
+template <typename At>
+__device__ __forceinline__ void copy_row(const float2* __restrict__ src,
+                                         float2* dst, int B, int lane,
+                                         At at) {
+  for (int c0 = 0; c0 < B; c0 += 32 * kChainBins) {
+    float2 v[kChainBins];
+#pragma unroll
+    for (int k = 0; k < kChainBins; ++k) {
+      const int b = c0 + 32 * k + lane;
+      v[k] = b < B ? src[b] : make_float2(0.0f, 0.0f);
+    }
+#pragma unroll
+    for (int k = 0; k < kChainBins; ++k) {
+      const int b = c0 + 32 * k + lane;
+      if (b < B) dst[at(b)] = v[k];
     }
   }
 }
 
-__global__ void __launch_bounds__(kWarps * 32)
+// The warp sorts the bins of one feature, raw[0..B) in shared memory:
+// s[0..P) (P = pow2_at_least(B)) ends with the words (key << 32 | bin) in
+// ascending order, so that position r holds the bin of rank r, for r < B
+// (the padding sorts last).
+__device__ void sort_bins(const float2* raw, int B, unsigned long long* s,
+                          int lane) {
+  const int P = pow2_at_least(B);
+  __syncwarp();  // raw is written
+  for (int b = lane; b < P; b += 32)
+    s[b] = b < B ? (unsigned long long)cat_key(raw[b]) << 32 | (unsigned)b
+                 : ~0ull;
+  __syncwarp();
+  for (int k = 2; k <= P; k <<= 1) {
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      for (int t = lane; t < P / 2; t += 32) {
+        const int i = ((t & ~(j - 1)) << 1) | (t & (j - 1));
+        const unsigned long long a = s[i], c = s[i + j];
+        if ((a > c) == ((i & k) == 0)) {
+          s[i] = c;
+          s[i + j] = a;
+        }
+      }
+      __syncwarp();
+    }
+  }
+}
+
+// Mode 0, in place: row's B pairs -> their prefix sums, one bin at a time
+// from 0.0.  Lane j holds bins [c0 + 8j, c0 + 8j + 8) of each 256-bin
+// chunk in registers; the running sum visits the lanes in order.
+__device__ void prefix_chain(float2* row, int B, int lane) {
+  float2 run = make_float2(0.0f, 0.0f);
+  for (int c0 = 0; c0 < B; c0 += 32 * kChainBins) {
+    const int base = c0 + kChainBins * lane;
+    float2 v[kChainBins];
+#pragma unroll
+    for (int k = 0; k < kChainBins; ++k)
+      v[k] = base + k < B ? row[pad(base + k)] : make_float2(0.0f, 0.0f);
+    const int holders = min(32, (B - c0 + kChainBins - 1) / kChainBins);
+    for (int j = 0; j < holders; ++j) {
+      if (lane == j) {
+#pragma unroll
+        for (int k = 0; k < kChainBins; ++k) {
+          run.x = run.x + v[k].x;
+          run.y = run.y + v[k].y;
+          v[k] = run;
+        }
+      }
+      run.x = __shfl_sync(kFull, run.x, j);
+      run.y = __shfl_sync(kFull, run.y, j);
+    }
+#pragma unroll
+    for (int k = 0; k < kChainBins; ++k)
+      if (base + k < B) row[pad(base + k)] = v[k];
+  }
+}
+
+// The array of level l of the blocked prefix (level 0: the row) and its
+// length.
+__device__ __forceinline__ float2* level_at(float2* row, float2* levels,
+                                            int B, int l, int& n) {
+  float2* a = row;
+  float2* next = levels;
+  n = B;
+  for (int i = 0; i < l; ++i) {
+    n = (n + kScanBlock - 1) / kScanBlock;
+    a = next;
+    next += padded_len(n);
+  }
+  return a;
+}
+
+// Modes 1 and 2, in place: row's B pairs -> their prefix sums in XLA's
+// blocked order (ops/split.py: prefix_blocked): in-block sums from 0.0,
+// the block totals prefixed the same way one level up, each block's
+// exclusive prefix (0.0 for the first) added last.
+__device__ void prefix_blocked(float2* row, float2* levels, int B,
+                               int lane) {
+  int top = 0;
+  for (int m = B; m > kScanBlock; m = (m + kScanBlock - 1) / kScanBlock)
+    ++top;
+  for (int l = 0; l < top; ++l) {  // down: in-block sums, totals up
+    int n, nu;
+    float2* a = level_at(row, levels, B, l, n);
+    float2* up = level_at(row, levels, B, l + 1, nu);
+    for (int j = lane; j < nu; j += 32) {
+      float2 s = make_float2(0.0f, 0.0f);
+#pragma unroll
+      for (int k = 0; k < kScanBlock; ++k) {
+        const int i = kScanBlock * j + k;
+        const float2 x = i < n ? a[pad(i)] : make_float2(0.0f, 0.0f);
+        s.x = s.x + x.x;
+        s.y = s.y + x.y;
+        if (i < n) a[pad(i)] = s;
+      }
+      up[pad(j)] = s;  // with the zero padding, as XLA pads the axis
+    }
+    __syncwarp();
+  }
+  {  // the top level: one block, summed in order
+    int n;
+    float2* a = level_at(row, levels, B, top, n);
+    if (lane == 0) {
+      float2 s = make_float2(0.0f, 0.0f);
+      for (int i = 0; i < n; ++i) {
+        const float2 x = a[pad(i)];
+        s.x = s.x + x.x;
+        s.y = s.y + x.y;
+        a[pad(i)] = s;
+      }
+    }
+    __syncwarp();
+  }
+  for (int l = top - 1; l >= 0; --l) {  // up: the exclusive prefixes
+    int n, nu;
+    float2* a = level_at(row, levels, B, l, n);
+    const float2* up = level_at(row, levels, B, l + 1, nu);
+    for (int i = lane; i < n; i += 32) {
+      const int j = i / kScanBlock;
+      const float2 e = j ? up[pad(j - 1)] : make_float2(0.0f, 0.0f);
+      float2 v = a[pad(i)];
+      v.x = v.x + e.x;
+      v.y = v.y + e.y;
+      a[pad(i)] = v;
+    }
+    __syncwarp();
+  }
+}
+
+template <int MODE>
+__global__ void __launch_bounds__(kMaxWarps * 32)
 split_scan_kernel(const float2* __restrict__ hist,
                   const float2* __restrict__ totals,
                   const int* __restrict__ n_bins,
@@ -232,20 +400,21 @@ split_scan_kernel(const float2* __restrict__ hist,
                   const uint8_t* __restrict__ cat, int max_cat_to_onehot,
                   const float2* __restrict__ comb,
                   const float* __restrict__ scale, int F, int B, Params p,
-                  int mode, float* out_gain,
-                  int64_t* out_feat, int64_t* out_bin, uint8_t* out_dleft,
-                  float* out_GL, float* out_HL, uint8_t* out_cat_set) {
-  // kWarps rows of B (g, h) pairs; mode 2 adds kWarps rows of the raw
-  // bins and kWarps rows of B keys
-  extern __shared__ float2 rows[];
-  __shared__ Cand warp_best[kWarps];
-  __shared__ float2 f0_first, f0_last, f0_raw;  // feature 0's row ends
-  const int n = blockIdx.x;
+                  float* out_gain, int64_t* out_feat, int64_t* out_bin,
+                  uint8_t* out_dleft, float* out_GL, float* out_HL,
+                  uint8_t* out_cat_set) {
+  extern __shared__ float2 smem[];
+  __shared__ Cand warp_best[kMaxWarps];
+  __shared__ float2 f0_first, f0_last;  // feature 0's row ends (block 0)
+  // the cluster of gridDim.y blocks scans node blockIdx.x; warp w of block
+  // g (its rank in the cluster) is the node's warp g * W + w of G * W
+  const int n = blockIdx.x, G = gridDim.y, W = blockDim.x / 32;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const bool lead = blockIdx.y == 0;  // writes the node's answer
   const float2 tot = totals[n];
-  if (mode == 0 && tot.x == 0.0f && tot.y == 0.0f) {
+  if (MODE == 0 && tot.x == 0.0f && tot.y == 0.0f) {
     // a dead slot: the native scan's direct answer
-    if (threadIdx.x == 0) {
+    if (lead && threadIdx.x == 0) {
       out_gain[n] = -INFINITY;
       out_feat[n] = 0;
       out_bin[n] = 0;
@@ -258,7 +427,7 @@ split_scan_kernel(const float2* __restrict__ hist,
   const float lo = bounds ? bounds[n].x : -INFINITY;
   const float hi = bounds ? bounds[n].y : INFINITY;
   float parent;
-  if (mode == 0) {
+  if (MODE == 0) {
     parent = gain_native(tot.x, tot.y, p);
   } else if (mono == nullptr) {
     parent = gain_xla(tot.x, tot.y, p);
@@ -268,54 +437,42 @@ split_scan_kernel(const float2* __restrict__ hist,
   }
   const float2 sc = comb ? make_float2(scale[0], scale[1])
                          : make_float2(0.0f, 0.0f);
-  float2* row = rows + (size_t)warp * B;
-  float2* raw = rows + (size_t)(kWarps + warp) * B;  // mode 2
-  uint32_t* keys =
-      reinterpret_cast<uint32_t*>(rows + (size_t)2 * kWarps * B) +
-      (size_t)warp * B;
+  float2* row = smem + (size_t)warp * warp_words(MODE, B);
+  float2* levels = row + padded_len(B);         // modes 1, 2
+  float2* raw = levels + scan_levels_len(B);    // mode 2
+  unsigned long long* sorted =                  // mode 2
+      reinterpret_cast<unsigned long long*>(raw + B);
   Cand best{-INFINITY, INT32_MAX, 1, 0.0f, 0.0f};
-  for (int f = warp; f < F; f += kWarps) {
+  int sorted_f = -1;  // mode 2: the feature whose order `sorted` holds
+  const int gw = blockIdx.y * W + warp;  // the warp's rank in the node
+  for (int f = gw; f < F; f += G * W) {
     const float2* src = hist + ((size_t)n * F + f) * B;
     const float2* crow = comb ? comb + ((size_t)n * F + f) * B : nullptr;
-    const bool is_cat = mode == 2 && cat[f] != 0;
-    const bool onehot = is_cat && n_bins[f] < max_cat_to_onehot;
-    if (mode == 2) {
-      for (int b = lane; b < B; b += 32) {
-        raw[b] = src[b];
-        keys[b] = cat_key(raw[b]);
-      }
-      __syncwarp();
-      for (int b = lane; b < B; b += 32)
-        row[is_cat ? cat_rank(keys, B, b) : b] = raw[b];
+    const bool is_cat = MODE == 2 && cat[f] != 0;
+    const int nb = n_bins[f];
+    const bool onehot = is_cat && nb < max_cat_to_onehot;
+    if (is_cat) {
+      copy_row(src, raw, B, lane, [](int b) { return b; });
+      sort_bins(raw, B, sorted, lane);
+      sorted_f = f;
+      for (int r = lane; r < B; r += 32)
+        row[pad(r)] = raw[(uint32_t)sorted[r]];
     } else {
-      for (int b = lane; b < B; b += 32) row[b] = src[b];
+      copy_row(src, row, B, lane, [](int b) { return pad(b); });
     }
     __syncwarp();
-    if (lane == 0) {
-      if (f == 0) f0_raw = row[0];
-      if (mode == 0) {
-        float2 acc = make_float2(0.0f, 0.0f);
-        for (int b = 0; b < B; ++b) {
-          const float2 v = row[b];
-          acc.x = acc.x + v.x;
-          acc.y = acc.y + v.y;
-          row[b] = acc;
-        }
-      } else {
-        prefix_blocked(row, B);
-      }
-      if (f == 0) {
-        f0_first = row[0];
-        f0_last = row[B - 1];
-        if (onehot)
-          f0_first = onehot_left(row[B - 1], raw[0], crow, sc, 0);
-      }
-    }
+    if (MODE == 0)
+      prefix_chain(row, B, lane);
+    else
+      prefix_blocked(row, levels, B, lane);
     __syncwarp();
-    const float2 last = row[B - 1];
+    const float2 last = row[pad(B - 1)];
+    if (f == 0 && lane == 0) {
+      f0_last = last;
+      f0_first = onehot ? onehot_left(last, raw[0], crow, sc, 0) : row[0];
+    }
     const float missG = tot.x - last.x, missH = tot.y - last.y;
     const bool has_miss = fabsf(missH) > kEps;
-    const int nb = n_bins[f];
     const bool allowed = fmask == nullptr
         || fmask[(size_t)(fmask_rows > 1 ? n : 0) * F + f] != 0;
     const int c = mono ? mono[f] : 0;
@@ -325,16 +482,13 @@ split_scan_kernel(const float2* __restrict__ hist,
                  : !((b < nb - 1) || (b == nb - 1 && has_miss)))
         continue;
       // one-hot: left = every category but b (the unsorted bin b)
-      float glr = row[b].x, hlr = row[b].y;
-      if (onehot) {
-        const float2 l = onehot_left(last, raw[b], crow, sc, b);
-        glr = l.x;
-        hlr = l.y;
-      }
+      float2 l = row[pad(b)];
+      if (onehot) l = onehot_left(last, raw[b], crow, sc, b);
+      const float glr = l.x, hlr = l.y;
       const float gll = glr + missG, hll = hlr + missH;
       float g2;
       int dl;
-      if (mode == 0) {
+      if (MODE == 0) {
         g2 = -INFINITY;
         dl = 1;
         {  // missing -> right
@@ -357,6 +511,7 @@ split_scan_kernel(const float2* __restrict__ hist,
         }
       } else {
         float side[2];
+#pragma unroll
         for (int s = 0; s < 2; ++s) {  // 0: missing right, 1: left
           const float GL = s ? gll : glr, HL = s ? hll : hlr;
           const float GR = tot.x - GL, HR = tot.y - HL;
@@ -385,56 +540,61 @@ split_scan_kernel(const float2* __restrict__ hist,
         lb.HL = dl ? hll : hlr;
       }
     }
-    for (int off = 16; off > 0; off /= 2) {
-      const Cand o = shfl_down(lb, off);
-      if (better(o, lb)) lb = o;
-    }
-    if (lane == 0 && lb.gain > best.gain) best = lb;
+    lb = warp_best_of(lb);
+    if (lane == 0 && better(lb, best)) best = lb;
     __syncwarp();
   }
   if (lane == 0) warp_best[warp] = best;
-  __syncthreads();
-  if (mode == 2) {
-    // every thread reduces the warps' bests, then the block writes the
-    // chosen feature's cat_set (row 0 of the keys holds its keys)
-    for (int w = 0; w < kWarps; ++w)
-      if (better(warp_best[w], best)) best = warp_best[w];
-    const int bf = best.idx == INT32_MAX ? 0 : best.idx / B;
-    const int bb = best.idx == INT32_MAX ? 0 : best.idx % B;
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();  // every warp's best is in its block's shared memory
+  // every warp: the node's best over the cluster's warps
+  best = Cand{-INFINITY, INT32_MAX, 1, 0.0f, 0.0f};
+  for (int i = lane; i < G * W; i += 32) {
+    const Cand o = cluster.map_shared_rank(warp_best, i / W)[i % W];
+    if (better(o, best)) best = o;
+  }
+  best = warp_best_of(best);
+  cluster.sync();  // no block leaves while another reads its bests
+  best.idx = __shfl_sync(kFull, best.idx, 0);
+  const bool none = best.idx == INT32_MAX;
+  const int bf = none ? 0 : best.idx / B;
+  const int bb = none ? 0 : best.idx % B;
+  if (MODE == 2 && gw == bf % (G * W)) {
+    // the warp that scanned the chosen feature writes the categories
+    // routed right: the chosen bin of a one-hot split, the bins ranked
+    // after the chosen position of a partition (it sorts the feature
+    // again only if it scanned another categorical feature after it)
     const int nbf = n_bins[bf];
-    const bool part = cat[bf] != 0 && !(nbf < max_cat_to_onehot);
-    uint32_t* k0 = reinterpret_cast<uint32_t*>(rows + (size_t)2 * kWarps * B);
-    __syncthreads();  // every warp is done with its key row
-    const float2* src = hist + ((size_t)n * F + bf) * B;
-    for (int b = threadIdx.x; b < B; b += blockDim.x) k0[b] = cat_key(src[b]);
-    __syncthreads();
-    for (int b = threadIdx.x; b < B; b += blockDim.x) {
-      bool in_set = false;
-      if (cat[bf] != 0 && b < nbf)
-        in_set = part ? cat_rank(k0, B, b) > bb : b == bb;
-      out_cat_set[(size_t)n * B + b] = in_set;
+    uint8_t* cs = out_cat_set + (size_t)n * B;
+    if (cat[bf] != 0 && !(nbf < max_cat_to_onehot)) {
+      if (sorted_f != bf) {
+        copy_row(hist + ((size_t)n * F + bf) * B, raw, B, lane,
+                 [](int b) { return b; });
+        sort_bins(raw, B, sorted, lane);
+      }
+      for (int r = lane; r < B; r += 32) {
+        const int b = (int)(uint32_t)sorted[r];
+        cs[b] = b < nbf && r > bb;
+      }
+    } else {
+      for (int b = lane; b < B; b += 32)
+        cs[b] = cat[bf] != 0 && b < nbf && b == bb;
     }
   }
-  if (threadIdx.x != 0) return;
-  for (int w = 1; w < kWarps; ++w)
-    if (better(warp_best[w], best)) best = warp_best[w];
-  if (best.idx == INT32_MAX) {
+  if (!lead || warp != 0 || lane != 0) return;
+  if (none) {
     // no candidate: the first (feature 0, bin 0), missing left, with
     // feature 0's sums, as the argmax over all -inf lands
     best.gain = -INFINITY;
     best.idx = 0;
     best.dl = 1;
-    if (mode == 0) {
-      best.GL = f0_raw.x + (tot.x - f0_last.x);
-      best.HL = f0_raw.y + (tot.y - f0_last.y);
-    } else {
-      best.GL = f0_first.x + (tot.x - f0_last.x);
-      best.HL = f0_first.y + (tot.y - f0_last.y);
-    }
+    const float2 first = MODE == 0 ? hist[(size_t)n * F * B] : f0_first;
+    best.GL = first.x + (tot.x - f0_last.x);
+    best.HL = first.y + (tot.y - f0_last.y);
   }
   out_gain[n] = best.gain;
-  out_feat[n] = best.idx / B;
-  out_bin[n] = best.idx % B;
+  out_feat[n] = bf;
+  out_bin[n] = bb;
   out_dleft[n] = (uint8_t)best.dl;
   out_GL[n] = best.GL;
   out_HL[n] = best.HL;
@@ -448,20 +608,94 @@ int status(cudaError_t err) {
   return (int)(err != cudaSuccess ? err : last);
 }
 
+// Per (mode, device): the dynamic shared memory a block may use, set as
+// the kernel's limit at the first launch (0: not yet).
+std::atomic<int> g_smem_limit[3][kMaxDevices];
+
+int smem_limit(const void* kernel, int mode, int& limit) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return status(err);
+  if (dev < kMaxDevices && (limit = g_smem_limit[mode][dev].load()) > 0)
+    return 0;
+  int optin = 0;
+  err = cudaDeviceGetAttribute(&optin,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return status(err);
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return status(err);
+  limit = optin - (int)attr.sharedSizeBytes;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             limit);
+  if (err != cudaSuccess) return status(err);
+  if (dev < kMaxDevices) g_smem_limit[mode][dev].store(limit);
+  return 0;
+}
+
+template <int MODE>
+int launch(const void* hist, const void* totals, const void* n_bins,
+           const void* fmask, int fmask_rows, const void* bounds,
+           const void* mono, const void* cat, int max_cat_to_onehot,
+           const void* comb, const void* scale, int N, int F, int B,
+           const Params& p, void* out_gain, void* out_feat, void* out_bin,
+           void* out_dleft, void* out_GL, void* out_HL, void* out_cat_set,
+           void* stream) {
+  const void* kernel = (const void*)split_scan_kernel<MODE>;
+  int limit = 0;
+  const int rc = smem_limit(kernel, MODE, limit);
+  if (rc != 0) return rc;
+  // a warp per feature: a cluster of G blocks (at most 8) per node, each
+  // of about 8 warps, fewer where the shared memory is short, and as few
+  // warps as keep the same features per warp
+  const size_t per_warp = (size_t)warp_words(MODE, B) * sizeof(float2);
+  const int G = min(kMaxCluster, (F + kBlockWarps - 1) / kBlockWarps);
+  int W = min(kMaxWarps, (F + G - 1) / G);
+  if ((size_t)W * per_warp > (size_t)limit)
+    W = max(1, (int)((size_t)limit / per_warp));
+  const int per = (F + G * W - 1) / (G * W);
+  W = (F + G * per - 1) / (G * per);
+  // a block the card cannot hold is refused by the launch
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = 1;
+  attr.val.clusterDim.y = G;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(N, G, 1);
+  cfg.blockDim = dim3(W * 32, 1, 1);
+  cfg.dynamicSmemBytes = (size_t)W * per_warp;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return status(cudaLaunchKernelEx(
+      &cfg, split_scan_kernel<MODE>, static_cast<const float2*>(hist),
+      static_cast<const float2*>(totals), static_cast<const int*>(n_bins),
+      static_cast<const uint8_t*>(fmask), fmask_rows,
+      static_cast<const float2*>(bounds), static_cast<const int*>(mono),
+      static_cast<const uint8_t*>(cat), max_cat_to_onehot,
+      static_cast<const float2*>(comb), static_cast<const float*>(scale), F,
+      B, p, static_cast<float*>(out_gain), static_cast<int64_t*>(out_feat),
+      static_cast<int64_t*>(out_bin), static_cast<uint8_t*>(out_dleft),
+      static_cast<float*>(out_GL), static_cast<float*>(out_HL),
+      static_cast<uint8_t*>(out_cat_set)));
+}
+
 }  // namespace
 
 extern "C" {
 
 // hist (N, F, B, 2) f32, totals (N, 2) f32, n_bins (F,) int32; fmask
-// (fmask_rows, F) uint8 with fmask_rows 1 (one mask for every node) or N,
-// or null; bounds (N, 2) f32 [lower, upper] or null; mono (F,) int32 or
-// null; cat (F,) uint8, the categorical features, for mode 2, with comb
-// (N, F, B, 2) f32 and scale (2,) f32 (hist = comb * scale) or both null.
-// mode 0: the
-// native scan (unconstrained); 1: the XLA formulation (monotone); 2: the
-// XLA formulation with categorical features (monotone where mono is
-// given).  Outputs (N,): gain f32, feature and bin int64, dleft uint8, GL
-// and HL f32; mode 2 also cat_set (N, B) uint8.  Returns a cudaError_t.
+// (fmask_rows, F) uint8 (or bool) with fmask_rows 1 (one mask for every
+// node) or N, or null; bounds (N, 2) f32 [lower, upper] or null; mono (F,)
+// int32 or null; cat (F,) uint8 (or bool), the categorical features, for
+// mode 2, with comb (N, F, B, 2) f32 and scale (2,) f32 (hist = comb *
+// scale) or both null.  mode 0: the native scan (unconstrained); 1: the
+// XLA formulation (monotone); 2: the XLA formulation with categorical
+// features (monotone where mono is given).  Outputs (N,): gain f32,
+// feature and bin int64, dleft uint8, GL and HL f32; mode 2 also cat_set
+// (N, B) uint8.  Returns a cudaError_t.
 int xtb_split_scan(const void* hist, const void* totals, const void* n_bins,
                    const void* fmask, int fmask_rows, const void* bounds,
                    const void* mono, const void* cat, int max_cat_to_onehot,
@@ -476,26 +710,17 @@ int xtb_split_scan(const void* hist, const void* totals, const void* n_bins,
       || (mode == 2 && (cat == nullptr || out_cat_set == nullptr))
       || (comb != nullptr && (mode != 2 || scale == nullptr)))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)kWarps * B
-      * (mode == 2 ? 2 * sizeof(float2) + sizeof(uint32_t) : sizeof(float2));
-  cudaError_t err = cudaFuncSetAttribute(
-      split_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return status(err);
   const Params p{lambda_, alpha, min_child_weight, max_delta_step};
-  split_scan_kernel<<<N, kWarps * 32, smem,
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float2*>(hist), static_cast<const float2*>(totals),
-      static_cast<const int*>(n_bins), static_cast<const uint8_t*>(fmask),
-      fmask_rows, static_cast<const float2*>(bounds),
-      static_cast<const int*>(mono), static_cast<const uint8_t*>(cat),
-      max_cat_to_onehot, static_cast<const float2*>(comb),
-      static_cast<const float*>(scale), F, B, p, mode,
-      static_cast<float*>(out_gain),
-      static_cast<int64_t*>(out_feat), static_cast<int64_t*>(out_bin),
-      static_cast<uint8_t*>(out_dleft), static_cast<float*>(out_GL),
-      static_cast<float*>(out_HL), static_cast<uint8_t*>(out_cat_set));
-  return status(cudaGetLastError());
+#define XTB_LAUNCH(M)                                                     \
+  launch<M>(hist, totals, n_bins, fmask, fmask_rows, bounds, mono, cat,    \
+            max_cat_to_onehot, comb, scale, N, F, B, p, out_gain, out_feat, \
+            out_bin, out_dleft, out_GL, out_HL, out_cat_set, stream)
+  switch (mode) {
+    case 0: return XTB_LAUNCH(0);
+    case 1: return XTB_LAUNCH(1);
+    default: return XTB_LAUNCH(2);
+  }
+#undef XTB_LAUNCH
 }
 
 const char* xtb_cuda_error_string(int code) {

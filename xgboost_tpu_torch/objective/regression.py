@@ -4,15 +4,15 @@ reference: src/objective/regression_obj.cu).
 
 squarederror: grad = pred - y, hess = 1.  logistic: grad = sigmoid(x) - y,
 hess = max(p(1-p), 1e-16), both scaled by scale_pos_weight on positive rows;
-the sigmoid is XLA's (utils/fp.py on the CPU, the kernel K4 on the card:
-ops/sigmoid_cuda.py), so the gradients are the reference's bits at every
-round.
+the sigmoid is XLA's and the arithmetic XLA's op by op (the plain version
+ops/sigmoid_cuda.py logistic_gradient_plain on the CPU, the kernel K4 on
+the card), so the gradients are the reference's bits at every round.
 """
 from __future__ import annotations
 
 import torch
 
-from ..ops.sigmoid_cuda import sigmoid
+from ..ops.sigmoid_cuda import logistic_gradient, sigmoid
 from ..utils.fp import sum_f32
 from . import ObjFunction, register_objective
 
@@ -45,12 +45,13 @@ class SquaredError(_Elementwise):
 
 
 @register_objective("binary:logistic")
-class BinaryLogistic(_Elementwise):
-    def _grad(self, pred, y):
-        p = sigmoid(pred)
-        spw = float(self.params.get("scale_pos_weight", 1.0))
-        w = torch.where(y == 1.0, spw, 1.0)
-        return (p - y) * w, torch.clamp(p * (1 - p), min=1e-16) * w
+class BinaryLogistic(ObjFunction):
+    def get_gradient(self, preds, labels, weights):
+        # one K4 launch on the card (ops/sigmoid_cuda.py)
+        pred = preds[:, 0] if preds.ndim == 2 else preds
+        return logistic_gradient(
+            pred, labels.to(torch.float32), weights,
+            float(self.params.get("scale_pos_weight", 1.0)))
 
     def pred_transform(self, margin):
         return sigmoid(margin)

@@ -12,8 +12,9 @@ per-level gradient histograms on the card.
   reference's native and XLA split scans): the best split per node in the
   reference's summation order; its wrapper is ops/split_cuda.py.
 - K4 ``sigmoid`` (csrc/sigmoid.cu; no Pallas kernel, it replaces XLA's
-  jax.nn.sigmoid): the binary:logistic transform in XLA's f32 arithmetic;
-  its wrapper is ops/sigmoid_cuda.py.
+  jax.nn.sigmoid and the binary:logistic gradient around it): the
+  logistic transform and the gradient pairs in XLA's f32 arithmetic, two
+  entries counted as one kernel; its wrapper is ops/sigmoid_cuda.py.
 K3 and K4 are built with ``--fmad=false`` so that nvcc fuses no
 multiply-add the reference does not.
 
@@ -50,7 +51,7 @@ __all__ = ["build_histogram", "build_histogram_cuda", "build_histogram_plain",
            "build_histogram_q_plain", "build_all", "card_max_clusters",
            "choose_block", "Plan", "load_library", "launches", "plan_f32",
            "plan_q", "reset_launches", "run_f32", "run_q", "slice_units",
-           "launched", "SOURCES"]
+           "launched", "on_device", "SOURCES"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _BUILD_DIR = os.path.join(_PKG, "_build")
@@ -78,15 +79,18 @@ THREADS = 1024
 STAGE_BYTES = 32 * 95 * 8
 CLUSTERS = (8, 4, 2, 1)  # cluster sizes the kernels may use, largest first
 _vp, _ci = ctypes.c_void_p, ctypes.c_int
-# C signature of each kernel's entry point (name, argtypes)
+# C signatures of each kernel library's entry points {name: argtypes}
 _ENTRY = {
-    "hist_f32": ("xtb_hist_f32", [_vp, _ci, _vp, _vp, _vp] + [_ci] * 12
-                 + [_vp]),
-    "hist_q": ("xtb_hist_q", [_vp, _ci, _vp, _vp, _vp] + [_ci] * 13 + [_vp]),
-    "split_scan": ("xtb_split_scan", [_vp] * 4 + [_ci] + [_vp] * 3 + [_ci]
+    "hist_f32": {"xtb_hist_f32": [_vp, _ci, _vp, _vp, _vp] + [_ci] * 12
+                 + [_vp]},
+    "hist_q": {"xtb_hist_q": [_vp, _ci, _vp, _vp, _vp] + [_ci] * 13
+               + [_vp]},
+    "split_scan": {"xtb_split_scan": [_vp] * 4 + [_ci] + [_vp] * 3 + [_ci]
                    + [_vp] * 2 + [_ci] * 3 + [ctypes.c_float] * 4 + [_ci]
-                   + [_vp] * 8),
-    "sigmoid": ("xtb_sigmoid", [_vp, _vp, ctypes.c_longlong, _vp]),
+                   + [_vp] * 8},
+    "sigmoid": {"xtb_sigmoid": [_vp, _vp, ctypes.c_longlong, _vp],
+                "xtb_logistic_grad": [_vp, _vp, _vp, ctypes.c_float, _vp,
+                                      ctypes.c_longlong, _vp]},
 }
 _libs: dict = {}
 _lib_lock = threading.Lock()
@@ -170,15 +174,18 @@ def build_all() -> None:
 
 def load_library(name: str):
     """Build (if its source changed) and load kernel ``name``'s library."""
+    lib = _libs.get(name)  # loaded: no lock on the launch path
+    if lib is not None:
+        return lib
     with _lib_lock:
         if name in _libs:
             return _libs[name]
         _build([name])
         lib = ctypes.CDLL(_lib_path(name))
-        entry, argtypes = _ENTRY[name]
-        fn = getattr(lib, entry)
-        fn.argtypes = argtypes
-        fn.restype = _ci
+        for entry, argtypes in _ENTRY[name].items():
+            fn = getattr(lib, entry)
+            fn.argtypes = argtypes
+            fn.restype = _ci
         query = getattr(lib, f"xtb_{name}_max_clusters", None)
         if query is not None:  # the histogram kernels' occupancy query
             query.argtypes = [_ci] * 5 + [ctypes.POINTER(_ci)]
@@ -232,6 +239,18 @@ def _check(bins, vals, pos, vals_dtype, vals_tail, n_nodes, n_bin, stride):
         raise ValueError("bins, gradients and pos must be contiguous")
     if n_nodes < 1 or stride < 1 or n_bin < 1:
         raise ValueError("n_nodes, stride and n_bin must be positive")
+
+
+def on_device(device, entry, *args) -> int:
+    """``entry(*args, stream)``, a kernel library's entry point, with
+    ``device`` current and ``stream`` its current stream: the CUDA runtime
+    launches on the calling thread's device.  Returns the entry's code."""
+    # the raw stream handle; torch.cuda.current_stream builds an object
+    stream = torch._C._cuda_getCurrentRawStream(device.index)
+    if device.index == torch.cuda.current_device():
+        return entry(*args, stream)
+    with torch.cuda.device(device):
+        return entry(*args, stream)
 
 
 def launched(name: str, lib, rc: int) -> None:
@@ -367,13 +386,12 @@ def run_f32(bins, gpair, pos, plan: Plan, *, node0: int, n_nodes: int,
     if R == 0 or F == 0:
         return out
     lib = load_library("hist_f32")
-    stream = torch.cuda.current_stream(bins.device).cuda_stream
-    with torch.cuda.device(bins.device):
-        rc = lib.xtb_hist_f32(
-            bins.data_ptr(), _BIN_CODES[bins.dtype], gpair.data_ptr(),
-            pos.data_ptr(), out.data_ptr(), R, F, n_bin, node0, n_nodes,
-            stride, plan.feat_group, plan.node_tile, plan.row_blocks,
-            plan.cluster, plan.threads, int(plan.staged), stream)
+    rc = on_device(
+        bins.device, lib.xtb_hist_f32, bins.data_ptr(),
+        _BIN_CODES[bins.dtype], gpair.data_ptr(), pos.data_ptr(),
+        out.data_ptr(), R, F, n_bin, node0, n_nodes, stride,
+        plan.feat_group, plan.node_tile, plan.row_blocks, plan.cluster,
+        plan.threads, int(plan.staged))
     launched("hist_f32", lib, rc)
     return out
 
@@ -408,14 +426,11 @@ def run_q(bins, gq, pos, plan: Plan, *, node0: int, n_nodes: int,
     if R == 0 or F == 0:
         return out
     lib = load_library("hist_q")
-    stream = torch.cuda.current_stream(bins.device).cuda_stream
-    with torch.cuda.device(bins.device):
-        rc = lib.xtb_hist_q(
-            bins.data_ptr(), _BIN_CODES[bins.dtype], gq.data_ptr(),
-            pos.data_ptr(), out.data_ptr(), R, F, n_bin, 3 * C, node0,
-            n_nodes, stride, plan.feat_group, plan.node_tile,
-            plan.row_blocks, plan.cluster, plan.threads, int(plan.staged),
-            stream)
+    rc = on_device(
+        bins.device, lib.xtb_hist_q, bins.data_ptr(), _BIN_CODES[bins.dtype],
+        gq.data_ptr(), pos.data_ptr(), out.data_ptr(), R, F, n_bin, 3 * C,
+        node0, n_nodes, stride, plan.feat_group, plan.node_tile,
+        plan.row_blocks, plan.cluster, plan.threads, int(plan.staged))
     launched("hist_q", lib, rc)
     return out
 

@@ -406,18 +406,17 @@ def evaluate_splits(hist, totals, n_bins, params: SplitParams,
     else:
         s = split_scan_plain(hist, totals, n_bins, params, feature_mask,
                              node_bounds, cat_mask, dq)
-    GR = totals[:, 0] - s.GL
-    HR = totals[:, 1] - s.HL
     lo = hi = None
     if is_monotone(params) and node_bounds is not None:
         lo, hi = node_bounds[:, 0], node_bounds[:, 1]
+    # both children at once: (2, N, 2) sums, (2, N) weights
+    left = torch.stack([s.GL, s.HL], dim=1)
+    sums = torch.stack([left, totals - left])
+    w = calc_weight(sums[..., 0], sums[..., 1], params, lo, hi)
     return BestSplit(
         gain=s.gain, feature=s.feature, bin=s.bin,
-        default_left=s.default_left,
-        left_sum=torch.stack([s.GL, s.HL], dim=1),
-        right_sum=torch.stack([GR, HR], dim=1),
-        left_weight=calc_weight(s.GL, s.HL, params, lo, hi),
-        right_weight=calc_weight(GR, HR, params, lo, hi),
+        default_left=s.default_left, left_sum=sums[0], right_sum=sums[1],
+        left_weight=w[0], right_weight=w[1],
         is_cat=(torch.zeros_like(s.default_left) if cat_mask is None
                 else cat_mask[s.feature]),
         cat_set=(torch.zeros((hist.shape[0], hist.shape[2]), dtype=torch.bool,

@@ -13,7 +13,7 @@ from typing import Tuple
 
 import torch
 
-from .hist_cuda import launched, load_library
+from .hist_cuda import launched, load_library, on_device
 
 __all__ = ["split_scan_cuda"]
 
@@ -31,8 +31,9 @@ def split_scan_cuda(hist, totals, n_bins, params, feature_mask=None,
     the card selects the categorical scan (``params.max_cat_to_onehot`` is
     read); ``dq`` = (comb (N, F, B, 2) f32, scale (2,) f32) with hist =
     comb * scale (deterministic_histogram) makes its one-hot sums
-    fma(-comb, scale, total), as the reference's compiled program does.  Returns (gain, feature, bin, default_left, GL, HL), each (N,),
-    in ``split.ScanResult``'s order, and with a ``cat_mask`` also the (N, B)
+    fma(-comb, scale, total), as the reference's compiled program does.
+    Returns (gain, feature, bin, default_left, GL, HL), each (N,), in
+    ``split.ScanResult``'s order, and with a ``cat_mask`` also the (N, B)
     bool ``cat_set``.  A launch the card refuses raises."""
     if not (hist.is_cuda and totals.is_cuda):
         raise ValueError("the split scan kernel needs CUDA tensors")
@@ -47,23 +48,30 @@ def split_scan_cuda(hist, totals, n_bins, params, feature_mask=None,
                          f"{tuple(n_bins.shape)} do not match hist "
                          f"{tuple(hist.shape)}")
     hist, totals = hist.contiguous(), totals.contiguous()
-    nb = n_bins.to(dev, torch.int32).contiguous()
+    # the callers hand n_bins, masks and the constraint vector over on the
+    # card in the kernel's types; anything else is converted here
+    nb = n_bins
+    if nb.dtype != torch.int32 or nb.device != dev \
+            or not nb.is_contiguous():
+        nb = nb.to(dev, torch.int32).contiguous()
     fm, fm_rows = None, 0
     if feature_mask is not None:
         fm = feature_mask if feature_mask.dim() == 2 else feature_mask[None]
         if fm.shape[1] != F or fm.shape[0] not in (1, N):
             raise ValueError(f"feature_mask {tuple(feature_mask.shape)} does "
                              f"not match {N} nodes x {F} features")
-        fm = fm.to(dev, torch.bool).contiguous()
+        if fm.dtype != torch.bool or fm.device != dev \
+                or not fm.is_contiguous():
+            fm = fm.to(dev, torch.bool).contiguous()
         fm_rows = fm.shape[0]
-    cat = None
     if cat_mask is not None:
-        if tuple(cat_mask.shape) != (F,) or cat_mask.device != dev:
-            raise ValueError(f"cat_mask must be ({F},) on {dev}")
-        cat = cat_mask.to(torch.uint8).contiguous()
+        if tuple(cat_mask.shape) != (F,) or cat_mask.device != dev \
+                or cat_mask.dtype != torch.bool:
+            raise ValueError(f"cat_mask must be ({F},) bool on {dev}")
+        cat_mask = cat_mask.contiguous()  # read as uint8 by the kernel
     comb = scale = None
     if dq is not None:
-        if cat is None:
+        if cat_mask is None:
             raise ValueError("dq is read by the categorical scan only")
         comb, scale = dq
         if tuple(comb.shape) != tuple(hist.shape) \
@@ -80,29 +88,26 @@ def split_scan_cuda(hist, totals, n_bins, params, feature_mask=None,
             raise ValueError(f"mono must be ({F},) int32 on {dev}")
         if node_bounds is not None:
             bounds = node_bounds.to(dev, torch.float32).contiguous()
-    out = (torch.empty(N, dtype=torch.float32, device=dev),
-           torch.empty(N, dtype=torch.int64, device=dev),
-           torch.empty(N, dtype=torch.int64, device=dev),
-           torch.empty(N, dtype=torch.bool, device=dev),
-           torch.empty(N, dtype=torch.float32, device=dev),
-           torch.empty(N, dtype=torch.float32, device=dev))
-    if cat is not None:
-        out = out + (torch.empty((N, B), dtype=torch.bool, device=dev),)
-    mode = 2 if cat is not None else 0 if mono is None else 1
+    mode = 2 if cat_mask is not None else 0 if mono is None else 1
+
+    # six allocations: one shared allocation handed out as views took
+    # longer on the host (each view is a PyTorch call of its own)
+    out = tuple(torch.empty(N, dtype=t, device=dev)
+                for t in (torch.float32, torch.int64, torch.int64,
+                          torch.bool, torch.float32, torch.float32))
+    cat_set = (torch.empty((N, B), dtype=torch.bool, device=dev)
+               if mode == 2 else None)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
     lib = load_library("split_scan")
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        rc = lib.xtb_split_scan(
-            hist.data_ptr(), totals.data_ptr(), nb.data_ptr(), ptr(fm),
-            fm_rows, ptr(bounds), ptr(mono), ptr(cat),
-            int(params.max_cat_to_onehot), ptr(comb), ptr(scale), N, F, B,
-            float(params.lambda_), float(params.alpha),
-            float(params.min_child_weight), float(params.max_delta_step),
-            mode, *(ptr(t) for t in out[:6]),
-            ptr(out[6]) if cat is not None else None, stream)
+    rc = on_device(
+        dev, lib.xtb_split_scan, hist.data_ptr(), totals.data_ptr(),
+        nb.data_ptr(), ptr(fm), fm_rows, ptr(bounds), ptr(mono),
+        ptr(cat_mask), int(params.max_cat_to_onehot), ptr(comb), ptr(scale),
+        N, F, B, float(params.lambda_), float(params.alpha),
+        float(params.min_child_weight), float(params.max_delta_step), mode,
+        *(t.data_ptr() for t in out), ptr(cat_set))
     launched("split_scan", lib, rc)
-    return out
+    return out if cat_set is None else out + (cat_set,)

@@ -117,7 +117,8 @@ def _eval_nodes(st: BFState, hist, n_bins, feature_mask, set_matrix,
         allowed = (st.setcompat[ids][:, :, None]
                    & set_matrix[None, :, :]).any(dim=1)
         fm = allowed if fm is None else allowed & fm
-    bounds = torch.stack([st.lower[ids], st.upper[ids]], dim=1)
+    bounds = (torch.stack([st.lower[ids], st.upper[ids]], dim=1)
+              if is_monotone(params) else None)
     best = evaluate_splits(hist, st.totals[ids], n_bins, params, fm, bounds,
                            cat_mask)
     gain = best.gain

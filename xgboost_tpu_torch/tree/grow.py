@@ -36,7 +36,7 @@ from ..ops.hist_cuda import build_histogram, build_histogram_q
 from ..ops.histogram import combine_sibling_hists, node_sums
 from ..ops.quantise import dequantise_parts, prepare_quantised
 from ..ops.split import (BestSplit, SplitParams, calc_weight,
-                         evaluate_splits, monotone_vec)
+                         evaluate_splits, is_monotone, monotone_vec)
 
 _EPS = 1e-6
 
@@ -254,9 +254,11 @@ def level_step(state: TreeState, bins, gpair, cuts_pad, n_bins,
         compat_lvl = state.setcompat[sl]
         allowed = (compat_lvl[:, :, None] & set_matrix[None, :, :]).any(dim=1)
         fmask = allowed if fmask is None else allowed & fmask
+    # the node bounds are read by the monotone scan only
+    bounds = (torch.stack([lower_lvl, upper_lvl], dim=1)
+              if is_monotone(params) else None)
     best = evaluate_splits(hist_eval, totals_lvl, n_bins, params, fmask,
-                           torch.stack([lower_lvl, upper_lvl], dim=1),
-                           cat_mask, dq)
+                           bounds, cat_mask, dq)
     can_split = alive_lvl & (best.gain > max(params.gamma, _EPS))
 
     new_budget = None

@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import torch
 
-_FLT_MIN = 1.1754943508222875e-38
+FLT_MIN = 1.1754943508222875e-38
 _EXP_POLY = (1.9875691500e-4, 1.3981999507e-3, 8.3334519073e-3,
              4.1665795894e-2, 1.6666665459e-1, 5.0000001201e-1)
 
@@ -59,7 +59,7 @@ def exp_f32(x):
     lo = ni // 2
     out = y * ((lo + 127) << 23).view(torch.float32) \
         * ((ni - lo + 127) << 23).view(torch.float32)
-    return torch.where(out < _FLT_MIN, torch.zeros_like(out), out)
+    return torch.where(out < FLT_MIN, torch.zeros_like(out), out)
 
 
 def sigmoid_f32(x):
@@ -67,7 +67,7 @@ def sigmoid_f32(x):
     exponential, and a result below the smallest normal f32 flushed to
     zero."""
     out = torch.div(torch.ones_like(x), 1.0 + exp_f32(-x))
-    return torch.where(out < _FLT_MIN, torch.zeros_like(out), out)
+    return torch.where(out < FLT_MIN, torch.zeros_like(out), out)
 
 
 # XLA's CPU compiler rewrites a reduction over more than this many values
