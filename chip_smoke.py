@@ -97,6 +97,42 @@ holds each CUDA kernel against its plain PyTorch version:
      grow other trees on the CPU too) and lossguide (max_leaves=31) growing
      the same trees (category sets included), predictions within 1e-4
 
+  8. multiclass at full width, Covertype-shaped (scripts/bench_ladder.py:
+     88-90, 106-135, numpy only): 581,012 x 54 (2% NaN), 7 classes,
+     multi:softprob, max_depth=8, max_bin=256, eta=0.3, 5 rounds, on both
+     histogram paths: ingest seconds, the train loop's median of 3 (M
+     row-rounds/s and per tree), K1/K2 and K3 launched 7 x 8 = 56 times a
+     round, merror < 0.30, two deterministic runs byte-identical, a
+     two-round profile of each; the (R, 7) probabilities sum to 1 within
+     1e-6 and the JSON and UBJ reload to the same predictions
+  8b. card vs CPU on 20,000 rows of the same generator at depth 6: the
+     deterministic model JSON byte-identical, plain and with subsample,
+     colsample_bynode and weights; the f32 path at depth 4 the same trees;
+     the kernels and time of one multiclass get_gradient at full width
+  9. a random forest as XGBoost's tutorial sets it (num_parallel_tree=100,
+     subsample=0.8, colsample_bynode=0.8, eta=1, max_depth=5, one round)
+     on phase 3's matrix: 100 trees, K1 and K3 launched 500 times, the AUC
+     of the margins > 0.9 and above its first tree's alone (the f32
+     probabilities of a 100-tree sum at full eta round to 0 or 1 on many
+     rows, so their AUC is printed beside it), trees/s; 9b: num_parallel_tree=4 card vs CPU at 20,000 rows,
+     byte-identical deterministic JSON
+  10. the training API on the card at phase 3's matrix under
+     deterministic_histogram=1: 5 + 5 rounds through xgb_model (the
+     Booster, saved UBJ) byte-identical to 10 with subsample=0.8; a custom
+     squared-error objective and boost() byte-identical to
+     reg:squarederror; save_raw('ubj') round trip; pred_leaf (R, T) int32
+     whose leaves sum (tree order, from zero, then the base margin) to
+     predict's margins bit for bit; a custom metric in the log
+  11. CSR at full width: phase 3's rows beside 228 columns stored at
+     density 0.02 (256 features, about 33 stored entries a row),
+     binary:logistic, depth 6, max_bin 256, 10 rounds: the host sketch and
+     the bins timed apart, the bins' bytes, the train loop's median of 3,
+     K1 and K3 launched 6 times a round, AUC > 0.9; 11b: card vs CPU at
+     20,000 rows, byte-identical deterministic JSON
+
+Phase 2 and 2b also give each case's device time a launch (torch.profiler),
+and phase 7 the index_add_ yardstick on each launch's inputs of a round.
+
 Run from the repository root: ``python3 chip_smoke.py``.  Exits non-zero if
 any phase fails or no CUDA device is present.  Each phase prints its
 seconds.  The last three lines are the card's name and power limit, the
@@ -223,18 +259,37 @@ def _limbs(gpair):
     return quantise_gpair(gpair, local_rho(gpair, valid))
 
 
+def _index_add_ms(name, bins, vals, pos, *, node0, n_nodes, n_bin, stride):
+    """The yardstick of a histogram launch: one index_add_ over
+    precomputed flat indices into a flat tensor of the kernel's
+    accumulator type (f32 for K1, int32 for K2's limbs), its median time
+    (CUDA events)."""
+    ch, acc = (2, torch.float32) if name == "hist_f32" else (6, torch.int32)
+    R, F = bins.shape
+    local = pos.long() - node0
+    inl = (local >= 0) & (local % stride == 0) & (local // stride < n_nodes)
+    take = inl[:, None] & (bins.long() < n_bin)
+    idx = ((local // stride)[:, None] * F
+           + torch.arange(F, device="cuda")[None, :]) * n_bin + bins.long()
+    flat_idx = idx[take]
+    flat_val = vals.reshape(R, 1, ch).to(acc).expand(R, F, ch)[take]
+    flat = torch.zeros(n_nodes * F * n_bin, ch, dtype=acc, device="cuda")
+    return cuda_ms(lambda: flat.index_add_(0, flat_idx, flat_val))
+
+
 def _case(hist_cuda, name, bins, vals, pos, *, node0, n_nodes, n_bin,
           stride):
     """One kernel-vs-plain case on the card: agreement, the kernel's, the
-    plain version's and one index_add_'s times, and the bound."""
+    plain version's and one index_add_'s times, the kernel's device
+    time a launch (torch.profiler), and the bound."""
     if name == "hist_f32":
         kernel = hist_cuda.build_histogram_cuda
         plain = hist_cuda.build_histogram_plain
-        ch, row_bytes, acc = 2, 8, torch.float32
+        ch, row_bytes = 2, 8
     else:
         kernel = hist_cuda.build_histogram_q_cuda
         plain = hist_cuda.build_histogram_q_plain
-        ch, row_bytes, acc = 6, 6, torch.int32
+        ch, row_bytes = 6, 6
     kw = dict(node0=node0, n_nodes=n_nodes, n_bin=n_bin, stride=stride)
     got = kernel(bins, vals, pos, **kw)
     torch.cuda.synchronize()
@@ -245,21 +300,19 @@ def _case(hist_cuda, name, bins, vals, pos, *, node0, n_nodes, n_bin,
     # K1: f32 sums in another order; K2: exact integers, bitwise
     ok = err <= HIST_RTOL * scale if name == "hist_f32" else err == 0.0
 
-    # yardstick: one index_add_ over precomputed flat indices, into a flat
-    # tensor of the kernel's accumulator type (f32 for K1, int32 for K2)
     R, F = bins.shape
     local = pos.long() - node0
     inl = (local >= 0) & (local % stride == 0) & (local // stride < n_nodes)
     take = inl[:, None] & (bins.long() < n_bin)
-    idx = ((local // stride)[:, None] * F
-           + torch.arange(F, device="cuda")[None, :]) * n_bin + bins.long()
-    flat_idx = idx[take]
-    flat_val = vals.reshape(R, 1, ch).to(acc).expand(R, F, ch)[take]
-    flat = torch.zeros(n_nodes * F * n_bin, ch, dtype=acc, device="cuda")
 
     kernel_ms = cuda_ms(lambda: kernel(bins, vals, pos, **kw))
+    for _ in range(3):  # the profiler now and then sees no events at all
+        device_ms, _, _ = device_per_call(
+            lambda: kernel(bins, vals, pos, **kw), reps=10)
+        if device_ms is not None:
+            break
     plain_ms = cuda_ms(lambda: plain(bins, vals, pos, **kw), reps=5)
-    library_ms = cuda_ms(lambda: flat.index_add_(0, flat_idx, flat_val))
+    library_ms = _index_add_ms(name, bins, vals, pos, **kw)
 
     # least work these inputs need: pos of every row, bins and gradients of
     # the rows in the level, the histogram written once; one 32-bit add per
@@ -281,8 +334,8 @@ def _case(hist_cuda, name, bins, vals, pos, *, node0, n_nodes, n_bin,
     return dict(kernel=name, dtype=str(bins.dtype).split(".")[-1],
                 node0=node0, n_nodes=n_nodes, stride=stride,
                 max_abs_err=err, max_rel_err=err / scale if scale else 0.0,
-                ok=ok, kernel_ms=kernel_ms, plain_ms=plain_ms,
-                library_ms=library_ms,
+                ok=ok, kernel_ms=kernel_ms, device_ms=device_ms,
+                plain_ms=plain_ms, library_ms=library_ms,
                 bound_ms=max(t_bytes, t_ops) * 1e3,
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
                 plan=plan)
@@ -342,8 +395,12 @@ def phase_kernels(hist_cuda, name: str, label: str):
     bad = [c for c in cases if not c["ok"]]
     if bad:
         raise AssertionError(f"{name} disagrees with its plain version: {bad}")
+    device = [c["device_ms"] for c in cases
+              if c["dtype"] == "int16" and _shape(c) in LEVELS]
     log(f"phase {label} six-level sum (one depth-6 round's histograms, "
-        f"int16): kernel {_level_sum(cases, 'kernel_ms'):.4f} ms, index_add_ "
+        f"int16): kernel {_level_sum(cases, 'kernel_ms'):.4f} ms, device "
+        f"{sum(device) if None not in device else 'not measured'} ms, "
+        f"index_add_ "
         f"{_level_sum(cases, 'library_ms'):.4f} ms, plain "
         f"{_level_sum(cases, 'plain_ms'):.4f} ms, bound "
         f"{_level_sum(cases, 'bound_ms'):.4f} ms")
@@ -385,20 +442,26 @@ def _model_bytes(bst) -> str:
 
 
 def _train_main_path(xtt, hist_cuda, params, dtrain, n_rows, rounds, kernel,
-                     label, repeats: int = 3, auc_gate: float = 0.9):
+                     label, repeats: int = 3, auc_gate: float = 0.9,
+                     want_fn=None, metrics=("logloss", "auc")):
     """One path as a user runs it: train with the training-set eval, then
     the train loop alone ``repeats`` times (as bench.py times it: no evals,
     bins already built), each run with the launch counts set to 0 just
     before and read just after; the histogram kernel and K3 launch once per
-    level that splits (max_depth a round).  Returns the first two boosters,
-    the first run's launches, the metrics and the timed loops' median
-    rate."""
-    want = _sigmoid_launches(hist_cuda, rounds, evals=1)
-    want[kernel] = want["split_scan"] = params["max_depth"] * rounds
+    level that splits (max_depth a round).  ``want_fn(evals)``: the launch
+    counts of a run with that many evaluation sets (binary:logistic's by
+    default).  Returns the first two boosters, the first run's launches,
+    the metrics and the timed loops' median rate."""
+    if want_fn is None:
+        def want_fn(evals):
+            want = _sigmoid_launches(hist_cuda, rounds, evals=evals)
+            want[kernel] = want["split_scan"] = params["max_depth"] * rounds
+            return want
+    want = want_fn(1)
     hist_cuda.reset_launches()
     evals_result: dict = {}
     t0 = time.perf_counter()
-    bst = xtt.train(dict(params, eval_metric=["logloss", "auc"]), dtrain,
+    bst = xtt.train(dict(params, eval_metric=list(metrics)), dtrain,
                     rounds, evals=[(dtrain, "train")],
                     evals_result=evals_result, verbose_eval=False)
     torch.cuda.synchronize()
@@ -407,7 +470,7 @@ def _train_main_path(xtt, hist_cuda, params, dtrain, n_rows, rounds, kernel,
     if launches != want:
         raise AssertionError(f"phase {label}: launches {launches} in "
                              f"{rounds} rounds, want {want}")
-    want["sigmoid"] = 1 + rounds  # no evaluation in the timed runs
+    want = want_fn(0)  # no evaluation in the timed runs
     times = []
     for _ in range(repeats):
         hist_cuda.reset_launches()
@@ -420,15 +483,16 @@ def _train_main_path(xtt, hist_cuda, params, dtrain, n_rows, rounds, kernel,
                                  f"{hist_cuda.launches}, want {want}")
         if len(times) == 1:
             timed = run  # the first timed booster, for the bytes check
-    logloss = evals_result["train"]["logloss"][-1]
-    auc = evals_result["train"]["auc"][-1]
+    final = {m: v[-1] for m, v in evals_result["train"].items()}
     train_s = statistics.median(times)
-    if not auc > auc_gate:
-        raise AssertionError(f"phase {label}: AUC {auc} <= {auc_gate}")
+    if "auc" in final and not final["auc"] > auc_gate:
+        raise AssertionError(f"phase {label}: AUC {final['auc']} <= "
+                             f"{auc_gate}")
     return dict(bst=bst, timed=timed, launches=launches[kernel],
                 scan_launches=launches["split_scan"],
                 sigmoid_launches=launches["sigmoid"],
-                logloss=logloss, auc=auc, train_s=train_s,
+                logloss=final.get("logloss"), auc=final.get("auc"),
+                final=final, train_s=train_s,
                 rate=n_rows * rounds / train_s / 1e6,
                 times=" ".join(f"{t:.3f}" for t in times),
                 with_eval_s=with_eval_s)
@@ -1131,7 +1195,7 @@ def _round_hist_bound(xtt, hist_cuda, dtrain, params, kernel, label):
     TB/s, summed over the levels."""
     name = "run_f32" if kernel == "hist_f32" else "run_q"
     launch = getattr(hist_cuda, name)
-    levels = []
+    levels, inputs = [], []
 
     def counted(bins, vals, pos, plan, *, node0, n_nodes, n_bin, stride=1):
         local = pos.long() - node0
@@ -1142,6 +1206,9 @@ def _round_hist_bound(xtt, hist_cuda, dtrain, params, kernel, label):
         cell_bytes = 8 if kernel == "hist_f32" else 4 * vals[0].numel()
         levels.append((4 * R + n_in * (F * bins.element_size() + row_bytes)
                        + n_nodes * F * n_bin * cell_bytes) / HBM_BYTES_PER_S)
+        inputs.append((bins, vals.clone(), pos.clone(),
+                       dict(node0=node0, n_nodes=n_nodes, n_bin=n_bin,
+                            stride=stride)))
         return launch(bins, vals, pos, plan, node0=node0, n_nodes=n_nodes,
                       n_bin=n_bin, stride=stride)
 
@@ -1151,11 +1218,15 @@ def _round_hist_bound(xtt, hist_cuda, dtrain, params, kernel, label):
     finally:
         setattr(hist_cuda, name, launch)
     bound_ms = sum(levels) * 1e3
+    # the index_add_ yardstick on each launch's own inputs
+    library_ms = sum(_index_add_ms(kernel, bins, vals, pos, **kw)
+                     for bins, vals, pos, kw in inputs)
     log(f"phase {label} bound: one round's {len(levels)} histograms of "
         f"{kernel} on this data move at least "
         f"{bound_ms * 1e-3 * HBM_BYTES_PER_S / 1e6:.1f} MB, {bound_ms:.4f} ms "
-        "at 3.35 TB/s")
-    return bound_ms
+        f"at 3.35 TB/s; index_add_ on the same inputs {library_ms:.4f} ms a "
+        "round")
+    return bound_ms, library_ms
 
 
 def phase_categorical(xtt, hist_cuda, rounds: int = 10):
@@ -1195,8 +1266,8 @@ def phase_categorical(xtt, hist_cuda, rounds: int = 10):
             f"{sum(int((t.left_children != -1).sum()) for t in r['bst'].trees)}"
             f"; two runs byte-identical: {same}")
         phase_profile(xtt, dtrain, params, f"{label} (categorical)")
-        r["bound_ms"] = _round_hist_bound(xtt, hist_cuda, dtrain, params,
-                                          kernel, label)
+        r["bound_ms"], r["library_ms"] = _round_hist_bound(
+            xtt, hist_cuda, dtrain, params, kernel, label)
         out[kernel] = r
     bst = out["hist_f32"]["bst"]
     dtest = xtt.DMatrix(X[:100_000], feature_types=CRITEO_TYPES)
@@ -1236,6 +1307,418 @@ def phase_categorical_parity(xtt):
     _card_vs_cpu(xtt, dict(CRITEO, grow_policy="lossguide", max_depth=0,
                            max_leaves=31), X, y, 3, 1e-4, "7b lossguide",
                  **dm)
+
+
+# ------------------------------------------------------ multiclass, forest
+COVER_CLASSES = 7
+COVER = {"objective": "multi:softprob", "num_class": COVER_CLASSES,
+         "max_depth": 8, "max_bin": 256, "eta": 0.3}
+COVER_DET = dict(COVER, deterministic_histogram=1)
+# the majority class errs 0.497 on this generator, the class of the
+# noiseless score about 0.17 (the noise floor)
+MERROR_GATE = 0.30
+
+
+def make_covertype(n: int = 581_012, seed: int = 0):
+    """The covertype_softprob rows of scripts/bench_ladder.py:88-90 and
+    106-135 (numpy only): 54 columns N(0, 1) with 2% NaN, 7 classes cut
+    from a noisy linear score's range (shares 0.0008 to 0.503)."""
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(n, 54)).astype(np.float32)
+    X[rng.random((n, 54)) < 0.02] = np.nan
+    lin = (np.nan_to_num(X[:, 0]) * 1.2 - np.nan_to_num(X[:, 1])
+           + 0.5 * np.nan_to_num(X[:, 2]) * np.nan_to_num(X[:, 3]))
+    z = lin + rng.normal(scale=0.5, size=n)
+    y = np.clip(((z - z.min()) / (np.ptp(z) + 1e-9)
+                 * COVER_CLASSES).astype(np.int64), 0, COVER_CLASSES - 1)
+    return X, y.astype(np.float32)
+
+
+def _tree_launches(hist_cuda, kernel, trees, depth, sigmoid=0):
+    """Launch counts of a training whose trees all build ``depth`` levels:
+    the histogram kernel and K3 once a level of each tree."""
+    want = {name: 0 for name in hist_cuda.SOURCES}
+    want[kernel] = want["split_scan"] = trees * depth
+    want["sigmoid"] = sigmoid
+    return want
+
+
+def phase_multiclass(xtt, hist_cuda, rounds: int = 5):
+    """multi:softprob at full width, Covertype-shaped, on both histogram
+    paths: 7 class trees a round, each of 8 levels, so K1/K2 and K3 launch
+    56 times a round; no K4 (softmax, no sigmoid)."""
+    X, y = make_covertype()
+    t0 = time.perf_counter()
+    dtrain = xtt.DMatrix(X, label=y)
+    dtrain.ensure_ellpack(max_bin=256)
+    torch.cuda.synchronize()
+    ingest_s = time.perf_counter() - t0
+    K, depth = COVER_CLASSES, COVER["max_depth"]
+    out = {}
+    for label, params, kernel in (("8", COVER, "hist_f32"),
+                                  ("8 deterministic", COVER_DET, "hist_q")):
+        r = _train_main_path(
+            xtt, hist_cuda, params, dtrain, X.shape[0], rounds, kernel,
+            label, metrics=("mlogloss", "merror"),
+            want_fn=lambda evals: _tree_launches(
+                hist_cuda, kernel, K * rounds, depth))
+        merror = r["final"]["merror"]
+        if not merror < MERROR_GATE:
+            raise AssertionError(f"phase {label}: merror {merror} >= "
+                                 f"{MERROR_GATE}")
+        if len(r["bst"].trees) != K * rounds:
+            raise AssertionError(f"phase {label}: {len(r['bst'].trees)} "
+                                 f"trees, want {K * rounds}")
+        same = _model_bytes(r["bst"]) == _model_bytes(r["timed"])
+        if params is COVER_DET and not same:
+            raise AssertionError(f"phase {label}: two deterministic runs "
+                                 "wrote different models")
+        per_round = r["launches"] // rounds
+        log(f"phase {label} multiclass train: {X.shape[0]} x 54, {K} "
+            f"classes, depth {depth}, max_bin 256, {rounds} rounds; ingest "
+            f"(device sketch + bins) {ingest_s:.3f} s; train loop median "
+            f"{r['train_s']:.3f} s = {r['rate']:.3f} M row-rounds/s, "
+            f"{K * rounds / r['train_s']:.2f} trees/s, "
+            f"{r['train_s'] / (K * rounds) * 1e3:.2f} ms a tree (runs "
+            f"{r['times']} s); with eval {r['with_eval_s']:.3f} s; {kernel} "
+            f"and K3 launches {per_round} and "
+            f"{r['scan_launches'] // rounds} a round ({K} x {depth} levels), "
+            f"K4 {r['sigmoid_launches']}; mlogloss "
+            f"{r['final']['mlogloss']:.6f} merror {merror:.6f} (gate "
+            f"{MERROR_GATE}); two runs byte-identical: {same}")
+        phase_profile(xtt, dtrain, params, f"{label} (multiclass)")
+        out[kernel] = r
+    bst = out["hist_q"]["bst"]
+    dtest = xtt.DMatrix(X[:100_000])
+    prob = bst.predict(dtest)
+    if prob.shape != (dtest.num_row(), K) or not np.all(np.isfinite(prob)) \
+            or np.abs(prob.sum(axis=1) - 1).max() > 1e-6:
+        raise AssertionError(f"phase 8: predictions {prob.shape}, row sums "
+                             f"off by {np.abs(prob.sum(axis=1) - 1).max()}")
+    here = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(dir=here) as tmp:
+        for ext in ("json", "ubj"):
+            path = os.path.join(tmp, f"cover.{ext}")
+            bst.save_model(path)
+            again = xtt.Booster(model_file=path)
+            if not np.array_equal(again.predict(dtest), prob) \
+                    or _model_bytes(again) != _model_bytes(bst):
+                raise AssertionError(f"phase 8: the {ext} model does not "
+                                     "reload to the same predictions")
+    log(f"phase 8 predict: {dtest.num_row()} x {K} probabilities, rows sum "
+        f"to 1 within "
+        f"{np.abs(prob.sum(axis=1) - 1).max():.3g}; JSON and UBJ reload and "
+        "predict identically")
+    return out, X, y
+
+
+def _first_difference(got, ref):
+    """(tree, node) of the first split where two boosters' trees differ,
+    in training order and heap order; None where they are the same."""
+    for t, (a, b) in enumerate(zip(got.trees, ref.trees)):
+        n = min(a.n_nodes, b.n_nodes)
+        d = np.nonzero((a.split_indices[:n] != b.split_indices[:n])
+                       | (a.left_children[:n] != b.left_children[:n]))[0]
+        if len(d) or a.n_nodes != b.n_nodes:
+            return t, int(d[0]) if len(d) else n
+    return None
+
+
+def _card_vs_cpu_f32_tie(xtt, params, X, y, rounds, atol, label):
+    """The f32 path card vs CPU where a near tie may decide a split: the
+    trees must be the same, and the predictions within ``atol``; or else
+    the first split where they differ must be a tie within the noise of
+    f32 sums in two orders.  That noise, delta, is the largest relative
+    difference between the card's and the CPU's gains of one and the same
+    split, over the splits before the first difference whose gain is at
+    least the CPU's there (a smaller gain's relative noise is inflated by
+    the subtraction that forms it).  If the card
+    chose split a and the CPU split b, then gain_a >= gain_b on the card
+    and gain_b >= gain_a on the CPU, so |card gain_a - CPU gain_b| <=
+    delta (relative); the check allows 2 delta."""
+    d_card = xtt.DMatrix(X, label=y)
+    d_cpu = xtt.DMatrix(X, label=y, device="cpu")
+    got = xtt.train(params, d_card, rounds, verbose_eval=False)
+    ref = xtt.train(params, d_cpu, rounds, verbose_eval=False, device="cpu")
+    first = _first_difference(got, ref)
+    if first is None:
+        diff = np.abs(got.predict(xtt.DMatrix(X)) - ref.predict(
+            xtt.DMatrix(X, device="cpu"))).max()
+        if diff > atol:
+            raise AssertionError(f"phase {label}: card and CPU predictions "
+                                 f"differ by {diff}")
+        log(f"phase {label} parity: card vs CPU on {X.shape[0]} rows, same "
+            f"trees, max |pred diff| {diff:.3g}")
+        return
+    t, node = first
+    a, b = got.trees[t], ref.trees[t]
+    floor = abs(float(b.loss_changes[node]))
+    noise = []
+    for i in range(t + 1):
+        ta, tb = got.trees[i], ref.trees[i]
+        same = np.arange(node if i == t else ta.n_nodes)
+        ga, gb = (ta.loss_changes[same].astype(np.float64),
+                  tb.loss_changes[same].astype(np.float64))
+        keep = (ta.left_children[same] != -1) & (np.abs(gb) >= floor)
+        noise.append(np.abs(ga - gb)[keep] / np.abs(gb)[keep])
+    noise = np.concatenate(noise)
+    delta = float(noise.max()) if len(noise) else 0.0
+    gap = abs(float(a.loss_changes[node]) - float(b.loss_changes[node])) \
+        / max(abs(float(b.loss_changes[node])), 1e-30)
+    log(f"phase {label} parity: card vs CPU on {X.shape[0]} rows: the {t} "
+        f"trees before tree {t} (round {t // params.get('num_class', 1)}) "
+        f"the same; it first differs at node {node}: card feature "
+        f"{a.split_indices[node]} gain {a.loss_changes[node]!r}, CPU feature "
+        f"{b.split_indices[node]} gain {b.loss_changes[node]!r}, a relative "
+        f"gap of {gap:.3g} against the gains' card-vs-CPU noise {delta:.3g} "
+        f"over {len(noise)} same splits before it of at least its gain")
+    if not gap <= 2 * delta:
+        raise AssertionError(f"phase {label}: card and CPU grew different "
+                             f"trees, not at a near tie (gap {gap:.3g}, "
+                             f"noise {delta:.3g})")
+
+
+def phase_multiclass_parity(xtt, X, y):
+    """Card vs CPU on 20,000 rows of the Covertype-shaped generator: under
+    deterministic_histogram=1 at depth 6 byte-identical model JSON, plain
+    and with row and column sampling and weights; the f32 path at depth 4
+    the same trees.  Then one get_gradient at full width: its kernels and
+    time."""
+    from xgboost_tpu_torch.objective import create_objective
+
+    Xs, ys = make_covertype(20_000, seed=3)
+    w = np.random.default_rng(4).uniform(0.5, 2.0, len(ys)).astype(np.float32)
+    det = dict(COVER_DET, max_depth=6)
+    _card_vs_cpu(xtt, det, Xs, ys, 3, 1e-5, "8b", identical=True)
+    _card_vs_cpu(xtt, dict(det, subsample=0.8, colsample_bynode=0.8, seed=9),
+                 Xs, ys, 3, 1e-5, "8b sampled", identical=True, weight=w)
+    _card_vs_cpu_f32_tie(xtt, dict(COVER, max_depth=4), Xs, ys, 3, 1e-4,
+                         "8b f32")
+    rng = np.random.default_rng(8)
+    margin = torch.from_numpy(
+        (rng.normal(size=(X.shape[0], COVER_CLASSES)) * 2).astype(
+            np.float32)).cuda()
+    labels = torch.from_numpy(y).cuda()
+    obj = create_objective("multi:softprob", {"num_class": COVER_CLASSES})
+    for _ in range(3):  # the profiler now and then sees no events at all
+        dev_ms, n, kernels = device_per_call(
+            lambda: obj.get_gradient(margin, labels, None))
+        if n:
+            break
+    ms = cuda_ms(lambda: obj.get_gradient(margin, labels, None))
+    # least bytes: margins and labels read once, the pairs written once
+    bound_ms = (margin.numel() * 4 * 3 + labels.numel() * 4) \
+        / HBM_BYTES_PER_S * 1e3
+    log(f"phase 8b gradient: one multiclass get_gradient at {X.shape[0]} x "
+        f"{COVER_CLASSES} issues {n} kernels, {dev_ms} ms of device time; "
+        f"{ms:.4f} ms a call (CUDA events, median of 20); bound "
+        f"{bound_ms:.4f} ms at 3.35 TB/s")
+
+
+FOREST = {"objective": "binary:logistic", "num_parallel_tree": 100,
+          "subsample": 0.8, "colsample_bynode": 0.8, "eta": 1.0,
+          "max_depth": 5, "max_bin": 256}
+
+
+def phase_forest(xtt, hist_cuda, dtrain, y, repeats: int = 3):
+    """A random forest as XGBoost's tutorial sets it (doc/tutorials/rf.rst):
+    100 parallel trees in one round at full width; K1 and K3 launched 5
+    times a tree, K4 once for the base score, once for the gradient and
+    once for the evaluation; the AUC of its margins over 0.9 and over its
+    first tree's alone."""
+    trees, depth = FOREST["num_parallel_tree"], FOREST["max_depth"]
+    hist_cuda.reset_launches()
+    res: dict = {}
+    bst = xtt.train(dict(FOREST, eval_metric=["logloss", "auc"]), dtrain, 1,
+                    evals=[(dtrain, "train")], evals_result=res,
+                    verbose_eval=False)
+    torch.cuda.synchronize()
+    want = _tree_launches(hist_cuda, "hist_f32", trees, depth, sigmoid=3)
+    if hist_cuda.launches != want:
+        raise AssertionError(f"phase 9: launches {hist_cuda.launches}, want "
+                             f"{want}")
+    if len(bst.trees) != trees or bst.num_boosted_rounds() != 1:
+        raise AssertionError(f"phase 9: {len(bst.trees)} trees in "
+                             f"{bst.num_boosted_rounds()} rounds")
+    from xgboost_tpu_torch.metric import auc as auc_of
+
+    # the reference adds each of the 100 trees at full eta, so margins
+    # reach hundreds and many f32 probabilities round to 0 or 1, tied: the
+    # forest's ranking is read from its margins; against its first tree
+    # alone (num_parallel_tree=1 draws the same rows and columns for it)
+    prob_auc = res["train"]["auc"][-1]
+    margin = bst.predict(dtrain, output_margin=True)
+    prob = bst.predict(dtrain)
+    saturated = float(np.mean((prob == 0.0) | (prob == 1.0)))
+    auc = auc_of(margin, y)
+    first = xtt.train(dict(FOREST, num_parallel_tree=1), dtrain, 1,
+                      verbose_eval=False)
+    one_auc = auc_of(first.predict(dtrain, output_margin=True), y)
+    if not (auc > 0.9 and auc > one_auc):
+        raise AssertionError(f"phase 9: AUC of the margins {auc} (first tree "
+                             f"alone {one_auc})")
+    times = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        xtt.train(FOREST, dtrain, 1, verbose_eval=False)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    t = statistics.median(times)
+    log(f"phase 9 forest: {len(y)} x 28, num_parallel_tree={trees}, "
+        f"subsample=0.8, colsample_bynode=0.8, eta=1, depth {depth}, one "
+        f"round; K1 {want['hist_f32']} and K3 {want['split_scan']} "
+        f"launches, K4 {want['sigmoid']}; logloss "
+        f"{res['train']['logloss'][-1]:.6f}; auc of the margins {auc:.6f} "
+        f"(its first tree alone {one_auc:.6f}), of the f32 probabilities "
+        f"{prob_auc:.6f} (exactly 0 or 1 on {saturated:.4f} of the rows); "
+        "the round median "
+        f"{t:.3f} s (runs {' '.join(f'{x:.3f}' for x in times)}) = "
+        f"{trees / t:.1f} trees/s")
+    Xs, ys = make_data(20_000, 28, seed=3)
+    _card_vs_cpu(xtt, dict(FOREST, num_parallel_tree=4, max_bin=64,
+                           deterministic_histogram=1, seed=5), Xs, ys, 2,
+                 1e-5, "9b", identical=True)
+
+
+def _squared_error(margin, dmat):
+    return margin - dmat.get_label(), np.ones_like(margin)
+
+
+def phase_api(xtt, dtrain, X, y):
+    """The training API on the card at phase 3's matrix under
+    deterministic_histogram=1: continuation byte-identical to the
+    uninterrupted run (from the Booster and from saved UBJ), a custom
+    squared-error objective and boost() byte-identical to
+    reg:squarederror, save_raw round trips, pred_leaf's leaves summed in
+    predict's order equal to its margins bit for bit, and a custom metric
+    in the log."""
+    params = dict(DET, subsample=0.8, seed=11)
+    full = xtt.train(params, dtrain, 10, verbose_eval=False)
+    half = xtt.train(params, dtrain, 5, verbose_eval=False)
+    forms = {"Booster": half, "UBJ": half.save_raw("ubj")}
+    for form, model in forms.items():
+        cont = xtt.train(params, dtrain, 5, verbose_eval=False,
+                         xgb_model=model)
+        if _model_bytes(cont) != _model_bytes(full):
+            raise AssertionError(f"phase 10: 5 + 5 rounds from the {form} "
+                                 "differ from 10 rounds")
+    reg = dict(DET, objective="reg:squarederror")
+    dreg = xtt.DMatrix(X, label=y.astype(np.float32))
+    builtin = xtt.train(reg, dreg, 5, verbose_eval=False)
+    pairs = []
+
+    def recorded(margin, dmat):
+        pairs.append(_squared_error(margin, dmat))
+        return pairs[-1]
+
+    custom = xtt.train(reg, dreg, 5, verbose_eval=False, obj=recorded)
+    boosted = xtt.Booster(reg, cache=[dreg])
+    for i, (g, h) in enumerate(pairs):
+        boosted.boost(dreg, g, h, i)
+    if not (_model_bytes(custom) == _model_bytes(builtin)
+            == _model_bytes(boosted)):
+        raise AssertionError("phase 10: the custom objective or boost() "
+                             "grew another model than reg:squarederror")
+    dtest = xtt.DMatrix(X[:100_000])
+    back = xtt.Booster()
+    back.load_model(full.save_raw("ubj"))
+    if not np.array_equal(back.predict(dtest), full.predict(dtest)) \
+            or _model_bytes(back) != _model_bytes(full):
+        raise AssertionError("phase 10: save_raw('ubj') does not reload to "
+                             "the same model")
+    leaves = full.predict(dtest, pred_leaf=True)
+    R = dtest.num_row()
+    if leaves.shape != (R, 10) or leaves.dtype != np.int32:
+        raise AssertionError(f"phase 10: pred_leaf {leaves.shape} "
+                             f"{leaves.dtype}")
+    margin = np.zeros(R, np.float32)
+    for t, tree in enumerate(full.trees):
+        margin += tree.split_conditions[leaves[:, t]]
+    margin += full.base_score[0]
+    want = full.predict(dtest, output_margin=True)
+    if not np.array_equal(margin.view(np.uint32), want.view(np.uint32)):
+        raise AssertionError("phase 10: the leaves' values do not sum to "
+                             "predict's margins")
+    res: dict = {}
+
+    def mae(margin, dmat):
+        return "mae", float(np.mean(np.abs(margin[:, 0] - dmat.get_label())))
+
+    xtt.train(reg, dreg, 2, evals=[(dreg, "train")], evals_result=res,
+              verbose_eval=False, custom_metric=mae)
+    if list(res["train"]) != ["rmse", "mae"]:
+        raise AssertionError(f"phase 10: the log holds {list(res['train'])}")
+    log("phase 10 API: under deterministic_histogram=1 at "
+        f"{X.shape[0]} x 28, 5 + 5 rounds (from the Booster and from UBJ) "
+        "byte-identical to 10; a custom squared-error objective and boost() "
+        "byte-identical to reg:squarederror; save_raw('ubj') reloads to the "
+        f"same predictions; pred_leaf {leaves.shape} int32, the leaves' "
+        "values summed in tree order from zero, then the base margin, equal "
+        "predict's margins bit for bit; custom metric in the log: mae "
+        f"{res['train']['mae'][-1]:.6f}")
+
+
+CSR_EXTRA, CSR_DENSITY = 228, 0.02
+CSR_PARAMS = {"objective": "binary:logistic", "max_depth": 6,
+              "max_bin": 256, "eta": 0.3}
+
+
+def make_csr(X, seed: int = 12):
+    """Phase 3's dense columns (any NaN left out: implicit missing) beside
+    228 columns of N(0, 1) values stored at density 0.02, as one CSR
+    matrix of 256 features."""
+    import scipy.sparse as sp
+
+    rng = np.random.default_rng(seed)
+    n = X.shape[0]
+    k = rng.binomial(CSR_EXTRA, CSR_DENSITY, size=n)
+    rows = np.repeat(np.arange(n), k)
+    cols = rng.integers(0, CSR_EXTRA, size=k.sum())  # a repeat is summed
+    extra = sp.csr_matrix((rng.normal(size=k.sum()).astype(np.float32),
+                           (rows, cols)), shape=(n, CSR_EXTRA))
+    extra.sum_duplicates()
+    dense = np.where(np.isnan(X), 0.0, X).astype(np.float32)
+    m = sp.hstack([sp.csr_matrix(dense), extra], format="csr")
+    m.eliminate_zeros()
+    return m
+
+
+def phase_csr(xtt, hist_cuda, X, y, rounds: int = 10):
+    """CSR input at full width: the host sketch of the stored entries and
+    the bins on the card timed apart, then the main path's training; K1
+    and K3 launched 6 times a round."""
+    from xgboost_tpu_torch.data.ellpack import build_ellpack_csr
+    from xgboost_tpu_torch.data.quantile import sketch_csr
+
+    m = make_csr(X)
+    F = m.shape[1]
+    arrays = (m.indptr, m.indices, m.data.astype(np.float32))
+    t0 = time.perf_counter()
+    cuts = sketch_csr(*arrays, F, 256)
+    t1 = time.perf_counter()
+    ell = build_ellpack_csr(*arrays, F, cuts, device="cuda")
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    dtrain = xtt.DMatrix(m, label=y)
+    if not torch.equal(dtrain.ensure_ellpack(256).bins, ell.bins):
+        raise AssertionError("phase 11: the DMatrix's bins are not the "
+                             "entries' bins")
+    r = _train_main_path(xtt, hist_cuda, CSR_PARAMS, dtrain, X.shape[0],
+                         rounds, "hist_f32", "11")
+    bin_bytes = ell.bins.numel() * ell.bins.element_size()
+    log(f"phase 11 CSR train: {m.shape[0]} x {F} CSR ({m.nnz} stored, "
+        f"{m.nnz / m.shape[0]:.1f} a row), depth 6, max_bin 256, {rounds} "
+        f"rounds; ingest: host sketch {t1 - t0:.3f} s, bins on the card "
+        f"{t2 - t1:.3f} s ({bin_bytes} bytes, {ell.bins.dtype}); train loop "
+        f"median {r['train_s']:.3f} s = {r['rate']:.3f} M row-rounds/s (runs "
+        f"{r['times']} s); with eval {r['with_eval_s']:.3f} s; logloss "
+        f"{r['logloss']:.6f} auc {r['auc']:.6f}; K1 and K3 launches "
+        f"{r['launches']} each, K4 {r['sigmoid_launches']}")
+    phase_profile(xtt, dtrain, CSR_PARAMS, "11 (CSR)")
+    Xs, ys = make_data(20_000, 28, seed=3)
+    _card_vs_cpu(xtt, dict(CSR_PARAMS, deterministic_histogram=1,
+                           max_bin=64), make_csr(Xs), ys, 5, 1e-5, "11b",
+                 identical=True)
 
 
 def _kernel_entry(name, source, cases, launches):
@@ -1339,6 +1822,12 @@ def main() -> int:
     timed("6b", phase_lossguide_parity, xtt)
     cat = timed("7", phase_categorical, xtt, hist_cuda)
     timed("7b", phase_categorical_parity, xtt)
+    _, Xc, yc = timed("8", phase_multiclass, xtt, hist_cuda)
+    timed("8b", phase_multiclass_parity, xtt, Xc, yc)
+    del Xc, yc
+    timed("9", phase_forest, xtt, hist_cuda, dtrain, y)
+    timed("10", phase_api, xtt, dtrain, X, y)
+    timed("11", phase_csr, xtt, hist_cuda, X, y)
 
     kernels = [_kernel_entry(name, hist_cuda.SOURCES[name], cases, n)
                for name, cases, n in (("hist_f32", f32_cases, f32["launches"]),

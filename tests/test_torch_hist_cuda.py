@@ -18,7 +18,9 @@ the card writing the CPU's model JSON.
 K3 also at widths past its chunks and levels, up to the widest it takes.
 K4 (csrc/sigmoid.cu) held against its plain versions bitwise over the f32
 range and its edges: the sigmoid, and the binary:logistic gradient pairs
-with and without weights and scale_pos_weight.  Every
+with and without weights and scale_pos_weight.  Multiclass, forest and
+CSR training on the card writing the CPU's model JSON, with the kernels'
+launches a level of each tree counted.  Every
 test here needs a CUDA device and skips without one; the file imports
 neither JAX nor xgboost_tpu, so it runs on a machine that has only
 PyTorch."""
@@ -736,3 +738,82 @@ def test_logistic_gradient_rejects_what_it_cannot_take():
         logistic_gradient_cuda(x.double(), x)
     with pytest.raises(ValueError):
         logistic_gradient_cuda(x, x[:4])
+
+
+# ------------------------------------------- multiclass, forests, CSR
+def _small_multiclass(R=3000, F=10, K=3, seed=0):
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(R, F)).astype(np.float32)
+    X[rng.random((R, F)) < 0.05] = np.nan
+    z = np.nan_to_num(X[:, 0]) - 0.5 * np.nan_to_num(X[:, 1])
+    y = np.digitize(z, np.quantile(z, np.linspace(0, 1, K + 1)[1:-1]))
+    return X, y.astype(np.float32), rng.uniform(0.5, 2.0, R).astype(
+        np.float32)
+
+
+@needs_cuda
+@pytest.mark.parametrize("sampled", [False, True])
+def test_multiclass_training_card_is_the_cpus(sampled):
+    """multi:softprob under deterministic_histogram=1: K2 and K3 launched
+    once a level of each class tree, no K4, and the CPU's model JSON."""
+    X, y, w = _small_multiclass()
+    params = {"objective": "multi:softprob", "num_class": 3, "max_depth": 4,
+              "max_bin": 64, "deterministic_histogram": 1}
+    dm = {}
+    if sampled:
+        params.update(subsample=0.8, colsample_bynode=0.8, seed=4)
+        dm["weight"] = w
+    hist_cuda.reset_launches()
+    got = xtt.train(params, xtt.DMatrix(X, label=y, **dm), 3,
+                    verbose_eval=False)
+    assert hist_cuda.launches == {"hist_f32": 0, "hist_q": 3 * 3 * 4,
+                                  "split_scan": 3 * 3 * 4, "sigmoid": 0}
+    want = xtt.train(params, xtt.DMatrix(X, label=y, device="cpu", **dm), 3,
+                     verbose_eval=False, device="cpu")
+    assert json.dumps(got.save_raw_dict()) == json.dumps(want.save_raw_dict())
+    prob = got.predict(xtt.DMatrix(X))
+    assert prob.shape == (len(X), 3)
+    np.testing.assert_allclose(prob.sum(axis=1), 1.0, atol=1e-6)
+
+
+@needs_cuda
+def test_forest_training_card_is_the_cpus():
+    """num_parallel_tree=3 with row and column sampling: K2 and K3 once a
+    level of each of the 3 trees a round, and the CPU's model JSON."""
+    X, y, _ = _small_multiclass()
+    y = (y > 0).astype(np.float32)
+    params = {"objective": "binary:logistic", "num_parallel_tree": 3,
+              "subsample": 0.8, "colsample_bynode": 0.8, "eta": 1.0,
+              "max_depth": 4, "max_bin": 64, "deterministic_histogram": 1,
+              "seed": 6}
+    hist_cuda.reset_launches()
+    got = xtt.train(params, xtt.DMatrix(X, label=y), 2, verbose_eval=False)
+    assert hist_cuda.launches["hist_q"] == hist_cuda.launches[
+        "split_scan"] == 2 * 3 * 4
+    want = xtt.train(params, xtt.DMatrix(X, label=y, device="cpu"), 2,
+                     verbose_eval=False, device="cpu")
+    assert json.dumps(got.save_raw_dict()) == json.dumps(want.save_raw_dict())
+    assert got.num_boosted_rounds() == 2 and len(got.trees) == 6
+
+
+@needs_cuda
+def test_csr_bins_and_training_card_are_the_cpus():
+    """CSR input: the bins computed on the card from the stored entries
+    equal the CPU's, and the deterministic model JSON is the CPU's."""
+    import scipy.sparse as sp
+
+    X, y, _ = _small_multiclass(F=40)
+    y = (y > 0).astype(np.float32)
+    X[np.random.default_rng(1).random(X.shape) < 0.8] = 0.0
+    m = sp.csr_matrix(np.nan_to_num(X))
+    d_card, d_cpu = xtt.DMatrix(m, label=y), xtt.DMatrix(m, label=y,
+                                                         device="cpu")
+    assert torch.equal(d_card.ensure_ellpack(64).bins.cpu(),
+                       d_cpu.ensure_ellpack(64).bins)
+    params = {"objective": "binary:logistic", "max_depth": 4, "max_bin": 64,
+              "deterministic_histogram": 1}
+    got = xtt.train(params, d_card, 3, verbose_eval=False)
+    want = xtt.train(params, d_cpu, 3, verbose_eval=False, device="cpu")
+    assert json.dumps(got.save_raw_dict()) == json.dumps(want.save_raw_dict())
+    np.testing.assert_array_equal(got.predict(xtt.DMatrix(m)),
+                                  want.predict(xtt.DMatrix(m, device="cpu")))

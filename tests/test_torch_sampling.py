@@ -114,7 +114,7 @@ def test_weighted_column_masks_match_reference(sampler, weights):
     ref, got = _boosters(dict(sampler, seed=11))
     for it in (0, 2):
         fa = ref._feature_masks(it * 131, 0, len(FW), weights)
-        fb = got._feature_masks(it, len(FW), weights)
+        fb = got._feature_masks(it * 131, 0, len(FW), weights)
         for depth, n in ((0, 1), (1, 2), (2, 4), (0, 2), (0, 2)):
             a = np.asarray(fa(depth, n))
             b = fb(depth, n).numpy()
@@ -132,7 +132,7 @@ def test_feature_weight_errors_match_reference(weights, params):
     ref, got = _boosters(dict(params, seed=2))
     draws = []
     for call in (lambda: ref._feature_masks(0, 0, 8, weights),
-                 lambda: got._feature_masks(0, 8, weights)):
+                 lambda: got._feature_masks(0, 0, 8, weights)):
         with pytest.raises(ValueError) as err:
             fn = call()
             for d in range(3):  # a level draw may be the one that fails

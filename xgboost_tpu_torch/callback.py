@@ -29,8 +29,9 @@ class TrainingCallback:
 class CallbackContainer:
     """Runs a list of callbacks (reference: callback.py:149)."""
 
-    def __init__(self, callbacks: Sequence[TrainingCallback]):
+    def __init__(self, callbacks: Sequence[TrainingCallback], metric=None):
         self.callbacks = list(callbacks)
+        self.metric = metric  # a custom metric, passed to eval_set
         self.history: _EvalsLog = collections.OrderedDict()
 
     def before_training(self, model):
@@ -57,7 +58,8 @@ class CallbackContainer:
 
     def after_iteration(self, model, epoch, dtrain, evals) -> bool:
         if evals:
-            self.update_history(model.eval_set(evals, epoch))
+            self.update_history(model.eval_set(evals, epoch,
+                                               feval=self.metric))
         return any(cb.after_iteration(model, epoch, self.history)
                    for cb in self.callbacks)
 

@@ -1,12 +1,13 @@
-"""Quantile sketch -> histogram bin boundaries (port of the dense,
+"""Quantile sketch -> histogram bin boundaries (port of the dense and CSR,
 unweighted paths of xgboost_tpu/data/quantile.py, categorical features
 included: they get identity cuts, code c in bin c).
 
-Two sketches, as in the reference: the exact host grid (numpy) for data on
-the CPU, and the accelerator sketch (a device sort of a row subsample) for
-data on the card.  Each agrees bitwise with its twin in the reference; the
-two differ from each other above about 10^5 rows.  Cut semantics match the reference
-(hist_util.cc):
+Two dense sketches, as in the reference: the exact host grid (numpy) for
+data on the CPU, and the accelerator sketch (a device sort of a row
+subsample) for data on the card.  Each agrees bitwise with its twin in the
+reference; the two differ from each other above about 10^5 rows.  CSR
+input takes the host sketch of its stored entries (``sketch_csr``) on
+either device.  Cut semantics match the reference (hist_util.cc):
  - bin b of feature f covers values v with cuts[b-1] <= v < cuts[b]
    (bin index = count of cuts <= v, i.e. searchsorted side='right');
  - the last cut is strictly greater than the feature max;
@@ -233,3 +234,57 @@ def sketch_dense(X, max_bin: int, use_device: Optional[bool] = None,
         X = X.cpu().numpy()
     return cuts_from_quantile_grid(
         *_host_grid(np.asarray(X, dtype=np.float32), max_bin))
+
+
+def _csr_grid(indptr, indices, values, n_features: int, max_bin: int,
+              cat_mask: Optional[np.ndarray]):
+    """Per-feature quantile grid and stats of the stored entries of a CSR
+    matrix, the CSR twin of ``_host_grid`` (reference quantile.py:524):
+    (grid, nvalid, vmax, vmin, cat_max).  Categorical columns stay out of
+    the numeric grid (nvalid 0) and report their largest code (-1 where
+    they store none)."""
+    n_cand = max(max_bin - 1, 1)
+    grid = np.full((n_features, n_cand), np.inf, dtype=np.float32)
+    nvalid = np.zeros(n_features, dtype=np.int64)
+    vmax = np.zeros(n_features, dtype=np.float32)
+    vmin = np.zeros(n_features, dtype=np.float32)
+    cat_max = np.full(n_features, -1.0, np.float32)
+    qs = np.arange(1, n_cand + 1, dtype=np.float64) / (n_cand + 1)
+    # the entries bucketed by column
+    order = np.argsort(indices, kind="stable")
+    val_sorted = values[order]
+    starts = np.searchsorted(indices[order], np.arange(n_features + 1))
+    is_cat = (np.zeros(n_features, bool) if cat_mask is None
+              else np.asarray(cat_mask, bool))
+    for f in range(n_features):
+        seg = val_sorted[starts[f]: starts[f + 1]].astype(np.float32)
+        vals = seg[~np.isnan(seg)]
+        if is_cat[f]:
+            # implicit zeros are missing: category 0 must be stored
+            if len(vals):
+                cat_max[f] = vals.max()
+            continue
+        nvalid[f] = len(vals)
+        if len(vals):
+            vmax[f], vmin[f] = vals.max(), vals.min()
+            grid[f] = np.quantile(vals, qs, method="inverted_cdf").astype(
+                np.float32)
+    return grid, nvalid, vmax, vmin, cat_max
+
+
+def sketch_csr(indptr, indices, values, n_features: int, max_bin: int,
+               cat_mask: Optional[np.ndarray] = None) -> HistogramCuts:
+    """HistogramCuts of a CSR matrix from its stored entries alone: an
+    implicit zero is missing, as in the reference's sparse DMatrix
+    (reference quantile.py:573 sketch_csr; src/common/hist_util.cc
+    SketchOnDMatrix walks the stored entries)."""
+    grid, nvalid, vmax, vmin, cat_max = _csr_grid(
+        indptr, indices, values, n_features, max_bin, cat_mask)
+    base = cuts_from_quantile_grid(grid, nvalid, vmax, vmin)
+    if cat_mask is None or not np.any(cat_mask):
+        return base
+    cat_n_cats = {int(f): (int(cat_max[f]) + 1 if cat_max[f] >= 0 else 1)
+                  for f in np.nonzero(cat_mask)[0]}
+    return _assemble_cuts(
+        n_features, max_bin, cat_n_cats,
+        lambda f: (base.feature_cuts(f), base.min_vals[f]))

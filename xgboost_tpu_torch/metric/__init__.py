@@ -1,5 +1,5 @@
-"""Evaluation metrics (port of rmse, logloss, error and auc from
-xgboost_tpu/metric/__init__.py; reference src/metric/).
+"""Evaluation metrics (port of rmse, logloss, error, merror, mlogloss and
+auc from xgboost_tpu/metric/__init__.py; reference src/metric/).
 
 Metrics take transformed predictions as host numpy arrays and reduce in
 float64 on the host, as the reference's do.
@@ -63,11 +63,29 @@ def error(preds, labels, weights=None, at: float = 0.5, **kw):
                   labels, weights)
 
 
+@register_metric("merror")
+def merror(preds, labels, weights=None, **kw):
+    cls = preds if preds.ndim == 1 else np.argmax(preds, axis=1)
+    return _wmean((cls != labels).astype(np.float64), labels, weights)
+
+
+@register_metric("mlogloss")
+def mlogloss(preds, labels, weights=None, **kw):
+    p = np.clip(np.asarray(preds, np.float64), 1e-16, 1 - 1e-16)
+    ll = -np.log(p[np.arange(len(labels)), labels.astype(np.int64)])
+    return _wmean(ll, labels, weights)
+
+
 @register_metric("auc")
 def auc(preds, labels, weights=None, **kw):
     """Binary ROC-AUC via the rank statistic with exact tie handling
-    (reference: src/metric/auc.cc BinaryROCAUC)."""
+    (reference: src/metric/auc.cc BinaryROCAUC); for (R, K) class
+    probabilities the mean of the K one-vs-rest AUCs (MultiClassOVR)."""
     s = np.asarray(preds, dtype=np.float64)
+    if s.ndim == 2:
+        return float(np.mean([
+            auc(s[:, k], (labels == k).astype(np.float64), weights)
+            for k in range(s.shape[1])]))
     y = labels > 0.5
     w = _w(labels, weights)
     order = np.argsort(s, kind="stable")

@@ -71,4 +71,4 @@ class ObjFunction:
         return "rmse"
 
 
-from . import regression  # noqa: E402,F401  (registers objectives)
+from . import multiclass, regression  # noqa: E402,F401  (registers objectives)

@@ -1,5 +1,6 @@
-"""Vectorized tree-traversal prediction (port of ``_traverse_one_tree`` and
-``predict_margin_delta`` of xgboost_tpu/ops/predict.py).
+"""Vectorized tree-traversal prediction (port of ``_traverse_one_tree``,
+``predict_margin_delta`` and ``predict_leaf_ids`` of
+xgboost_tpu/ops/predict.py).
 
 All rows and all trees of a stacked ensemble advance one level per step
 (rows at leaves stick); the per-row feature read is a gather.  Raw feature
@@ -61,3 +62,12 @@ def predict_margin_delta(X, feat, thr, dleft, left, right, value, groups,
     for t, g in enumerate(groups):
         margin[:, g] += leaf[:, t]
     return margin
+
+
+def predict_leaf_ids(X, feat, thr, dleft, left, right, is_cat=None,
+                     catm=None, *, depth: int):
+    """(R, T) int32 leaf node id of every row in every tree of a stack
+    (reference: ops/predict.py:253 predict_leaf_ids, Predictor::
+    PredictLeaf)."""
+    return _traverse(X, feat.long(), thr, dleft, left.long(), right.long(),
+                     depth, is_cat, catm).to(torch.int32)

@@ -99,10 +99,14 @@ def node_sums_q(gq, pos, node0: int, n_nodes: int):
 
 def dequantise_parts(hist_q, rho):
     """int32 limb sums (..., C, 3) -> (combined (..., C) f32, scale (C,)
-    f32), whose product is ``dequantise``."""
+    f32), whose product is ``dequantise``.  The scale is rho times the f32
+    reciprocal of 2**22 - 1: XLA rewrites the reference's division by that
+    constant so (the two differ at rho = 0.49999997, a softmax hessian's
+    usual maximum)."""
     f = hist_q.to(torch.float32)
     combined = f[..., 0] + 256.0 * f[..., 1] + 65536.0 * f[..., 2]
-    return combined, torch.div(rho, _qmax(rho))
+    inv = torch.full((), 1.0 / _QMAX, dtype=torch.float32, device=rho.device)
+    return combined, rho * inv
 
 
 def dequantise(hist_q, rho):

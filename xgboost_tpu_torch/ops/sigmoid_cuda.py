@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from ..utils.fp import FLT_MIN, sigmoid_f32
+from ..utils.fp import ftz, sigmoid_f32
 from .hist_cuda import launched, load_library, on_device
 
 __all__ = ["logistic_gradient", "logistic_gradient_cuda",
@@ -45,12 +45,6 @@ def sigmoid(x):
     return sigmoid_cuda(x) if x.is_cuda else sigmoid_f32(x)
 
 
-def _ftz(v):
-    """XLA's flush of a result below the smallest normal f32 to zero,
-    keeping its sign."""
-    return torch.where(v.abs() < FLT_MIN, v * 0.0, v)
-
-
 def logistic_gradient_plain(margin, label, weight=None,
                             scale_pos_weight: float = 1.0):
     """K4's gradient entry as PyTorch operations: the (R, 1, 2) f32
@@ -59,14 +53,14 @@ def logistic_gradient_plain(margin, label, weight=None,
     programs run (xgboost_tpu/objective/regression.py:115-119, _pack):
     p = sigmoid(x), w = spw where y == 1 else 1, grad = (p - y) w,
     hess = max(p (1 - p), 1e-16) w, both times the weight."""
-    y = _ftz(label.to(torch.float32))
+    y = ftz(label.to(torch.float32))
     p = sigmoid_f32(margin)
     w = torch.where(y == 1.0, scale_pos_weight, 1.0)
-    g = _ftz(_ftz(p - y) * w)
-    h = _ftz(torch.clamp(p * (1 - p), min=1e-16) * w)
+    g = ftz(ftz(p - y) * w)
+    h = ftz(torch.clamp(p * (1 - p), min=1e-16) * w)
     if weight is not None:
-        wt = _ftz(weight)
-        g, h = _ftz(g * wt), _ftz(h * wt)
+        wt = ftz(weight)
+        g, h = ftz(g * wt), ftz(h * wt)
     return torch.stack([g, h], dim=-1)[:, None, :]
 
 

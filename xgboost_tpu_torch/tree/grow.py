@@ -368,10 +368,12 @@ class HistTreeGrower:
         hist: Optional[torch.Tensor] = None
         for d in range(self.max_depth + 1):
             last = d == self.max_depth
-            # the last level splits nothing, so it needs no mask (its draw
-            # would be the tree's last, and the next tree seeds afresh)
-            fm = None if feature_masks is None or last \
-                else feature_masks(d, 1 << d)
+            # the last level splits nothing and takes no mask, but it draws
+            # one as the reference does: the K class trees of a round share
+            # one sampler, so the next tree's draws continue after it
+            fm = None if feature_masks is None else feature_masks(d, 1 << d)
+            if last:
+                fm = None
             state, hist = level_step(
                 state, bins, gpair, cuts_pad, n_bins, fm, setmat, hist, rho,
                 cm, depth=d, params=self.params, last_level=last,

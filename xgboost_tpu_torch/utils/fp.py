@@ -11,6 +11,8 @@ These functions do, on any device, in plain PyTorch operations:
   programs run: bitwise with XLA over every f32 of [-104, -87] and
   [87, 88.8] (tests/test_torch_split_scan.py), and the clamps beyond;
 - ``sum_f32``: ``jnp.sum`` of f32 values in XLA's CPU order;
+- ``softmax_f32``: ``jax.nn.softmax`` over the class axis, from the two;
+- ``ftz``: the flush of a result below the smallest normal f32;
 - ``sqrt_f32``: the correctly rounded square root, as XLA computes it
   (PyTorch's CPU kernel is off by an ulp for some inputs).
 """
@@ -60,6 +62,20 @@ def exp_f32(x):
     out = y * ((lo + 127) << 23).view(torch.float32) \
         * ((ni - lo + 127) << 23).view(torch.float32)
     return torch.where(out < FLT_MIN, torch.zeros_like(out), out)
+
+
+def ftz(v):
+    """XLA's flush of an f32 result below the smallest normal f32 to zero,
+    keeping its sign (its CPU programs run with denormals flushed)."""
+    return torch.where(v.abs() < FLT_MIN, v * 0.0, v)
+
+
+def softmax_f32(x):
+    """jax.nn.softmax(x, axis=1) of an (R, K) f32 tensor as XLA computes it
+    on the CPU: the row's max subtracted, XLA's exponential, the sum in
+    jnp.sum's order and one division, flushed."""
+    e = exp_f32(x - x.amax(dim=1, keepdim=True))
+    return ftz(e / sum_f32(e, dim=1)[:, None])
 
 
 def sigmoid_f32(x):
