@@ -312,3 +312,61 @@ def test_k2_plan_at_the_main_levels():
     assert (sixteen.cluster, sixteen.row_blocks) == (2, 2 * (66 // 14))
     with pytest.raises(ValueError, match="holds no block of hist_q"):
         hist_cuda.plan_q(1 << 20, 28, 16, 256, 6, lambda *a: 0, 2)
+
+
+@pytest.mark.parametrize("n_features", [1, 3, 28, 54])
+@pytest.mark.parametrize("n_bin", [16, 256, 1024])
+@pytest.mark.parametrize("depth", range(11))
+def test_class_axis_plan_at_one_class_is_k1s(depth, n_bin, n_features):
+    """K1's class axis with one class plans exactly what plan_f32 (pinned
+    to the frozen planner above) plans; with K classes each class keeps
+    K1's row blocks, so a cell adds the rows K1's adds, and every (node,
+    feature) pair of a class is still flushed once."""
+    levels = {(1 << depth, 1), (1 << max(0, depth - 1), 2 if depth else 1)}
+    for n_nodes, stride in sorted(levels):
+        for n_rows, limit in ((1 << 20, 8), (581_012, 2), (1000, 8)):
+            one = hist_cuda.plan_f32_multi(n_rows, n_features, n_nodes,
+                                           n_bin, 1, _card(limit), stride)
+            assert one == hist_cuda.plan_f32(n_rows, n_features, n_nodes,
+                                             n_bin, _card(limit), stride)
+            assert tuple(one) == _plan_f32_before(
+                n_rows, n_features, n_nodes, n_bin, _card(limit), stride)
+            many = hist_cuda.plan_f32_multi(n_rows, n_features, n_nodes,
+                                            n_bin, 7, _card(limit), stride)
+            assert many == one
+            assert many.row_blocks % many.cluster == 0
+            assert (_owners(many, n_nodes, n_features) == 1).all()
+
+
+def test_class_axis_plan_at_covertype_fits_the_card():
+    """Covertype's K = 7, F = 54, B = 256 at 581,012 rows: every level of
+    a depth-8 lockstep round fits the card's clusters, with at least one
+    cluster of row blocks per (class, feature group, node tile)."""
+    card = _card(8)
+    for d in range(8):
+        n_nodes, stride = (1, 1) if d == 0 else (1 << (d - 1), 2)
+        plan = hist_cuda.plan_f32_multi(581_012, 54, n_nodes, 256, 7, card,
+                                        stride)
+        cols = -(-54 // plan.feat_group) * -(-n_nodes // plan.node_tile) * 7
+        assert plan.row_blocks >= plan.cluster
+        assert cols * plan.row_blocks // plan.cluster >= 1
+        assert plan.feat_group * plan.node_tile * 256 * 8 \
+            + hist_cuda.STAGE_BYTES <= hist_cuda.SMEM_BUDGET
+
+
+def test_class_axis_dispatch_takes_plain_versions_on_cpu():
+    """On CPU tensors the class-axis dispatchers run the plain versions
+    and launch nothing."""
+    rng = np.random.default_rng(2)
+    bins = torch.from_numpy(rng.integers(0, 17, size=(300, 4))).to(
+        torch.uint8)
+    g = torch.from_numpy(rng.normal(size=(300, 3, 2)).astype(np.float32))
+    pos = torch.zeros(300, dtype=torch.int32)
+    before = dict(hist_cuda.launches)
+    a = hist_cuda.build_level_hist_multi(bins, g, pos, node0=0, n_nodes=1,
+                                         n_bin=16)
+    b = hist_cuda.build_histogram_multi(bins, g, pos.expand(3, 300), node0=0,
+                                        n_nodes=1, n_bin=16)
+    assert hist_cuda.launches == before
+    torch.testing.assert_close(a.permute(3, 0, 1, 2, 4), b, rtol=1e-6,
+                               atol=1e-6)

@@ -16,6 +16,10 @@ features, 26 categorical, 128 bins), one-hot and partition, monotone or
 not, from the histogram or its limb form, and a categorical training on
 the card writing the CPU's model JSON.
 K3 also at widths past its chunks and levels, up to the widest it takes.
+K1's class axis (xtb_hist_f32_multi) against K plain histograms at
+rtol/atol 1e-4, in the lockstep layout (a pos per class, (K, N, F, B, 2))
+and the vector-leaf layout (one pos, (N, F, B, K, 2)), at each cluster
+size, and the lockstep and vector-leaf trainers launching only it.
 K4 (csrc/sigmoid.cu) held against its plain versions bitwise over the f32
 range and its edges: the sigmoid, and the binary:logistic gradient pairs
 with and without weights and scale_pos_weight.  Multiclass, forest and
@@ -319,7 +323,8 @@ def test_training_on_card_launches_kernel_and_matches_cpu():
     # depths 0-2 build, depth 3 does not
     # and one sigmoid for the base score, then one a round
     assert hist_cuda.launches == {"hist_f32": 4 * 3, "hist_q": 0,
-                                  "split_scan": 4 * 3, "sigmoid": 1 + 4}
+                                  "split_scan": 4 * 3, "sigmoid": 1 + 4,
+                                  "hist_f32_multi": 0}
     cpu = xtt.train(params, xtt.DMatrix(X, label=y, device="cpu"), 4,
                     verbose_eval=False, device="cpu")
     for a, b in zip(card.trees, cpu.trees):
@@ -366,7 +371,8 @@ def test_deterministic_training_launches_only_k2_and_repeats_bytes():
         bst = xtt.train(params, xtt.DMatrix(X, label=y), 3,
                         verbose_eval=False)
         assert hist_cuda.launches == {"hist_f32": 0, "hist_q": 3 * 6,
-                                      "split_scan": 3 * 6, "sigmoid": 1 + 3}
+                                      "split_scan": 3 * 6, "sigmoid": 1 + 3,
+                                      "hist_f32_multi": 0}
         models.append(json.dumps(bst.save_raw_dict()))
     assert models[0] == models[1]
 
@@ -767,7 +773,8 @@ def test_multiclass_training_card_is_the_cpus(sampled):
     got = xtt.train(params, xtt.DMatrix(X, label=y, **dm), 3,
                     verbose_eval=False)
     assert hist_cuda.launches == {"hist_f32": 0, "hist_q": 3 * 3 * 4,
-                                  "split_scan": 3 * 3 * 4, "sigmoid": 0}
+                                  "split_scan": 3 * 3 * 4, "sigmoid": 0,
+                                  "hist_f32_multi": 0}
     want = xtt.train(params, xtt.DMatrix(X, label=y, device="cpu", **dm), 3,
                      verbose_eval=False, device="cpu")
     assert json.dumps(got.save_raw_dict()) == json.dumps(want.save_raw_dict())
@@ -817,3 +824,103 @@ def test_csr_bins_and_training_card_are_the_cpus():
     assert json.dumps(got.save_raw_dict()) == json.dumps(want.save_raw_dict())
     np.testing.assert_array_equal(got.predict(xtt.DMatrix(m)),
                                   want.predict(xtt.DMatrix(m, device="cpu")))
+
+
+# ------------------------------------------------------- K1's class axis
+def _class_case(R, F, B, K, node0, span, seed, shared):
+    rng = np.random.default_rng(seed)
+    bins = torch.from_numpy(rng.integers(0, B + 1, size=(R, F))).to(
+        torch.int16).cuda()
+    gpair = torch.from_numpy(rng.normal(size=(R, K, 2)).astype(
+        np.float32)).cuda()
+    shape = (R,) if shared else (K, R)
+    p = rng.integers(node0 - 1, node0 + span + 1, size=shape)
+    p[..., -R // 16:] = -1
+    return bins, gpair, torch.from_numpy(p.astype(np.int32)).cuda()
+
+
+def _class_plain(bins, gpair, pos, shared, **kw):
+    if shared:
+        return hist_cuda.build_level_hist_multi_plain(bins, gpair, pos, **kw)
+    return hist_cuda.build_histogram_multi_plain(bins, gpair, pos, **kw)
+
+
+@needs_cuda
+@pytest.mark.parametrize("shared", [False, True])
+@pytest.mark.parametrize("K", [1, 3, 7])
+@pytest.mark.parametrize("node0,n_nodes,stride", [(0, 1, 1), (15, 8, 2),
+                                                  (3, 4, 1), (255, 128, 2)])
+def test_class_axis_matches_plain(node0, n_nodes, stride, K, shared):
+    """K histograms in one launch against the plain versions: the
+    lockstep layout (pos (K, R), hist (K, N, F, B, 2)) and the vector-leaf
+    layout (one pos, hist (N, F, B, K, 2)), one thread per row, staged and
+    node-tiled; one launch counted, none of the single kernel."""
+    bins, gpair, pos = _class_case(16384, 29, 256, K, node0,
+                                   stride * n_nodes, node0 + K, shared)
+    kw = dict(node0=node0, n_nodes=n_nodes, n_bin=256, stride=stride)
+    hist_cuda.reset_launches()
+    fn = (hist_cuda.build_level_hist_multi if shared
+          else hist_cuda.build_histogram_multi)
+    got = fn(bins, gpair, pos, **kw)
+    assert hist_cuda.launches["hist_f32_multi"] == 1
+    assert hist_cuda.launches["hist_f32"] == 0
+    torch.testing.assert_close(got, _class_plain(bins, gpair, pos, shared,
+                                                 **kw), rtol=1e-4, atol=1e-4)
+
+
+@needs_cuda
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
+@pytest.mark.parametrize("shared", [False, True])
+def test_class_axis_each_cluster_size(cluster, shared):
+    bins, gpair, pos = _class_case(65536, 28, 256, 5, 31, 32, cluster, shared)
+    card = hist_cuda.card_max_clusters(bins.device, torch.int16)
+    plan = hist_cuda.plan_f32_multi(
+        65536, 28, 16, 256, 5,
+        lambda staged, smem, c: card(staged, smem, c) if c == cluster else 0,
+        2)
+    assert plan.cluster == cluster
+    kw = dict(node0=31, n_nodes=16, n_bin=256, stride=2)
+    got = hist_cuda.run_f32_multi(bins, gpair, pos, plan, shared_pos=shared,
+                                  **kw)
+    torch.testing.assert_close(got, _class_plain(bins, gpair, pos, shared,
+                                                 **kw), rtol=1e-4, atol=1e-4)
+
+
+@needs_cuda
+def test_class_axis_refuses_what_it_cannot_take():
+    bins, gpair, pos = _class_case(4096, 8, 64, 3, 0, 1, 0, False)
+    kw = dict(node0=0, n_nodes=1, n_bin=64)
+    with pytest.raises(ValueError, match="pos must be"):
+        hist_cuda.build_histogram_multi(bins, gpair, pos[0], **kw)
+    with pytest.raises(ValueError):
+        hist_cuda.build_level_hist_multi(bins, gpair, pos, **kw)
+    with pytest.raises(TypeError):
+        hist_cuda.build_histogram_multi(bins, gpair.double(), pos, **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        hist_cuda.build_histogram_multi(bins, gpair, pos.t().contiguous().t(),
+                                        **kw)
+
+
+@needs_cuda
+def test_lockstep_and_vector_training_launch_the_class_axis():
+    """_lockstep=1: one class-axis launch and one K3 launch a level for
+    the K class trees, no single K1; multi_output_tree the same for its
+    one tree; both grow the CPU's trees at depth 3."""
+    X, y, _ = _small_multiclass()
+    for extra in ({"_lockstep": 1}, {"multi_strategy": "multi_output_tree"}):
+        params = {"objective": "multi:softprob", "num_class": 3,
+                  "max_depth": 3, "max_bin": 64, **extra}
+        hist_cuda.reset_launches()
+        got = xtt.train(params, xtt.DMatrix(X, label=y), 3,
+                        verbose_eval=False)
+        assert hist_cuda.launches == {"hist_f32": 0, "hist_q": 0,
+                                      "split_scan": 0 if "multi_strategy"
+                                      in extra else 3 * 3,
+                                      "sigmoid": 0, "hist_f32_multi": 3 * 3}
+        want = xtt.train(params, xtt.DMatrix(X, label=y, device="cpu"), 3,
+                         verbose_eval=False, device="cpu")
+        for a, b in zip(got.trees, want.trees):
+            np.testing.assert_array_equal(a.split_indices, b.split_indices)
+        np.testing.assert_allclose(got.predict(xtt.DMatrix(X)),
+                                   want.predict(xtt.DMatrix(X, device="cpu")),
+                                   atol=1e-4)

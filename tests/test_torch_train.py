@@ -171,11 +171,14 @@ def test_early_stopping_and_monitor():
 @pytest.mark.parametrize("params", [
     {"n_devices": 2}, {"process_type": "update"},
     {"grow_policy": "lossguide", "max_leaves": 8,
-     "deterministic_histogram": 1}, {"num_target": 2},
+     "deterministic_histogram": 1},
+    {"num_target": 2, "multi_strategy": "multi_output_tree",
+     "deterministic_histogram": 1},
     {"booster": "dart"}, {"tree_method": "exact"},
     {"tree_method": "exact", "deterministic_histogram": 1},
     {"objective": "multi:softprob", "num_class": 3,
-     "multi_strategy": "multi_output_tree"},
+     "multi_strategy": "multi_output_tree",
+     "monotone_constraints": "(1,0,0,0,0,0)"},
     {"objective": "reg:absoluteerror"},
 ])
 def test_unsupported_parameters_raise(params):

@@ -19,8 +19,13 @@ Call stack for one boosting iteration:
     -> leaf_margin_delta updates the margin cache            [device]
     -> RegTree.from_grown (or to_regtree) appends the host model
 A round grows ``num_parallel_tree`` x K trees (K = ``num_class`` for the
-softmax objectives, else 1) in the reference's order, and the round is the
-unit of ``num_boosted_rounds`` and ``iteration_range``.  The model dict
+softmax objectives, ``num_target`` for the elementwise ones) in the
+reference's order, and the round is the unit of ``num_boosted_rounds`` and
+``iteration_range``.  With ``_lockstep=1`` the K class trees of a round
+grow together in one level loop (LockstepHistGrower) where the reference's
+gate allows it; with ``multi_strategy="multi_output_tree"`` a round is one
+vector-leaf tree per parallel tree (MultiTargetTreeGrower), whose leaves
+hold all K outputs.  The model dict
 (``save_raw_dict``) follows the reference's JSON schema, so models
 cross-load between the two packages.  Categorical features (the
 DMatrix's ``'c'`` feature types) take the categorical split scan in both
@@ -41,11 +46,14 @@ from .data.dmatrix import DMatrix, categories_by_name, recode_dense
 from .metric import create_metric
 from .models.tree import RegTree
 from .objective import ObjFunction, create_objective
-from .ops.predict import predict_leaf_ids, predict_margin_delta
+from .ops.predict import (predict_leaf_ids, predict_margin_delta,
+                          predict_margin_delta_multi)
 from .ops.split import SplitParams
 from .params import TrainParam, canonicalize, reject_unsupported
 from .tree.bestfirst import BestFirstGrower
 from .tree.grow import HistTreeGrower, leaf_margin_delta
+from .tree.grow_lockstep import LockstepHistGrower, leaf_margin_delta_k
+from .tree.grow_multi import MultiTargetTreeGrower, leaf_margin_delta_multi
 from .utils.device import resolve_device
 from .utils.fp import sqrt_f32, sum_f32
 from .utils.random import bernoulli, prng_key, uniform
@@ -77,8 +85,9 @@ class _Cache:
         R_pad, R = ell.n_padded, ell.n_rows
         self.valid = torch.arange(R_pad, device=dev) < R
 
-        def padded(a):
-            out = torch.zeros(R_pad, dtype=torch.float32, device=dev)
+        def padded(a):  # (R,) or the (R, K) labels of K targets
+            out = torch.zeros((R_pad, *a.shape[1:]), dtype=torch.float32,
+                              device=dev)
             out[:R] = torch.from_numpy(a).to(dev)
             return out
 
@@ -153,6 +162,13 @@ class Booster:
         # on the order of any sum (reference quantiser.cuh)
         self.deterministic_histogram = str(
             p.get("deterministic_histogram", "0")).lower() in ("1", "true")
+        # vector-leaf trees: one tree carries all K outputs
+        self.multi_strategy = str(p.get("multi_strategy",
+                                        "one_output_per_tree"))
+        if self.multi_strategy not in ("one_output_per_tree",
+                                       "multi_output_tree"):
+            raise ValueError(
+                f"unknown multi_strategy {self.multi_strategy!r}")
         self._split_params = SplitParams(
             eta=float(self.tparam.eta), gamma=float(self.tparam.gamma),
             min_child_weight=float(self.tparam.min_child_weight),
@@ -180,6 +196,25 @@ class Booster:
                 interaction_sets=tp.interaction_constraints,
                 max_leaves=tp.max_leaves,
                 quantised=self.deterministic_histogram)
+        # the reference's opt-in class-batched grower (core.py:1510-1516):
+        # the K class trees of a round in one level loop, numeric f32
+        # histograms only; _boost_trees checks the rest of its gate
+        self._lockstep = (
+            not self._best_first and not self.deterministic_histogram
+            # no objective of the port refits its leaves yet (adaptive)
+            and not getattr(self.objective, "adaptive_leaf", lambda: False)()
+            and str(p.get("_hist_impl", "xla")) == "xla"
+            and str(p.get("_lockstep", "0")).lower() in ("1", "true"))
+        self._lockstep_grower = LockstepHistGrower(
+            self._resolve_max_depth(lossguide), self._split_params,
+            interaction_sets=tp.interaction_constraints,
+            max_leaves=tp.max_leaves) if self._lockstep else None
+        # level-synchronous under lossguide too, as the reference grows
+        # vector-leaf trees (core.py:1147-1150)
+        self._multi_grower = MultiTargetTreeGrower(
+            self._resolve_max_depth(lossguide), self._split_params,
+            self.n_groups, max_leaves=tp.max_leaves, lossguide=lossguide,
+        ) if self.multi_strategy == "multi_output_tree" else None
         self._configured = True
 
     # parameters whose change invalidates the binned data, the margins or
@@ -424,16 +459,36 @@ class Booster:
             raise ValueError(
                 f"monotone_constraints has {len(mono)} entries but data has "
                 f"{n_features} features")
+        K = gpair.shape[1]
+        cat_mask = cache.dmat.cat_mask()
+        if self.multi_strategy == "multi_output_tree" and K > 1:
+            self._boost_multi_target(cache, gpair, iteration, cat_mask)
+            return
+        # the reference's lockstep gate (core.py:1510-1516, :1522); where
+        # it does not hold, the sequential loop is the reference's own
+        # semantics, not a fallback of the device
+        lockstep = self._lockstep and K > 1 and cat_mask is None
         for p in range(self.num_parallel_tree):
             fmask_fn = self._feature_masks(iteration * 131 + p, p,
                                            n_features,
                                            cache.dmat.feature_weights)
             gp = self._subsample_mask(gpair, iteration * 131 + p)
-            for k in range(gpair.shape[1]):
+            if lockstep and fmask_fn is None:
+                lk = self._lockstep_grower
+                state = lk.grow(cache.bins, gp.contiguous(), cache.valid,
+                                cache.cuts_pad, cache.n_bins)
+                cache.margin += leaf_margin_delta_k(state.pos,
+                                                    state.leaf_val).T
+                for k in range(K):
+                    self.trees.append(RegTree.from_grown(
+                        lk.to_host_class(state, k)))
+                    self.tree_info.append(k)
+                continue
+            for k in range(K):
                 state = self._grower.grow(
                     cache.bins, gp[:, k, :].contiguous(), cache.valid,
                     cache.cuts_pad, cache.n_bins, feature_masks=fmask_fn,
-                    cat_mask=cache.dmat.cat_mask())
+                    cat_mask=cat_mask)
                 if self._best_first:
                     tree, leaf_val = self._grower.to_regtree(
                         state, cache.cuts_host)
@@ -443,6 +498,40 @@ class Booster:
                 cache.margin[:, k] += leaf_margin_delta(state.pos, leaf_val)
                 self.trees.append(tree)
                 self.tree_info.append(k)
+        cache.n_trees_applied = len(self.trees)
+
+    def _boost_multi_target(self, cache: _Cache, gpair, iteration: int,
+                            cat_mask) -> None:
+        """One vector-leaf tree a round per parallel tree (reference
+        core.py:1121-1190): 2K-channel histograms, summed-gain splits,
+        K-vector leaves, seeded as the scalar trees (iteration * 131 + p)."""
+        if self.deterministic_histogram:
+            raise NotImplementedError(
+                "deterministic_histogram is not supported with "
+                "multi_output_tree yet")
+        if cat_mask is not None and np.any(cat_mask):
+            raise NotImplementedError(
+                "multi_output_tree with categorical features is not "
+                "supported yet")
+        mono = self.tparam.monotone_constraints
+        if mono is not None and any(c != 0 for c in mono):
+            raise NotImplementedError(
+                "multi_output_tree with monotone constraints is not "
+                "supported")
+        n_features = cache.bins.shape[1]
+        for p in range(self.num_parallel_tree):
+            fmask_fn = self._feature_masks(iteration * 131 + p, p,
+                                           n_features,
+                                           cache.dmat.feature_weights)
+            gp = self._subsample_mask(gpair, iteration * 131 + p)
+            state = self._multi_grower.grow(
+                cache.bins, gp.contiguous(), cache.valid, cache.cuts_pad,
+                cache.n_bins, feature_masks=fmask_fn)
+            cache.margin += leaf_margin_delta_multi(state.pos,
+                                                    state.leaf_val)
+            self.trees.append(RegTree.from_grown_multi(
+                MultiTargetTreeGrower.to_host(state)))
+            self.tree_info.append(0)
         cache.n_trees_applied = len(self.trees)
 
     # ------------------------------------------------------------------ eval
@@ -496,6 +585,9 @@ class Booster:
         width = max(t.n_nodes for t in trees)
         depth = max(t.max_depth for t in trees) + 1
         has_cat = any(t.has_categorical for t in trees)
+        if any(t.leaf_vector is not None for t in trees) and not all(
+                t.leaf_vector is not None for t in trees):
+            raise ValueError("a model mixes vector-leaf and scalar trees")
         cols: Dict[str, list] = {}
         for t in trees:
             for k, v in t.padded_arrays(width).items():
@@ -511,6 +603,10 @@ class Booster:
 
     def _margin_delta_for(self, X, tree_slice: slice, init=None):
         s, groups, depth = self._stacked(tree_slice)
+        if "value_vec" in s:  # vector leaves add to every output
+            return predict_margin_delta_multi(
+                X, s["feat"], s["thr"], s["dleft"], s["left"], s["right"],
+                s["value_vec"], init, depth=depth)
         return predict_margin_delta(
             X, s["feat"], s["thr"], s["dleft"], s["left"], s["right"],
             s["value"], groups, init, s.get("is_cat"), s.get("catm"),
@@ -558,6 +654,8 @@ class Booster:
     @property
     def trees_per_round(self) -> int:
         self._configure()
+        if self.multi_strategy == "multi_output_tree" and self.n_groups > 1:
+            return self.num_parallel_tree  # one vector tree a parallel tree
         return self.n_groups * self.num_parallel_tree
 
     def num_boosted_rounds(self) -> int:
@@ -680,7 +778,8 @@ class Booster:
                     "boost_from_average": "1",
                     "num_class": str(self.num_class),
                     "num_feature": str(n_feat),
-                    "num_target": "1",
+                    "num_target": str(self.n_groups if self.num_class == 0
+                                      else 1),
                 },
                 "objective": objective,
             },
@@ -743,6 +842,9 @@ class Booster:
         gb = gbooster["model"]
         self.trees = [RegTree.from_json_dict(t) for t in gb["trees"]]
         self.tree_info = [int(i) for i in gb["tree_info"]]
+        if any(t.leaf_vector is not None for t in self.trees):
+            self.params["multi_strategy"] = "multi_output_tree"
+            self._configured = False
         npt = gb.get("gbtree_model_param", {}).get("num_parallel_tree", "1")
         self.num_parallel_tree = int(npt or 1)
         self.params.setdefault("num_parallel_tree", self.num_parallel_tree)

@@ -198,7 +198,10 @@ class DMatrix:
         return a
 
     def set_label(self, label: Any) -> None:
-        self.label = self._rows(label, "label").reshape(-1)
+        """(R,) labels, or (R, K) for K targets (reference dmatrix.py:341):
+        a single column is taken back to (R,)."""
+        lab = self._rows(label, "label").reshape(self.num_row(), -1)
+        self.label = lab[:, 0] if lab.shape[1] == 1 else lab
 
     def set_weight(self, weight: Any) -> None:
         self.weight = self._rows(weight, "weight").reshape(-1)

@@ -2,7 +2,8 @@
 auc from xgboost_tpu/metric/__init__.py; reference src/metric/).
 
 Metrics take transformed predictions as host numpy arrays and reduce in
-float64 on the host, as the reference's do.
+float64 on the host, as the reference's do.  rmse, logloss and error
+also take the (R, K) predictions and labels of K targets.
 """
 from __future__ import annotations
 
@@ -41,7 +42,12 @@ def _w(labels, weights):
 
 
 def _wmean(err, labels, weights):
-    w = _w(labels, weights)
+    """The weighted mean; of (R, K) errors (K targets) the mean over rows
+    x targets (reference metric/__init__.py:121-132)."""
+    w = _w(labels if err.ndim == 1 else err[:, 0], weights)
+    if err.ndim == 2:
+        return float(np.sum(err * w[:, None])) / (float(np.sum(w))
+                                                  * err.shape[1])
     return float(np.sum(err * w)) / float(np.sum(w))
 
 

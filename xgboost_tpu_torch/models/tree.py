@@ -9,6 +9,13 @@ schema the reference reads.  Node numbering is creation order (root 0,
 children appended in level order), matching the depthwise updater.  A
 categorical node sends the categories of its set right, every other
 category left (common/categorical.h Decision).
+
+A vector-leaf tree (``multi_strategy="multi_output_tree"``, K targets)
+carries ``leaf_vector`` and ``base_weight_vec`` (n, K) and writes the
+reference's vector-leaf schema (multi_target_tree_model.cc SaveModel):
+``size_leaf_vector`` K, ``base_weights`` n x K row-major, ``leaf_weights``
+n_leaves x K, each leaf's index into them in its ``right_children`` slot;
+its leaves' ``split_conditions`` are 0.
 """
 from __future__ import annotations
 
@@ -32,10 +39,17 @@ class RegTree:
     sum_hessian: np.ndarray  # f32
     split_type: Optional[np.ndarray] = None  # int32: 0 numeric, 1 categorical
     categories: Optional[dict] = None  # node -> int32 categories routed right
+    # vector leaves: (n, K) leaf values and node weights; None when scalar
+    leaf_vector: Optional[np.ndarray] = None
+    base_weight_vec: Optional[np.ndarray] = None
 
     @property
     def n_nodes(self) -> int:
         return len(self.left_children)
+
+    @property
+    def n_targets(self) -> int:
+        return 1 if self.leaf_vector is None else self.leaf_vector.shape[1]
 
     def is_leaf(self, nid: int) -> bool:
         return self.left_children[nid] == -1
@@ -60,9 +74,9 @@ class RegTree:
         return int(depth.max()) if self.n_nodes else 0
 
     @staticmethod
-    def from_grown(gt) -> "RegTree":
-        """Compact a tree/grow.py GrownTree (heap arrays) into creation
-        order."""
+    def _creation_order(gt):
+        """The heap ids of a grown tree's nodes in creation order, and each
+        one's creation id."""
         id_of = {0: 0}
         order: List[int] = []
         queue = [0]
@@ -73,6 +87,13 @@ class RegTree:
                 for c in (2 * h + 1, 2 * h + 2):
                     id_of[c] = len(order) + len(queue)
                     queue.append(c)
+        return order, id_of
+
+    @staticmethod
+    def from_grown(gt) -> "RegTree":
+        """Compact a tree/grow.py GrownTree (heap arrays) into creation
+        order."""
+        order, id_of = RegTree._creation_order(gt)
         n = len(order)
         t = RegTree(
             left_children=np.full(n, -1, np.int32),
@@ -109,6 +130,49 @@ class RegTree:
                 t.split_conditions[i] = gt.leaf_val[h]
         return t
 
+    @staticmethod
+    def from_grown_multi(gt) -> "RegTree":
+        """Compact a tree/grow_multi.py GrownMultiTree (heap arrays, K-wide
+        values) into creation order (reference models/tree.py:123-171)."""
+        order, id_of = RegTree._creation_order(gt)
+        n, K = len(order), gt.leaf_val.shape[1]
+        t = RegTree(
+            left_children=np.full(n, -1, np.int32),
+            right_children=np.full(n, -1, np.int32),
+            parents=np.full(n, -1, np.int32),
+            split_indices=np.zeros(n, np.int32),
+            split_conditions=np.zeros(n, np.float32),
+            default_left=np.zeros(n, bool),
+            base_weights=np.zeros(n, np.float32),
+            loss_changes=np.zeros(n, np.float32),
+            sum_hessian=np.zeros(n, np.float32),
+            split_type=np.zeros(n, np.int32),
+            categories={},
+            leaf_vector=np.zeros((n, K), np.float32),
+            base_weight_vec=np.zeros((n, K), np.float32),
+        )
+        for h in order:
+            i = id_of[h]
+            t.base_weight_vec[i] = gt.base_weight[h]
+            t.base_weights[i] = gt.base_weight[h][0]
+            t.sum_hessian[i] = gt.sum_hess[h]
+            t.default_left[i] = gt.dleft[h]
+            if gt.feat[h] >= 0 and not gt.is_leaf[h]:
+                t.left_children[i] = id_of[2 * h + 1]
+                t.right_children[i] = id_of[2 * h + 2]
+                t.parents[id_of[2 * h + 1]] = i
+                t.parents[id_of[2 * h + 2]] = i
+                t.split_indices[i] = gt.feat[h]
+                t.split_conditions[i] = gt.thr[h]
+                t.loss_changes[i] = gt.gain[h]
+            else:
+                t.leaf_vector[i] = gt.leaf_val[h]
+        # a leaf's right_children slot holds its index into leaf_weights
+        # (multi_target_tree_model.cc SetLeaves)
+        leaves = t.left_children == -1
+        t.right_children[leaves] = np.arange(int(leaves.sum()), dtype=np.int32)
+        return t
+
     def padded_arrays(self, width: int) -> dict:
         """Node arrays padded to ``width`` for the stacked predictor;
         ``is_cat`` marks the categorical splits."""
@@ -122,7 +186,7 @@ class RegTree:
             out[:n] = a
             return out
 
-        return dict(
+        out = dict(
             feat=pad(np.where(leaf, -1, self.split_indices).astype(np.int32), -1),
             thr=pad(np.where(leaf, np.float32(0), self.split_conditions)),
             dleft=pad(self.default_left.astype(np.bool_)),
@@ -131,6 +195,11 @@ class RegTree:
             value=pad(np.where(leaf, self.split_conditions, 0.0).astype(np.float32)),
             is_cat=pad(st == 1),
         )
+        if self.leaf_vector is not None:  # (width, K) leaf vectors
+            vv = np.zeros((width, self.n_targets), np.float32)
+            vv[:n] = self.leaf_vector
+            out["value_vec"] = vv
+        return out
 
     def cat_matrix(self, width: int, n_cats: int) -> np.ndarray:
         """(width, n_cats) bool: the categories each node routes right."""
@@ -151,12 +220,12 @@ class RegTree:
             cat_segs.append(len(cat_flat))
             cat_sizes.append(len(cats))
             cat_flat.extend(int(c) for c in cats)
-        return {
+        out = {
             "id": int(tree_id),
             "tree_param": {
                 "num_nodes": str(n),
                 "num_feature": str(n_features),
-                "size_leaf_vector": "1",
+                "size_leaf_vector": str(self.n_targets),
             },
             "left_children": self.left_children.tolist(),
             "right_children": self.right_children.tolist(),
@@ -173,6 +242,14 @@ class RegTree:
             "loss_changes": [float(x) for x in self.loss_changes],
             "sum_hessian": [float(x) for x in self.sum_hessian],
         }
+        if self.leaf_vector is not None:
+            out["base_weights"] = [float(x)
+                                   for x in self.base_weight_vec.reshape(-1)]
+            leaf_ids = np.nonzero(self.left_children == -1)[0]
+            lw = np.zeros((len(leaf_ids), self.n_targets), np.float32)
+            lw[self.right_children[leaf_ids]] = self.leaf_vector[leaf_ids]
+            out["leaf_weights"] = [float(x) for x in lw.reshape(-1)]
+        return out
 
     @staticmethod
     def from_json_dict(d: dict) -> "RegTree":
@@ -182,18 +259,30 @@ class RegTree:
                                   d.get("categories_segments", []),
                                   d.get("categories_sizes", [])):
             cats[int(nid)] = np.asarray(flat[seg: seg + size], np.int32)
-        if int(d.get("tree_param", {}).get("size_leaf_vector", "1") or 1) > 1:
-            raise NotImplementedError(
-                "vector-leaf trees are not supported by xgboost_tpu_torch yet")
         n = len(d["left_children"])
+        K = int(d.get("tree_param", {}).get("size_leaf_vector", "1") or 1)
+        base_weights = np.asarray(d.get("base_weights", np.zeros(n)),
+                                  np.float32)
+        leaf_vector = base_weight_vec = None
+        if K > 1:  # the vector-leaf schema (reference models/tree.py:287)
+            base_weight_vec = base_weights.reshape(n, K)
+            base_weights = base_weight_vec[:, 0]
+            leaf_ids = np.nonzero(np.asarray(d["left_children"]) == -1)[0]
+            lw = np.asarray(d.get("leaf_weights", []), np.float32).reshape(
+                len(leaf_ids), K)
+            leaf_vector = np.zeros((n, K), np.float32)
+            # right_children holds each leaf's index into leaf_weights
+            leaf_vector[leaf_ids] = lw[np.asarray(
+                d["right_children"], np.int64)[leaf_ids]]
         return RegTree(
+            leaf_vector=leaf_vector, base_weight_vec=base_weight_vec,
             left_children=np.asarray(d["left_children"], np.int32),
             right_children=np.asarray(d["right_children"], np.int32),
             parents=np.asarray(d["parents"], np.int32),
             split_indices=np.asarray(d["split_indices"], np.int32),
             split_conditions=np.asarray(d["split_conditions"], np.float32),
             default_left=np.asarray(d["default_left"]).astype(bool),
-            base_weights=np.asarray(d.get("base_weights", np.zeros(n)), np.float32),
+            base_weights=base_weights,
             loss_changes=np.asarray(d.get("loss_changes", np.zeros(n)), np.float32),
             sum_hessian=np.asarray(d.get("sum_hessian", np.zeros(n)), np.float32),
             split_type=np.asarray(d.get("split_type", np.zeros(n))).astype(

@@ -4,7 +4,11 @@ per-level gradient histograms on the card.
 - K1 ``hist_f32`` (csrc/hist.cu, port of xgboost_tpu/ops/hist_pallas.py:
   _hist_kernel): f32 (g, h) sums, the default path.  Launched in thread
   block clusters along its row blocks, as ``plan_f32`` plans from the
-  card's occupancy.
+  card's occupancy.  Its class axis, ``xtb_hist_f32_multi`` of the same
+  library, counted as ``hist_f32_multi``, builds K histograms in one
+  launch: the lockstep grower's K class trees, each with its own pos
+  (``build_histogram_multi``), and a vector-leaf tree's K targets under
+  one pos (``build_level_hist_multi``); ``plan_f32_multi`` plans it.
 - K2 ``hist_q`` (csrc/hist_q.cu, port of _hist_kernel_q): exact int32 sums
   of the int8 gradient limbs, the ``deterministic_histogram=1`` path.
   Launched the same way, as ``plan_q`` plans.
@@ -25,9 +29,10 @@ with a plain C interface at first use, into ``xgboost_tpu_torch/_build/``
 ctypes.  A failed build or load raises; there is no fallback to the plain
 version.
 
-``build_histogram`` and ``build_histogram_q`` are the dispatchers the grower
-calls: a CPU tensor goes to the plain PyTorch version, a CUDA tensor to the
-kernel.  ``launches`` counts, per kernel, the launches since the last reset;
+``build_histogram``, ``build_histogram_q``, ``build_histogram_multi`` and
+``build_level_hist_multi`` are the dispatchers the growers call: a CPU
+tensor goes to the plain PyTorch version, a CUDA tensor to the kernel.
+``launches`` counts, per kernel, the launches since the last reset;
 every wrapper counts through ``launched``.
 """
 from __future__ import annotations
@@ -44,14 +49,20 @@ from typing import Callable, NamedTuple
 import torch
 
 from .histogram import build_histogram as build_histogram_plain
+from .histogram import (build_histogram_multi_plain,
+                        build_level_hist_multi_plain)
 from .quantise import hist_accumulate_q
 
 __all__ = ["build_histogram", "build_histogram_cuda", "build_histogram_plain",
+           "build_histogram_multi", "build_histogram_multi_cuda",
+           "build_histogram_multi_plain", "build_level_hist_multi",
+           "build_level_hist_multi_cuda", "build_level_hist_multi_plain",
            "build_histogram_q", "build_histogram_q_cuda",
            "build_histogram_q_plain", "build_all", "card_max_clusters",
            "choose_block", "Plan", "load_library", "launches", "plan_f32",
-           "plan_q", "reset_launches", "run_f32", "run_q", "slice_units",
-           "launched", "on_device", "SOURCES"]
+           "plan_f32_multi", "plan_q", "reset_launches", "run_f32",
+           "run_f32_multi", "run_q", "slice_units", "launched", "on_device",
+           "SOURCES"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _BUILD_DIR = os.path.join(_PKG, "_build")
@@ -65,8 +76,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # K3 and K4 must round as the reference does: no contracted multiply-adds
 EXTRA_FLAGS = {"split_scan": ["--fmad=false"], "sigmoid": ["--fmad=false"]}
 
-# kernel launches per kernel since the last reset_launches()
+# kernel launches per kernel since the last reset_launches(); K1's class
+# axis is an entry of K1's library counted under its own name
 launches = {name: 0 for name in SOURCES}
+launches["hist_f32_multi"] = 0
 
 _BIN_CODES = {torch.uint8: 0, torch.int16: 1, torch.int32: 2}
 # shared memory one block may use for its histogram; 227 KB is the H100's
@@ -82,7 +95,9 @@ _vp, _ci = ctypes.c_void_p, ctypes.c_int
 # C signatures of each kernel library's entry points {name: argtypes}
 _ENTRY = {
     "hist_f32": {"xtb_hist_f32": [_vp, _ci, _vp, _vp, _vp] + [_ci] * 12
-                 + [_vp]},
+                 + [_vp],
+                 "xtb_hist_f32_multi": [_vp, _ci, _vp, _vp, _vp] + [_ci] * 7
+                 + [ctypes.c_longlong] * 2 + [_ci] * 7 + [_vp]},
     "hist_q": {"xtb_hist_q": [_vp, _ci, _vp, _vp, _vp] + [_ci] * 13
                + [_vp]},
     "split_scan": {"xtb_split_scan": [_vp] * 4 + [_ci] + [_vp] * 3 + [_ci]
@@ -318,6 +333,21 @@ def plan_f32(n_rows: int, n_features: int, n_nodes: int, n_bin: int,
                  "hist_f32")
 
 
+def plan_f32_multi(n_rows: int, n_features: int, n_nodes: int, n_bin: int,
+                   n_classes: int,
+                   max_clusters: Callable[[bool, int, int], int],
+                   stride: int = 1) -> Plan:
+    """K1's class axis: ``plan_f32``'s plan for one class, whatever
+    ``n_classes``.  Each class gets the row blocks K1 gives one histogram,
+    so every f32 cell adds the rows it adds in K1 and rounds as much; the
+    launch is ``n_classes`` times K1's blocks, in as many waves.  (Sharing
+    one wave among the K classes' columns cuts a class's row blocks K-fold,
+    and a cell's error grew up to 20-fold at a Covertype round's levels
+    2-5, where most rows sit in one node.)"""
+    return _plan(n_rows, n_features, n_nodes, n_bin, 2, max_clusters, stride,
+                 "hist_f32")
+
+
 def plan_q(n_rows: int, n_features: int, n_nodes: int, n_bin: int,
            n_ch: int, max_clusters: Callable[[bool, int, int], int],
            stride: int = 1) -> Plan:
@@ -405,6 +435,78 @@ def build_histogram_cuda(bins, gpair, pos, *, node0: int, n_nodes: int,
                    node0=node0, n_nodes=n_nodes, n_bin=n_bin, stride=stride)
 
 
+def run_f32_multi(bins, gpair, pos, plan: Plan, *, node0: int, n_nodes: int,
+                  n_bin: int, stride: int = 1, shared_pos: bool = False):
+    """Launch K1's class axis with ``plan``: K histograms from gpair
+    (R, K, 2) f32 in one launch on the inputs' card.  ``pos`` (K, R)
+    int32, class k's rows at pos[k] (the lockstep grower), gives hist
+    (K, n_nodes, F, n_bin, 2); with ``shared_pos`` one (R,) pos routes
+    every class (a vector-leaf tree's targets) and hist is (n_nodes, F,
+    n_bin, K, 2), written in that layout by the kernel.  A launch the card
+    refuses raises."""
+    if gpair.dim() != 3 or gpair.shape[-1] != 2:
+        raise ValueError(f"gpair must be (R, K, 2) f32, got "
+                         f"{tuple(gpair.shape)}")
+    R, K = gpair.shape[0], gpair.shape[1]
+    if shared_pos:
+        _check(bins, gpair, pos, torch.float32, (K, 2), n_nodes, n_bin,
+               stride)
+    else:
+        if pos.dim() != 2 or tuple(pos.shape) != (K, R):
+            raise ValueError(f"pos must be (K, R) = ({K}, {R}), got "
+                             f"{tuple(pos.shape)}")
+        _check(bins, gpair, pos[0], torch.float32, (K, 2), n_nodes, n_bin,
+               stride)
+        if not pos.is_contiguous():
+            raise ValueError("bins, gradients and pos must be contiguous")
+    F = bins.shape[1]
+    cells = n_nodes * F * n_bin
+    if shared_pos:
+        out = torch.zeros((n_nodes, F, n_bin, K, 2), dtype=torch.float32,
+                          device=bins.device)
+        pos_stride, out_class, out_cell = 0, 2, 2 * K
+    else:
+        out = torch.zeros((K, n_nodes, F, n_bin, 2), dtype=torch.float32,
+                          device=bins.device)
+        pos_stride, out_class, out_cell = R, 2 * cells, 2
+    if R == 0 or F == 0:
+        return out
+    lib = load_library("hist_f32")
+    rc = on_device(
+        bins.device, lib.xtb_hist_f32_multi, bins.data_ptr(),
+        _BIN_CODES[bins.dtype], gpair.data_ptr(), pos.data_ptr(),
+        out.data_ptr(), R, F, n_bin, node0, n_nodes, stride, K, pos_stride,
+        out_class, out_cell, plan.feat_group, plan.node_tile,
+        plan.row_blocks, plan.cluster, plan.threads, int(plan.staged))
+    launched("hist_f32_multi", lib, rc)
+    return out
+
+
+def _multi_cuda(bins, gpair, pos, node0, n_nodes, n_bin, stride, shared):
+    if not bins.is_cuda:
+        raise ValueError("the histogram kernels need CUDA tensors")
+    plan = _planned("hist_f32", bins, n_nodes, n_bin, stride, 2)
+    return run_f32_multi(bins, gpair, pos, plan, node0=node0,
+                         n_nodes=n_nodes, n_bin=n_bin, stride=stride,
+                         shared_pos=shared)
+
+
+def build_histogram_multi_cuda(bins, gpair, pos, *, node0: int,
+                               n_nodes: int, n_bin: int, stride: int = 1):
+    """Launch K1's class axis for K class trees: hist (K, n_nodes, F,
+    n_bin, 2) f32 from gpair (R, K, 2) and pos (K, R)."""
+    return _multi_cuda(bins, gpair, pos, node0, n_nodes, n_bin, stride,
+                       False)
+
+
+def build_level_hist_multi_cuda(bins, gpair, pos, *, node0: int,
+                                n_nodes: int, n_bin: int, stride: int = 1):
+    """Launch K1's class axis for a vector-leaf tree's K targets: hist
+    (n_nodes, F, n_bin, K, 2) f32 from gpair (R, K, 2) and one pos (R,)."""
+    return _multi_cuda(bins, gpair, pos, node0, n_nodes, n_bin, stride,
+                       True)
+
+
 def _check_q(bins, gq, pos, n_nodes, n_bin, stride):
     if gq.dim() != 3 or gq.shape[-1] != 3:
         raise ValueError(f"gq must be (R, C, 3) int8 limbs, got "
@@ -468,4 +570,26 @@ def build_histogram_q(bins, gq, pos, *, node0: int, n_nodes: int,
     tensor, K2 for a CUDA tensor (which raises if it cannot run)."""
     fn = build_histogram_q_cuda if bins.is_cuda else build_histogram_q_plain
     return fn(bins, gq, pos, node0=node0, n_nodes=n_nodes, n_bin=n_bin,
+              stride=stride)
+
+
+def build_histogram_multi(bins, gpair, pos, *, node0: int, n_nodes: int,
+                          n_bin: int, stride: int = 1):
+    """The lockstep grower's K class histograms (K, n_nodes, F, n_bin, 2):
+    the plain version for a CPU tensor, one launch of K1's class axis for
+    a CUDA tensor (which raises if it cannot run)."""
+    fn = build_histogram_multi_cuda if bins.is_cuda \
+        else build_histogram_multi_plain
+    return fn(bins, gpair, pos, node0=node0, n_nodes=n_nodes, n_bin=n_bin,
+              stride=stride)
+
+
+def build_level_hist_multi(bins, gpair, pos, *, node0: int, n_nodes: int,
+                           n_bin: int, stride: int = 1):
+    """A vector-leaf tree's level histogram (n_nodes, F, n_bin, K, 2): the
+    plain version for a CPU tensor, one launch of K1's class axis for a
+    CUDA tensor (which raises if it cannot run)."""
+    fn = build_level_hist_multi_cuda if bins.is_cuda \
+        else build_level_hist_multi_plain
+    return fn(bins, gpair, pos, node0=node0, n_nodes=n_nodes, n_bin=n_bin,
               stride=stride)

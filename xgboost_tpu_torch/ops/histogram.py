@@ -38,6 +38,29 @@ def build_histogram(bins, gpair, pos, *, node0: int, n_nodes: int,
     return flat.reshape(n_nodes, F, n_bin, C)
 
 
+def build_histogram_multi_plain(bins, gpair, pos, *, node0: int,
+                                n_nodes: int, n_bin: int, stride: int = 1):
+    """K class histograms (K, n_nodes, F, B, 2) over the same bins, class k
+    from gpair[:, k] (R, K, 2) and its own pos[k] (K, R): K calls of
+    ``build_histogram`` (reference ops/histogram.py:257-288,
+    build_histogram_multi, for the lockstep grower)."""
+    return torch.stack([
+        build_histogram(bins, gpair[:, k], pos[k], node0=node0,
+                        n_nodes=n_nodes, n_bin=n_bin, stride=stride)
+        for k in range(gpair.shape[1])])
+
+
+def build_level_hist_multi_plain(bins, gpair, pos, *, node0: int,
+                                 n_nodes: int, n_bin: int, stride: int = 1):
+    """A vector-leaf tree's level histogram (n_nodes, F, B, K, 2) from
+    gpair (R, K, 2) and one pos (R,): ``build_histogram`` with 2K channels
+    (reference tree/grow_multi.py:164-175, build_level_hist_multi)."""
+    R, K = gpair.shape[0], gpair.shape[1]
+    h = build_histogram(bins, gpair.reshape(R, 2 * K), pos, node0=node0,
+                        n_nodes=n_nodes, n_bin=n_bin, stride=stride)
+    return h.reshape(n_nodes, bins.shape[1], n_bin, K, 2)
+
+
 def combine_sibling_hists(left, hist_prev, alive_lvl):
     """Right sibling = parent - left, interleaved to the (N, ...) level
     layout; slots whose parent did not split are zeroed (reference

@@ -1,6 +1,6 @@
 """Vectorized tree-traversal prediction (port of ``_traverse_one_tree``,
-``predict_margin_delta`` and ``predict_leaf_ids`` of
-xgboost_tpu/ops/predict.py).
+``predict_margin_delta``, ``predict_margin_delta_multi`` and
+``predict_leaf_ids`` of xgboost_tpu/ops/predict.py).
 
 All rows and all trees of a stacked ensemble advance one level per step
 (rows at leaves stick); the per-row feature read is a gather.  Raw feature
@@ -61,6 +61,21 @@ def predict_margin_delta(X, feat, thr, dleft, left, right, value, groups,
     leaf = value.gather(1, nid.T).T  # (R, T)
     for t, g in enumerate(groups):
         margin[:, g] += leaf[:, t]
+    return margin
+
+
+def predict_margin_delta_multi(X, feat, thr, dleft, left, right, value_vec,
+                               init=None, *, depth: int):
+    """Sum the leaf vectors of a stack of vector-leaf trees into (R, K)
+    margins: every tree adds its leaf's K-vector to all K outputs, in tree
+    order (reference ops/predict.py:222-250).  value_vec (T, M, K)."""
+    R, K = X.shape[0], value_vec.shape[2]
+    margin = (torch.zeros((R, K), dtype=torch.float32, device=X.device)
+              if init is None else init.to(torch.float32).clone())
+    nid = _traverse(X, feat.long(), thr, dleft, left.long(), right.long(),
+                    depth)
+    for t in range(value_vec.shape[0]):
+        margin += value_vec[t][nid[:, t]]
     return margin
 
 

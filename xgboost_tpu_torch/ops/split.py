@@ -34,7 +34,9 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from ..utils.fp import fma_f32
+import numpy as np
+
+from ..utils.fp import fma_f32, sum_f32
 from .split_cuda import split_scan_cuda
 
 _EPS = 1e-6  # kRtEps (include/xgboost/base.h)
@@ -71,6 +73,19 @@ class BestSplit(NamedTuple):
     right_weight: torch.Tensor  # (N,)
     is_cat: torch.Tensor  # (N,) bool categorical split chosen
     cat_set: torch.Tensor  # (N, B) bool categories routed right
+
+
+class BestSplitMulti(NamedTuple):
+    """The best split per node of a vector-leaf tree (K targets)."""
+
+    gain: torch.Tensor  # (N,) summed per-target loss_chg (-inf if none)
+    feature: torch.Tensor  # (N,) int64
+    bin: torch.Tensor  # (N,) int64
+    default_left: torch.Tensor  # (N,) bool
+    left_sum: torch.Tensor  # (N, K, 2)
+    right_sum: torch.Tensor  # (N, K, 2)
+    left_weight: torch.Tensor  # (N, K)
+    right_weight: torch.Tensor  # (N, K)
 
 
 class ScanResult(NamedTuple):
@@ -423,3 +438,74 @@ def evaluate_splits(hist, totals, n_bins, params: SplitParams,
                              device=hist.device)
                  if s.cat_set is None else s.cat_set))
 
+
+
+def mean_last_f32(x):
+    """``x.mean(-1)`` of f32 values as XLA computes it on the CPU: the
+    sequential sum times f32(1 / n), a product and not a division."""
+    return sum_f32(x, dim=-1) * float(np.float32(1.0 / x.shape[-1]))
+
+
+def evaluate_splits_multi(hist, totals, n_bins, params: SplitParams,
+                          feature_mask=None) -> BestSplitMulti:
+    """Best split per node for vector-leaf trees (port of
+    xgboost_tpu/ops/split.py:105-190, XLA ops there, PyTorch ops here on
+    both devices).
+
+    hist   : (N, F, B, K, 2) f32 per-target bin (G, H) sums
+    totals : (N, K, 2) f32 per-target node totals (missing rows included)
+    feature_mask : optional (F,) or (1|N, F) bool
+
+    The gain of a (feature, bin) is the sum over the K targets of the
+    per-target gains (multi_evaluate_splits.cu), min_child_weight applies
+    to the mean per-target hessian.  The bin prefix is XLA's blocked
+    ``jnp.cumsum`` order, the sum and mean over K XLA's (sequential, and
+    the sum times f32(1/K)), so the scan is the reference's bits."""
+    N, F, B, K, _ = hist.shape
+    p = params
+    # XLA's blocked prefix along the bins: (N, F, K, 2, B) -> (N, F, B, K, 2)
+    cum = prefix_blocked(hist.permute(0, 1, 3, 4, 2)).permute(0, 1, 4, 2, 3)
+    feat_sum = cum[:, :, -1]  # (N, F, K, 2)
+    miss = totals[:, None] - feat_sum  # (N, F, K, 2)
+    GL_r, HL_r = cum[..., 0], cum[..., 1]  # (N, F, B, K), missing -> right
+    GL_l = GL_r + miss[:, :, None, :, 0]
+    HL_l = HL_r + miss[:, :, None, :, 1]
+    tG, tH = totals[:, None, None, :, 0], totals[:, None, None, :, 1]
+    parent_gain = sum_f32(calc_gain(totals[..., 0], totals[..., 1], p),
+                          dim=-1)[:, None, None]  # (N, 1, 1)
+
+    def side_gain(GL, HL):
+        GR, HR = tG - GL, tH - HL
+        gain = sum_f32(calc_gain(GL, HL, p) + calc_gain(GR, HR, p),
+                       dim=-1) - parent_gain  # (N, F, B)
+        HLm, HRm = mean_last_f32(HL), mean_last_f32(HR)
+        valid = ((HLm >= p.min_child_weight) & (HRm >= p.min_child_weight)
+                 & (HLm > 0.0) & (HRm > 0.0))
+        return torch.where(valid, gain, -torch.inf), GR, HR
+
+    gain_r, GR_r, HR_r = side_gain(GL_r, HL_r)
+    gain_l, GR_l, HR_l = side_gain(GL_l, HL_l)
+    has_miss = sum_f32(miss[..., 1].abs(), dim=-1) > _EPS  # (N, F)
+    ok = _candidate_ok(n_bins, has_miss, B, _node_mask(feature_mask, N))
+    gain_r = torch.where(ok, gain_r, -torch.inf)
+    gain_l = torch.where(ok, gain_l, -torch.inf)
+    use_left = gain_l >= gain_r
+    gain = torch.where(use_left, gain_l, gain_r)
+
+    best = gain.reshape(N, F * B).argmax(dim=1)  # first maximum, as jnp
+    idx = best[:, None, None].expand(N, 1, K)
+
+    def pick(a):  # (N, F, B, K) -> (N, K) at the best (feature, bin)
+        return a.reshape(N, F * B, K).gather(1, idx)[:, 0]
+
+    g, dleft = _pick(best, gain, use_left)
+    dl = dleft[:, None]
+    GL = torch.where(dl, pick(GL_l), pick(GL_r))
+    HL = torch.where(dl, pick(HL_l), pick(HL_r))
+    GR = torch.where(dl, pick(GR_l), pick(GR_r))
+    HR = torch.where(dl, pick(HR_l), pick(HR_r))
+    return BestSplitMulti(
+        gain=g, feature=best // B, bin=best % B, default_left=dleft,
+        left_sum=torch.stack([GL, HL], dim=-1),
+        right_sum=torch.stack([GR, HR], dim=-1),
+        left_weight=calc_weight(GL, HL, p), right_weight=calc_weight(GR, HR, p))

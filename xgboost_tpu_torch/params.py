@@ -102,17 +102,13 @@ class TrainParam:
 
 
 def _is_default(key: str, v) -> bool:
-    if key == "num_target":
-        return float(v) == 1.0
     return {"booster": "gbtree", "tree_method": "hist",
-            "multi_strategy": "one_output_per_tree",
             "process_type": "default", "n_devices": 1}[key] == v
 
 
 # parameters the port does not implement: at any value but their default
 # they raise NotImplementedError
-UNSUPPORTED = ("booster", "tree_method", "num_target", "multi_strategy",
-               "process_type", "n_devices")
+UNSUPPORTED = ("booster", "tree_method", "process_type", "n_devices")
 
 
 def reject_unsupported(params: Dict[str, Any]) -> None:
