@@ -54,8 +54,9 @@ holds each CUDA kernel against its plain PyTorch version:
      and K3 launch 6 times per round and K2 never, K4 once for the base
      score and once per round (and once more per round for the evaluation)
   3b. profile: device time by kernel over two training rounds and the
-     card's idle share; every kernel one get_gradient call issues at the
-     main path's rows: one launch of K4's gradient entry
+     card's idle share; every operation one get_gradient call puts on the
+     stream at the main path's rows, read from a CUDA graph captured from
+     the call: one launch of K4's gradient entry
   3c. the same training with deterministic_histogram=1: K2 and K3 launch 6
      times per round and K1 never, and two runs write byte-identical models
   3d. profile of 3c
@@ -159,6 +160,17 @@ holds each CUDA kernel against its plain PyTorch version:
      median of 3, JSON and UBJ reloads predicting identically; 13b: card
      vs CPU at 20,000 rows, depth 4, the same trees by 8b's rule,
      predictions within 1e-4
+  14. the pointwise objectives at full width on phase 3's 1M x 28 rows
+     (depth 6, 10 rounds) with targets built from them: absolute error,
+     quantile (three alphas), pseudo-Huber, Poisson, gamma, Tweedie,
+     reg:logistic, hinge, AFT and Cox, each timed (the train loop's median
+     of 3) and gated on its final train metric against the constant
+     model's; reg:logistic's get_gradient one launch of K4's gradient
+     entry (as in 3b); a two-round profile of absolute error; the
+     operations, device time and absence of copies to the host of one
+     refit, one AFT and one Cox gradient; 14b: every objective of the
+     slice card vs CPU at 20,000 rows, depth 4, byte-identical
+     deterministic JSON and f32 trees the same up to a near tie
 
 Phase 2 and 2b also give each case's device time a launch (torch.profiler),
 and phases 7, 8 and 9 the bound, the kernel and the index_add_ yardstick on
@@ -172,6 +184,7 @@ kernels JSON line and the device JSON line.
 """
 from __future__ import annotations
 
+import ctypes
 import json
 import os
 import statistics
@@ -268,6 +281,96 @@ def device_per_call(fn, reps: int = 20):
         return None, 0, {}
     return (us / 1e3 / count * per_call, per_call,
             {k: round(n / reps, 2) for k, n in kernels.items()})
+
+
+class _KernelNodeParams(ctypes.Structure):
+    # CUDA_KERNEL_NODE_PARAMS_v2 of cuda.h
+    _fields_ = [("func", ctypes.c_void_p), ("grid", ctypes.c_uint * 3),
+                ("block", ctypes.c_uint * 3), ("shared", ctypes.c_uint),
+                ("params", ctypes.c_void_p), ("extra", ctypes.c_void_p),
+                ("kern", ctypes.c_void_p), ("ctx", ctypes.c_void_p)]
+
+
+class _Memcpy3D(ctypes.Structure):
+    # CUDA_MEMCPY3D of cuda.h
+    _side = [("XInBytes", ctypes.c_size_t), ("Y", ctypes.c_size_t),
+             ("Z", ctypes.c_size_t), ("LOD", ctypes.c_size_t),
+             ("MemoryType", ctypes.c_int), ("Host", ctypes.c_void_p),
+             ("Device", ctypes.c_void_p), ("Array", ctypes.c_void_p),
+             ("reserved", ctypes.c_void_p), ("Pitch", ctypes.c_size_t),
+             ("Height", ctypes.c_size_t)]
+    _fields_ = ([("src" + k, t) for k, t in _side]
+                + [("dst" + k, t) for k, t in _side]
+                + [("WidthInBytes", ctypes.c_size_t),
+                   ("Height", ctypes.c_size_t), ("Depth", ctypes.c_size_t)])
+
+
+# CUgraphNodeType of cuda.h, by value
+_NODE_TYPES = ("kernel", "memcpy", "memset", "host", "graph", "empty",
+               "wait_event", "event_record", "semaphore_signal",
+               "semaphore_wait", "mem_alloc", "mem_free", "batch_mem_op",
+               "conditional")
+
+
+def graph_ops(fn) -> list:
+    """Every operation one call of ``fn`` puts on its stream, read from a
+    CUDA graph captured from that call rather than from the profiler,
+    which in a long run may stop seeing events: a list of (node type,
+    detail), the detail a kernel's name (None where the driver gives
+    none) or a copy's destination, "host" or "device".  A call that waits
+    on the host (a copy back to pageable memory, an ``.item()``) cannot be
+    captured and raises."""
+    cu = ctypes.CDLL("libcuda.so.1")
+
+    def check(rc, what):
+        if rc:
+            raise RuntimeError(f"{what} failed with CUresult {rc}")
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    raw = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    check(cu.cuGraphGetNodes(raw, None, ctypes.byref(n)), "cuGraphGetNodes")
+    nodes = (ctypes.c_void_p * n.value)()
+    check(cu.cuGraphGetNodes(raw, nodes, ctypes.byref(n)), "cuGraphGetNodes")
+    ops = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        check(cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)),
+              "cuGraphNodeGetType")
+        name = None
+        if kind.value == 0:
+            p = _KernelNodeParams()
+            name_p = ctypes.c_char_p()
+            check(cu.cuGraphKernelNodeGetParams_v2(ctypes.c_void_p(node),
+                                                   ctypes.byref(p)),
+                  "cuGraphKernelNodeGetParams")
+            if p.func and not cu.cuFuncGetName(ctypes.byref(name_p),
+                                               ctypes.c_void_p(p.func)):
+                name = name_p.value.decode()
+            elif p.kern and not cu.cuKernelGetName(ctypes.byref(name_p),
+                                                   ctypes.c_void_p(p.kern)):
+                name = name_p.value.decode()
+        elif kind.value == 1:
+            m = _Memcpy3D()
+            check(cu.cuGraphMemcpyNodeGetParams(ctypes.c_void_p(node),
+                                                ctypes.byref(m)),
+                  "cuGraphMemcpyNodeGetParams")
+            # CU_MEMORYTYPE_HOST 1, DEVICE 2, UNIFIED 4; an unregistered
+            # host pointer has no attribute
+            dst = m.dstHost if m.dstMemoryType == 1 else m.dstDevice
+            mem = ctypes.c_uint(1)
+            rc = cu.cuPointerGetAttribute(ctypes.byref(mem), 2,
+                                          ctypes.c_void_p(dst))
+            name = "device" if not rc and mem.value == 2 else "host"
+        ops.append((_NODE_TYPES[kind.value]
+                    if 0 <= kind.value < len(_NODE_TYPES) else kind.value,
+                    name))
+    graph.reset()
+    return ops
 
 
 def phase_device(hist_cuda):
@@ -1095,27 +1198,46 @@ def phase_sigmoid(hist_cuda):
     return cases
 
 
-def phase_gradient_profile(xtt):
-    """The main path's binary:logistic gradient is one launch of K4's
-    gradient entry: every kernel one get_gradient call issues, from
-    torch.profiler, at the main path's 1,000,448 rows."""
+def phase_gradient_profile(xtt, hist_cuda, objective="binary:logistic",
+                           label="3b"):
+    """The main path's binary:logistic gradient (and reg:logistic's, phase
+    14) is one launch of K4's gradient entry: every operation one
+    get_gradient call puts on the stream at the main path's 1,000,448
+    rows, from a CUDA graph captured from the call (graph_ops), with K4's
+    launch count; its device time from torch.profiler."""
     from xgboost_tpu_torch.objective import create_objective
 
     rng = np.random.default_rng(7)
     margin = torch.from_numpy(_margins(SIGMOID_N)[:, None]).cuda()
     y = torch.from_numpy((rng.random(SIGMOID_N) < 0.4).astype(
         np.float32)).cuda()
-    obj = create_objective("binary:logistic", {})
+    obj = create_objective(objective, {})
+
+    def call():
+        return obj.get_gradient(margin, y, None)
+    call()
+    before = dict(hist_cuda.launches)
+    ops = graph_ops(call)
+    k4 = hist_cuda.launches["sigmoid"] - before["sigmoid"]
+    others = {k: v - before[k] for k, v in hist_cuda.launches.items()
+              if k != "sigmoid" and v != before[k]}
     for _ in range(3):  # the profiler now and then sees no events at all
-        ms, n, kernels = device_per_call(
-            lambda: obj.get_gradient(margin, y, None))
+        ms, n, kernels = device_per_call(call)
         if n:
             break
-    log(f"phase 3b gradient: one get_gradient at {SIGMOID_N} rows issues "
-        f"{n:g} kernel(s), {ms} ms of device time: {kernels}")
-    if n != 1 or not all("logistic_grad" in k for k in kernels):
-        raise AssertionError(f"phase 3b: get_gradient issued {kernels}, want "
-                             "one launch of K4's gradient entry")
+    profiled = (f"{ms} ms of device time (torch.profiler: {kernels})" if n
+                else "device time not measured (the profiler saw no events)")
+    log(f"phase {label} gradient: one {objective} get_gradient at "
+        f"{SIGMOID_N} rows puts {len(ops)} operation(s) on the stream: "
+        f"{ops}; K4 counts {k4} launch(es) of two calls, captured and "
+        f"warm; {profiled}")
+    # the capture's call and the warm call before it each launch K4 once
+    if len(ops) != 1 or ops[0][0] != "kernel" or k4 != 2 or others \
+            or (ops[0][1] is not None and "logistic_grad" not in ops[0][1]):
+        raise AssertionError(
+            f"phase {label}: get_gradient issued {ops} (K4 launches {k4} "
+            f"in two calls, others {others}), want one launch of K4's "
+            "gradient entry")
 
 
 # ------------------------------------------------------------- lossguide
@@ -1225,29 +1347,46 @@ def _round_hist_bound(xtt, hist_cuda, dtrain, params, kernel, label,
     """The bound of one round's histograms on this data: one round trained
     with each launch's rows counted (the launch function wrapped), each
     level's least bytes as phase 2 counts them (pos of every row, bins and
-    gradients of the level's rows, the histogram written once) at 3.35
-    TB/s, summed over the launches; then, on each launch's own inputs, the
-    kernel again (CUDA events, host launch included) and the index_add_
-    yardstick, each the median of ``reps``, summed.  Returns (bound ms,
-    index_add_ ms, kernel ms) a round."""
-    name = "run_f32" if kernel == "hist_f32" else "run_q"
+    gradients of the level's rows, the histogram written once; for K1's
+    class axis as phase 2f counts them: K pos arrays, or one when shared,
+    the bins of the rows in any class's level once, the gradients of the
+    (row, class) pairs in the level, the K histograms written once) at
+    3.35 TB/s, summed over the launches; then, on each launch's own
+    inputs, the kernel again (CUDA events, host launch included) and the
+    index_add_ yardstick (over the K classes at once for the class axis),
+    each the median of ``reps``, summed.  Returns (bound ms, index_add_
+    ms, kernel ms) a round."""
+    name = {"hist_f32": "run_f32", "hist_q": "run_q",
+            "hist_f32_multi": "run_f32_multi"}[kernel]
     launch = getattr(hist_cuda, name)
     levels, inputs = [], []
 
-    def counted(bins, vals, pos, plan, *, node0, n_nodes, n_bin, stride=1):
-        local = pos.long() - node0
-        n_in = int(((local >= 0) & (local % stride == 0)
-                    & (local // stride < n_nodes)).sum())
+    def counted(bins, vals, pos, plan, *, node0, n_nodes, n_bin, stride=1,
+                **extra):
         R, F = bins.shape
-        row_bytes = vals[0].numel() * vals.element_size()
-        cell_bytes = 8 if kernel == "hist_f32" else 4 * vals[0].numel()
-        levels.append((4 * R + n_in * (F * bins.element_size() + row_bytes)
-                       + n_nodes * F * n_bin * cell_bytes) / HBM_BYTES_PER_S)
+        local = pos.long() - node0
+        inl = (local >= 0) & (local % stride == 0) & (local // stride
+                                                      < n_nodes)
+        if kernel == "hist_f32_multi":
+            K = vals.shape[1]
+            n_any = int((inl if inl.dim() == 1 else inl.any(dim=0)).sum())
+            n_pairs = int(inl.sum()) * (K if inl.dim() == 1 else 1)
+            levels.append((4 * pos.numel() + n_any * F * bins.element_size()
+                           + n_pairs * 8 + K * n_nodes * F * n_bin * 8)
+                          / HBM_BYTES_PER_S)
+        else:
+            n_in = int(inl.sum())
+            row_bytes = vals[0].numel() * vals.element_size()
+            cell_bytes = 8 if kernel == "hist_f32" else 4 * vals[0].numel()
+            levels.append((4 * R + n_in * (F * bins.element_size()
+                                           + row_bytes)
+                           + n_nodes * F * n_bin * cell_bytes)
+                          / HBM_BYTES_PER_S)
         inputs.append((bins, vals.clone(), pos.clone(), plan,
                        dict(node0=node0, n_nodes=n_nodes, n_bin=n_bin,
-                            stride=stride)))
+                            stride=stride, **extra)))
         return launch(bins, vals, pos, plan, node0=node0, n_nodes=n_nodes,
-                      n_bin=n_bin, stride=stride)
+                      n_bin=n_bin, stride=stride, **extra)
 
     setattr(hist_cuda, name, counted)
     try:
@@ -1258,7 +1397,13 @@ def _round_hist_bound(xtt, hist_cuda, dtrain, params, kernel, label,
     library_ms = kernel_ms = 0.0
     for bins, vals, pos, plan, kw in inputs:
         # the index_add_ yardstick and the kernel on each launch's inputs
-        library_ms += _index_add_ms(kernel, bins, vals, pos, **kw, reps=reps)
+        if kernel == "hist_f32_multi":
+            kw2 = dict(kw)
+            shared = kw2.pop("shared_pos", False)
+            library_ms += _index_add_multi_ms(bins, vals, pos, shared, **kw2)
+        else:
+            library_ms += _index_add_ms(kernel, bins, vals, pos, **kw,
+                                        reps=reps)
         kernel_ms += cuda_ms(lambda: launch(bins, vals, pos, plan, **kw),
                              reps)
     log(f"phase {label} bound: one round's {len(levels)} histograms of "
@@ -1865,6 +2010,30 @@ def phase_csr(xtt, hist_cuda, X, y, rounds: int = 10):
 # node-tiled level of 128 nodes (the last level a depth-8 tree builds)
 CLASS_LEVELS = ((0, 1, 1), (31, 16, 2), (255, 128, 2))
 CLASS_SKEWED = (15, 8, 2)
+# a node-tiled level, the left children of depth 7, held against an f64
+# sum; scripts/node_tiled_error.py sets the reference's f32 error beside it
+NODE_TILED = (127, 64, 2)
+
+
+def node_tiled_level(seed: int = 22):
+    """Covertype-shaped input (581,012 x 54, 256 bins, 7 classes, a pos
+    per class) at NODE_TILED whose rows sit as a training's deep levels
+    hold them: 90% of each class's rows in the level's first node, the
+    rest over the level's 128 slots (left and right children), 2% missing
+    bins.  Returns numpy (bins int16 (R, F), gpair f32 (R, K, 2), pos
+    int32 (K, R))."""
+    rng = np.random.default_rng(seed)
+    R, F, K = 581_012, 54, 7
+    node0, n_nodes, stride = NODE_TILED
+    bins = rng.integers(0, 256, size=(R, F), dtype=np.int16)
+    bins[rng.random((R, F)) < 0.02] = 256
+    gpair = np.stack([rng.normal(size=(R, K)), rng.random((R, K))],
+                     -1).astype(np.float32)
+    pos = np.full((K, R), node0, np.int32)
+    spread = rng.random((K, R)) >= 0.9
+    pos[spread] = rng.integers(node0, node0 + stride * n_nodes,
+                               size=int(spread.sum()))
+    return bins, gpair, pos
 
 
 def _index_add_multi_ms(bins, gpair, pos, shared, *, node0, n_nodes, n_bin,
@@ -2031,6 +2200,16 @@ def phase_class_axis(hist_cuda):
         cases.append(case)
         log("phase 2f kernel vs f64: " + json.dumps(case))
         del bins, gpair, pos
+    # the node-tiled level against an f64 sum (ROADMAP Queue 3 item 1)
+    b, g, p = node_tiled_level()
+    node0, n_nodes, stride = NODE_TILED
+    case = _class_case(hist_cuda, torch.from_numpy(b).cuda(),
+                       torch.from_numpy(g).cuda(),
+                       torch.from_numpy(p).cuda(), False, node0=node0,
+                       n_nodes=n_nodes, n_bin=256, stride=stride,
+                       rows="node-tiled")
+    cases.append(case)
+    log("phase 2f node-tiled kernel vs f64: " + json.dumps(case))
     bad = [c for c in cases if not c["ok"]]
     if bad:
         raise AssertionError(f"hist_f32_multi disagrees with its plain "
@@ -2038,6 +2217,8 @@ def phase_class_axis(hist_cuda):
     for layout in ("pos per class", "shared pos"):
         main = [c for c in cases
                 if c["layout"] == layout and c["rows"] == "spread"]
+        if not main:
+            continue
         log(f"phase 2f three-level sum ({layout}, K = {main[0]['K']}): "
             f"kernel {sum(c['kernel_ms'] for c in main):.4f} ms, K single "
             f"K1 launches {sum(c['k_single_launches_ms'] for c in main):.4f}"
@@ -2110,6 +2291,8 @@ def phase_lockstep(xtt, hist_cuda, dtrain, seq, X, rounds: int = 5):
         f"{merror:.6f} (gate {MERROR_GATE}; phase 8 "
         f"{seq['final']['merror']:.6f})")
     phase_profile(xtt, dtrain, COVER_LOCKSTEP, "12 (lockstep)")
+    _round_hist_bound(xtt, hist_cuda, dtrain, COVER_LOCKSTEP,
+                      "hist_f32_multi", "12", reps=5)
     return r
 
 
@@ -2183,6 +2366,8 @@ def phase_vector_leaf(xtt, hist_cuda, dtrain, seq, X, rounds: int = 5):
         f"{seq['final']['merror']:.6f}); rows sum to 1 within {off:.3g}; "
         "JSON and UBJ reload and predict identically")
     phase_profile(xtt, dtrain, COVER_VECTOR, "13 (vector leaves)")
+    _round_hist_bound(xtt, hist_cuda, dtrain, COVER_VECTOR, "hist_f32_multi",
+                      "13", reps=5)
     _multi_scan_cost()
     return r
 
@@ -2295,6 +2480,262 @@ def phase_vector_parity(xtt):
                          1e-4, "13b softprob")
 
 
+# --------------------------- the rest of the pointwise objectives (14)
+P14_BASE = {"max_depth": 6, "max_bin": 256, "eta": 0.3}
+P14_ROUNDS = 10
+# (objective, its parameters, target, train metric, gate): "half" the
+# metric at most half the constant model's; "below" below it; "majority"
+# hinge's error at most half a majority guess's; "coverage" each alpha's
+# share of rows at or under its prediction within 0.1 of the alpha
+P14 = [
+    ("reg:absoluteerror", {}, "cont", "mae", "half"),
+    ("reg:quantileerror", {"quantile_alpha": [0.1, 0.5, 0.9]}, "cont",
+     "quantile", "coverage"),
+    # at the default slope 1 the Newton steps diverge on this target (std
+    # about 3) in xgboost_tpu and the port alike (scripts/
+    # phase14_settings.py); 3 is about the target's scale
+    ("reg:pseudohubererror", {"huber_slope": 3.0}, "cont", "mphe", "half"),
+    ("count:poisson", {}, "count", "poisson-nloglik", "below"),
+    ("reg:gamma", {}, "pos", "gamma-nloglik", "below"),
+    ("reg:tweedie", {}, "pos", "tweedie-nloglik@1.5", "below"),
+    ("reg:logistic", {}, "binary", "rmse", "below"),
+    ("binary:hinge", {}, "binary", "error", "majority"),
+    ("survival:aft", {}, "time", "aft-nloglik", "below"),
+    # at a million rows Cox's leaf weights grow until the margins overflow
+    # in xgboost_tpu and the port alike (scripts/phase14_settings.py);
+    # max_delta_step bounds them
+    ("survival:cox", {"max_delta_step": 0.7}, "cox", "cox-nloglik",
+     "below"),
+]
+# phase 14b adds the objectives and options phase 14 leaves out
+P14B_EXTRA = [
+    ("reg:squaredlogerror", {}, "pos"),
+    ("binary:logitraw", {}, "binary"),
+    ("reg:expectileerror", {"expectile_alpha": [0.2, 0.8]}, "cont"),
+    ("reg:absoluteerror", {"grow_policy": "lossguide"}, "cont"),
+    ("reg:quantileerror", {"quantile_alpha": [0.3, 0.7],
+                           "grow_policy": "lossguide", "max_leaves": 12},
+     "cont"),
+    ("survival:aft", {"aft_loss_distribution": "logistic",
+                      "aft_loss_distribution_scale": 0.8}, "time"),
+    ("survival:aft", {"aft_loss_distribution": "extreme"}, "time"),
+]
+
+
+def make_pointwise_targets(X, y, seed: int = 14):
+    """Targets of the HIGGS rows for phase 14: the continuous one is phase
+    13b's first target (X[:, :8] W + 0.1 noise); z is it standardised;
+    Poisson counts and gamma values (shape 2) of mean exp(0.3 z); the
+    binary label; survival times exp(z / 2 + 0.3 noise), half of them
+    uncensored, a quarter right-censored (upper bound +inf) and a quarter
+    interval-censored ([0.7 t, 1.5 t]); Cox's labels the same times, a
+    right-censored one negative."""
+    rng = np.random.default_rng(seed)
+    n = X.shape[0]
+    cont = make_targets(X)[:, 0]
+    z = (cont - cont.mean()) / cont.std()
+    mu = np.exp(0.3 * z)
+    t = np.exp(z / 2 + 0.3 * rng.normal(size=n)).astype(np.float32)
+    kind = rng.random(n)
+    right, interval = (kind >= 0.5) & (kind < 0.75), kind >= 0.75
+    lower, upper = t.copy(), t.copy()
+    upper[right] = np.inf
+    lower[interval] = (0.7 * t[interval]).astype(np.float32)
+    upper[interval] = (1.5 * t[interval]).astype(np.float32)
+    return dict(cont=cont, count=rng.poisson(mu).astype(np.float32),
+                pos=rng.gamma(2.0, mu / 2.0).astype(np.float32),
+                binary=y, time=t, lower=lower, upper=upper,
+                cox=np.where(right, -t, t).astype(np.float32))
+
+
+def _p14_set_target(dmat, T, target, name):
+    """The DMatrix's label for ``target``, and AFT's bounds only for AFT."""
+    dmat.set_label(T[target])
+    aft = name == "survival:aft"
+    dmat.label_lower_bound = T["lower"] if aft else None
+    dmat.label_upper_bound = T["upper"] if aft else None
+
+
+def _p14_gate(xtt, bst, dmat, T, name, target, metric, gate, final):
+    """The gate of one phase 14 objective on its final train metric;
+    returns (the constant model's metric, what the gate compared)."""
+    from xgboost_tpu_torch.metric import create_metric
+
+    y = T[target]
+    if gate == "majority":
+        majority = float(min(y.mean(), 1 - y.mean()))
+        ok = final <= 0.5 * majority
+        return dict(ok=ok, metric=final, majority_error=majority)
+    if gate == "coverage":
+        pred = bst.predict(dmat)
+        alphas = bst.objective._alphas()
+        shares = [float((y <= pred[:, k]).mean()) for k in range(len(alphas))]
+        ok = all(abs(sh - a) <= 0.1 for sh, a in zip(shares, alphas))
+        return dict(ok=ok, metric=final, alphas=alphas, shares=shares)
+    K = bst.n_groups
+    base = torch.tensor(np.asarray(bst.base_score, np.float32))
+    const = bst.objective.pred_transform(base.expand(len(y), K)).numpy()
+    fn, _ = create_metric(metric)
+    c = fn(const[:, 0] if K == 1 else const, y, None,
+           **bst._metric_kwargs(dmat))
+    ok = final <= 0.5 * c if gate == "half" else final < c
+    return dict(ok=ok, metric=final, constant=c, ratio=final / c)
+
+
+def _p14_want(hist_cuda, name, K, depth, rounds):
+    def want_fn(evals):
+        if name == "reg:logistic":  # K4 as binary:logistic: base, rounds
+            want = _sigmoid_launches(hist_cuda, rounds, evals=evals)
+        else:
+            want = {k: 0 for k in hist_cuda.launches}
+        want["hist_f32"] = want["split_scan"] = K * depth * rounds
+        return want
+    return want_fn
+
+
+def phase_pointwise(xtt, hist_cuda, rounds: int = P14_ROUNDS):
+    """Each pointwise objective of this slice at full width: the HIGGS rows
+    (make_data, 1,048,576 x 28, max_bin 256, depth 6, eta 0.3) with the
+    targets of make_pointwise_targets; the train loop timed as phase 3
+    (median of 3; K1 and K3 launched depth x K a round, K4 once a round
+    for reg:logistic); its final train metric against the constant
+    model's, gated (P14).  Then reg:logistic's gradient is one K4 launch,
+    two rounds of reg:absoluteerror profiled, and one refit and one
+    survival gradient of each kind timed on the device, none copying to
+    the host."""
+    X, y = make_data(1 << 20, 28)
+    T = make_pointwise_targets(X, y)
+    dtrain = xtt.DMatrix(X, label=y)
+    dtrain.ensure_ellpack(max_bin=256)
+    depth, R = P14_BASE["max_depth"], X.shape[0]
+    out = {}
+    for name, extra, target, metric, gate in P14:
+        params = dict(P14_BASE, objective=name, **extra)
+        _p14_set_target(dtrain, T, target, name)
+        K = len(extra.get("quantile_alpha", [0]))
+        label = f"14 {name}"
+        r = _train_main_path(xtt, hist_cuda, params, dtrain, R, rounds,
+                             "hist_f32", label, metrics=(metric,),
+                             want_fn=_p14_want(hist_cuda, name, K, depth,
+                                               rounds))
+        g = _p14_gate(xtt, r["bst"], dtrain, T, name, target, metric, gate,
+                      r["final"][metric])
+        trees = (f", {K * rounds / r['train_s']:.2f} trees/s"
+                 if K > 1 else "")
+        log(f"phase {label}: {R} x 28, depth {depth}, {rounds} rounds; "
+            f"train loop median {r['train_s']:.3f} s = {r['rate']:.3f} M "
+            f"row-rounds/s{trees} (runs {r['times']} s); with eval "
+            f"{r['with_eval_s']:.3f} s; K1 and K3 launches "
+            f"{r['launches'] // rounds} a round, K4 {r['sigmoid_launches']}"
+            f"; gate {gate}: " + json.dumps(g))
+        if not g["ok"]:
+            raise AssertionError(f"phase {label}: gate {gate} failed: {g}")
+        out[name] = dict(r, gate=g)
+    _p14_set_target(dtrain, T, "cont", "reg:absoluteerror")
+    phase_gradient_profile(xtt, hist_cuda, "reg:logistic", "14")
+    phase_profile(xtt, dtrain, dict(P14_BASE, objective="reg:absoluteerror"),
+                  "14 (reg:absoluteerror)")
+    _p14_device_costs(T)
+    return out
+
+
+def _no_host_copy(ops, kernels, what):
+    """None of the captured operations (graph_ops) and none of the
+    profiled kernels copies to the host."""
+    back = [op for op in ops if op == ("memcpy", "host")]
+    back += [k for k in kernels if "DtoH" in k or "Device -> Pageable" in k]
+    if back:
+        raise AssertionError(f"phase 14: {what} copies to the host: {back}")
+
+
+def _p14_device_costs(T):
+    """Device time and kernels of one refit (depth 6: 64 leaves at heap
+    slots 63-126, alpha 0.5) and of one AFT (normal) and one Cox gradient
+    at 1,048,576 rows: the operations each puts on the stream (graph_ops)
+    and its device time (torch.profiler); none may copy to the host."""
+    from xgboost_tpu_torch.objective import create_objective
+    from xgboost_tpu_torch.ops.adaptive import segment_quantile_leaf
+
+    R = len(T["cont"])
+    rng = np.random.default_rng(15)
+    pos = torch.from_numpy(rng.integers(63, 127, R).astype(np.int32)).cuda()
+    res = torch.from_numpy(T["cont"]).cuda()
+    valid = torch.ones(R, dtype=torch.bool, device="cuda")
+    leaf = torch.zeros(127, dtype=torch.bool, device="cuda")
+    leaf[63:] = True
+    margin = torch.from_numpy(rng.normal(size=(R, 1)).astype(
+        np.float32)).cuda()
+    aft = create_objective("survival:aft", {})
+    aft.set_bounds(torch.from_numpy(T["lower"]).cuda(),
+                   torch.from_numpy(T["upper"]).cuda())
+    cox = create_objective("survival:cox", {})
+    t = torch.from_numpy(T["time"]).cuda()
+    ycox = torch.from_numpy(T["cox"]).cuda()
+    calls = {
+        "refit": lambda: segment_quantile_leaf(pos, res, valid, leaf, 0.5,
+                                               0.3, max_nodes=127),
+        "survival:aft gradient": lambda: aft.get_gradient(margin, t, None),
+        "survival:cox gradient": lambda: cox.get_gradient(margin, ycox,
+                                                          None),
+    }
+    for what, fn in calls.items():
+        ops = graph_ops(fn)
+        counts: dict = {}
+        for kind, detail in ops:
+            key = f"memcpy to {detail}" if kind == "memcpy" else kind
+            counts[key] = counts.get(key, 0) + 1
+        for _ in range(3):  # the profiler now and then sees no events
+            ms, n, kernels = device_per_call(fn, reps=5)
+            if n:
+                break
+        _no_host_copy(ops, kernels, what)
+        top = sorted(kernels.items(), key=lambda kv: -kv[1])[:6]
+        timing = (f"{ms} ms of device time a call; most launched: {top}"
+                  if n else "device time not measured (the profiler saw "
+                  "no events)")
+        log(f"phase 14 {what}: {R} rows, {len(ops)} operations on the "
+            f"stream {counts}, no copy to the host; {timing}")
+
+
+def phase_pointwise_parity(xtt):
+    """Every objective of this slice card vs CPU at 20,000 rows, depth 4,
+    5 rounds: under deterministic_histogram=1 byte-identical model JSON
+    (best-first, which has no deterministic path, aside); the f32 path the
+    same trees up to a near tie (8b's rule), the margins within 1e-4 of
+    the largest (at least 1): these targets' margins reach several units,
+    and a leaf's f32 sums in two orders scale with them."""
+    Xs, ys = make_data(20_000, 28, seed=3)
+    T = make_pointwise_targets(Xs, ys)
+    runs = [(n, e, t) for n, e, t, _, _ in P14] + P14B_EXTRA
+    for name, extra, target in runs:
+        params = dict(P14_BASE, objective=name, max_depth=4, **extra)
+        dm = {}
+        if name == "survival:aft":
+            dm = dict(label_lower_bound=T["lower"],
+                      label_upper_bound=T["upper"])
+        what = f"14b {name} {json.dumps(extra)}"
+        if "max_leaves" not in extra:
+            _card_vs_cpu(xtt, dict(params, deterministic_histogram=1), Xs,
+                         T[target], 5, 1e-5, what + " deterministic",
+                         identical=True, **dm)
+        got = xtt.train(params, xtt.DMatrix(Xs, label=T[target], **dm), 5,
+                        verbose_eval=False)
+        ref = xtt.train(params, xtt.DMatrix(Xs, label=T[target],
+                                            device="cpu", **dm),
+                        5, verbose_eval=False, device="cpu")
+
+        def margin_diff(got=got, ref=ref):
+            a = got.predict(xtt.DMatrix(Xs), output_margin=True)
+            b = ref.predict(xtt.DMatrix(Xs, device="cpu"),
+                            output_margin=True)
+            return float(np.abs(a - b).max() / max(1.0, np.abs(b).max()))
+
+        _same_or_near_tie(got, ref, what + " f32", got.trees_per_round,
+                          margin_diff, 1e-4,
+                          f"card vs CPU on {Xs.shape[0]} rows, margins "
+                          "relative to the largest", Xs)
+
+
 def _kernel_entry(name, source, cases, launches):
     # K1 and K2: the line sums the three int16 shapes it has summed since
     # the first slice, (0, 1, 1), (15, 16, 2) and (31, 16, 2), the six
@@ -2403,7 +2844,7 @@ def main() -> int:
     X, y = make_data(1_000_000, 28)
     f32, dtrain = timed("3", phase_train, xtt, hist_cuda, X, y, 10)
     timed("3b", phase_profile, xtt, dtrain, BASE, "3b")
-    timed("3b gradient", phase_gradient_profile, xtt)
+    timed("3b gradient", phase_gradient_profile, xtt, hist_cuda)
     det = timed("3c", phase_train_det, xtt, hist_cuda, dtrain, X.shape[0],
                 10, f32)
     timed("3d", phase_profile, xtt, dtrain, DET, "3d (deterministic)")
@@ -2427,6 +2868,9 @@ def main() -> int:
     timed("11", phase_csr, xtt, hist_cuda, X, y)
     timed("13 multi-target", phase_multi_target, xtt, hist_cuda, X)
     timed("13b", phase_vector_parity, xtt)
+    del X, y, dtrain
+    timed("14", phase_pointwise, xtt, hist_cuda)
+    timed("14b", phase_pointwise_parity, xtt)
 
     kernels = [_kernel_entry(name, hist_cuda.SOURCES[name], cases, n)
                for name, cases, n in (("hist_f32", f32_cases, f32["launches"]),

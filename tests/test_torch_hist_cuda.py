@@ -924,3 +924,63 @@ def test_lockstep_and_vector_training_launch_the_class_axis():
         np.testing.assert_allclose(got.predict(xtt.DMatrix(X)),
                                    want.predict(xtt.DMatrix(X, device="cpu")),
                                    atol=1e-4)
+
+
+# ------------------------------------- the rest of the pointwise objectives
+def _pointwise_targets(R=20_000, seed=11):
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(R, 8)).astype(np.float32)
+    z = X[:, :3] @ np.array([1.0, -0.5, 0.3], np.float32)
+    zs = (z - z.mean()) / z.std()
+    mu = np.exp(0.3 * zs)
+    t = np.exp(zs / 2 + 0.3 * rng.normal(size=R)).astype(np.float32)
+    k = rng.integers(0, 4, R)
+    lo, hi = t.copy(), t.copy()
+    hi[k == 2] = np.inf
+    lo[k == 3], hi[k == 3] = 0.7 * t[k == 3], 1.5 * t[k == 3]
+    return X, dict(cont=z.astype(np.float32),
+                   count=rng.poisson(mu).astype(np.float32),
+                   pos=rng.gamma(2.0, mu / 2.0).astype(np.float32),
+                   binary=(z > 0).astype(np.float32), time=t,
+                   bounds=(lo, hi),
+                   cox=np.where(k == 2, -t, t).astype(np.float32))
+
+
+@needs_cuda
+@pytest.mark.parametrize("objective,extra,target", [
+    ("reg:absoluteerror", {}, "cont"),
+    ("reg:quantileerror", {"quantile_alpha": [0.1, 0.5, 0.9]}, "cont"),
+    ("reg:pseudohubererror", {"huber_slope": 2.0}, "cont"),
+    ("reg:squaredlogerror", {}, "pos"),
+    ("count:poisson", {}, "count"),
+    ("reg:gamma", {}, "pos"),
+    ("reg:tweedie", {}, "pos"),
+    ("reg:logistic", {}, "binary"),
+    ("binary:logitraw", {}, "binary"),
+    ("binary:hinge", {}, "binary"),
+    ("reg:expectileerror", {"expectile_alpha": [0.2, 0.8]}, "cont"),
+    ("survival:aft", {}, "time"),
+    ("survival:aft", {"aft_loss_distribution": "extreme"}, "time"),
+    ("survival:cox", {}, "cox"),
+])
+def test_pointwise_objective_card_json_is_the_cpus(objective, extra, target):
+    """deterministic_histogram=1: the card's model JSON is the CPU's, the
+    refit's leaves and the survival gradients included."""
+    X, T = _pointwise_targets()
+    dm = {}
+    if objective == "survival:aft":
+        dm = dict(label_lower_bound=T["bounds"][0],
+                  label_upper_bound=T["bounds"][1])
+    params = {"objective": objective, "max_depth": 4, "max_bin": 64,
+              "deterministic_histogram": 1, **extra}
+    hist_cuda.reset_launches()
+    card = xtt.train(params, xtt.DMatrix(X, label=T[target], **dm), 4,
+                     verbose_eval=False)
+    K = len(extra.get("quantile_alpha", extra.get("expectile_alpha", [0])))
+    assert hist_cuda.launches["hist_q"] == 4 * 4 * K
+    logistic = objective in ("reg:logistic", "binary:logitraw")
+    assert hist_cuda.launches["sigmoid"] == (1 + 4 if logistic else 0)
+    cpu = xtt.train(params, xtt.DMatrix(X, label=T[target], device="cpu",
+                                        **dm), 4, verbose_eval=False,
+                    device="cpu")
+    assert json.dumps(card.save_raw_dict()) == json.dumps(cpu.save_raw_dict())

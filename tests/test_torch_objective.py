@@ -56,8 +56,8 @@ def test_init_estimation_and_links(name):
 
 
 def test_unknown_objective_is_not_implemented():
-    with pytest.raises(NotImplementedError, match="reg:absoluteerror"):
-        create_objective("reg:absoluteerror", {})
+    with pytest.raises(NotImplementedError, match="rank:ndcg"):
+        create_objective("rank:ndcg", {})
 
 
 def _logistic_inputs(R=100_000, seed=3):

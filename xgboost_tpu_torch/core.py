@@ -16,6 +16,9 @@ Call stack for one boosting iteration:
        BestFirstGrower.grow: one expansion at a time, a K1
        histogram of both children and their K3 scan per
        expansion                                       [device + host]
+    -> for reg:absoluteerror and reg:quantileerror, the adaptive
+       refit: each leaf the alpha-quantile of its rows' residuals
+       (ops/adaptive.py)                                      [device]
     -> leaf_margin_delta updates the margin cache            [device]
     -> RegTree.from_grown (or to_regtree) appends the host model
 A round grows ``num_parallel_tree`` x K trees (K = ``num_class`` for the
@@ -35,6 +38,7 @@ them at prediction, as the reference does.
 """
 from __future__ import annotations
 
+import inspect
 import json
 import os
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
@@ -46,6 +50,7 @@ from .data.dmatrix import DMatrix, categories_by_name, recode_dense
 from .metric import create_metric
 from .models.tree import RegTree
 from .objective import ObjFunction, create_objective
+from .ops.adaptive import segment_quantile_leaf
 from .ops.predict import (predict_leaf_ids, predict_margin_delta,
                           predict_margin_delta_multi)
 from .ops.split import SplitParams
@@ -98,6 +103,29 @@ class _Cache:
             extra = torch.zeros((R_pad - self.margin.shape[0],
                                  self.margin.shape[1]), device=dev)
             self.margin = torch.cat([self.margin, extra])
+
+    def bounds(self):
+        """The survival bounds on the device, padded with ones as the
+        labels' rows are (an absent upper bound is +inf on the rows);
+        None without a lower bound.  Made once per pair of arrays."""
+        lo, hi = self.dmat.label_lower_bound, self.dmat.label_upper_bound
+        if lo is None:
+            return None
+        key = (id(lo), id(hi))
+        if getattr(self, "_bounds_key", None) != key:
+            if hi is None:
+                hi = np.full_like(lo, np.inf)
+
+            def padded(a):
+                out = torch.ones(self.ellpack.n_padded, dtype=torch.float32,
+                                 device=self.device)
+                out[: a.shape[0]] = torch.from_numpy(
+                    np.asarray(a, np.float32)).to(self.device)
+                return out
+
+            self._bounds = (padded(lo), padded(hi))
+            self._bounds_key = key
+        return self._bounds
 
     def n_rows(self) -> int:
         return self.ellpack.n_padded if self.ellpack is not None \
@@ -196,13 +224,16 @@ class Booster:
                 interaction_sets=tp.interaction_constraints,
                 max_leaves=tp.max_leaves,
                 quantised=self.deterministic_histogram)
+        # the adaptive leaf refit after each tree (reg:absoluteerror,
+        # reg:quantileerror; reference core.py:1565-1605)
+        self._adaptive = self.objective.adaptive_leaf()
         # the reference's opt-in class-batched grower (core.py:1510-1516):
         # the K class trees of a round in one level loop, numeric f32
         # histograms only; _boost_trees checks the rest of its gate
         self._lockstep = (
             not self._best_first and not self.deterministic_histogram
-            # no objective of the port refits its leaves yet (adaptive)
-            and not getattr(self.objective, "adaptive_leaf", lambda: False)()
+            # the refit is per tree: adaptive objectives grow sequentially
+            and not self._adaptive
             and str(p.get("_hist_impl", "xla")) == "xla"
             and str(p.get("_lockstep", "0")).lower() in ("1", "true"))
         self._lockstep_grower = LockstepHistGrower(
@@ -322,6 +353,10 @@ class Booster:
         a custom objective, called as ``fobj(margin, dtrain) -> (grad,
         hess)`` on the raw margins of the rows, (R,) or (R, K)."""
         cache = self._train_cache(dtrain)
+        bounds = cache.bounds()
+        if bounds is not None and hasattr(self.objective, "set_bounds"):
+            # before each gradient (reference core.py:452-456)
+            self.objective.set_bounds(*bounds)
         if fobj is not None:
             margin = cache.margin[cache.valid].cpu().numpy()
             grad, hess = fobj(margin[:, 0] if self.n_groups == 1 else margin,
@@ -489,16 +524,45 @@ class Booster:
                     cache.bins, gp[:, k, :].contiguous(), cache.valid,
                     cache.cuts_pad, cache.n_bins, feature_masks=fmask_fn,
                     cat_mask=cat_mask)
+                tree = None
                 if self._best_first:
                     tree, leaf_val = self._grower.to_regtree(
                         state, cache.cuts_host)
                 else:
-                    tree = RegTree.from_grown(HistTreeGrower.to_host(state))
                     leaf_val = state.leaf_val
+                if self._adaptive:
+                    leaf_val = self._refit_leaves(cache, state, tree, k)
+                    if not self._best_first:
+                        state.leaf_val = leaf_val
+                if tree is None:
+                    tree = RegTree.from_grown(HistTreeGrower.to_host(state))
                 cache.margin[:, k] += leaf_margin_delta(state.pos, leaf_val)
                 self.trees.append(tree)
                 self.tree_info.append(k)
         cache.n_trees_applied = len(self.trees)
+
+    def _refit_leaves(self, cache: _Cache, state, tree: Optional[RegTree],
+                      k: int) -> torch.Tensor:
+        """Output group k's tree with exact quantile leaves (reference
+        core.py:1565-1605, ObjFunction::UpdateTreeLeaf): each leaf becomes
+        eta times the alpha-quantile of its rows' residuals against the
+        margin before the tree, on the device.  A best-first tree takes the
+        values into its leaves' split_conditions."""
+        if self._best_first:
+            is_leaf, n_slots = self._grower.leaf_mask(state), \
+                self._grower.n_slots
+        else:
+            is_leaf, n_slots = state.is_leaf, self._grower.max_nodes
+        residual = cache.labels - cache.margin[:, k]
+        leaf_val = segment_quantile_leaf(
+            state.pos, residual, cache.valid, is_leaf,
+            float(self.objective.adaptive_alpha(k)), float(self.tparam.eta),
+            max_nodes=n_slots)
+        if self._best_first:
+            lv = leaf_val[: tree.n_nodes].cpu().numpy()
+            lm = tree.left_children == -1
+            tree.split_conditions[lm] = lv[lm]
+        return leaf_val
 
     def _boost_multi_target(self, cache: _Cache, gpair, iteration: int,
                             cat_mask) -> None:
@@ -552,8 +616,18 @@ class Booster:
             preds = self.objective.pred_transform(margin).cpu().numpy()
             if self.n_groups == 1:
                 preds = preds[:, 0]
+            labels = dmat.get_label()
+            mkw = self._metric_kwargs(dmat)
             for fn, mname in metrics:
-                v = fn(preds, dmat.get_label(), dmat.get_weight())
+                kw, lab = dict(mkw), labels
+                if "alphas" in kw and "alphas" not in inspect.signature(
+                        getattr(fn, "__wrapped__", fn)).parameters:
+                    # a generic metric of a multi-alpha model: the labels
+                    # tiled so that (R, Q) predictions broadcast per level
+                    kw.pop("alphas")
+                    if preds.ndim == 2 and lab.ndim == 1:
+                        lab = np.repeat(lab[:, None], preds.shape[1], axis=1)
+                v = fn(preds, lab, dmat.get_weight(), **kw)
                 msgs.append(f"{name}-{mname}:{v:g}")
             if feval is not None:
                 res = feval(margin.cpu().numpy() if output_margin else preds,
@@ -561,6 +635,27 @@ class Booster:
                 for mname, v in [res] if isinstance(res, tuple) else res:
                     msgs.append(f"{name}-{mname}:{v:g}")
         return "\t".join(msgs)
+
+    def _metric_kwargs(self, dmat: DMatrix) -> dict:
+        """The metrics' keyword arguments (reference core.py:1697-1708):
+        survival bounds, AFT's distribution and scale (and the booster's
+        device, where aft-nloglik takes its f32 loss), huber_slope, and
+        the alphas of a multi-alpha model."""
+        mkw = {}
+        if dmat.label_lower_bound is not None:
+            mkw["y_lower"] = dmat.label_lower_bound
+            ub = dmat.label_upper_bound
+            mkw["y_upper"] = (np.full_like(mkw["y_lower"], np.inf)
+                              if ub is None else ub)
+        if hasattr(self.objective, "dist"):
+            mkw["dist"] = self.objective.dist
+            mkw["sigma"] = self.objective.sigma
+            mkw["device"] = self.device  # aft-nloglik's f32 loss
+        if "huber_slope" in self.params:
+            mkw["slope"] = float(self.params["huber_slope"])
+        if hasattr(self.objective, "_alphas") and self.n_groups > 1:
+            mkw["alphas"] = self.objective._alphas()
+        return mkw
 
     def _eval_metric_list(self):
         names = self.params.get("eval_metric", None)

@@ -124,6 +124,9 @@ class DMatrix:
     ``device``: where the matrix is staged; ``None`` means ``cuda``.
     ``missing`` applies to dense input; sparse input's missing values are
     its implicit zeros (and stored NaN).
+    ``label_lower_bound``, ``label_upper_bound``: (R,) f32 survival bounds
+    (``survival:aft``; an infinite upper bound is right-censored), also
+    settable as attributes, as the reference's info.
     ``feature_weights``: (F,) non-negative weights of the column sampler's
     draws (colsample_*), as in the reference.  ``feature_types``: ``'q'``
     numeric, ``'c'`` categorical (codes 0, 1, ...); a pandas frame brings
@@ -142,6 +145,8 @@ class DMatrix:
         feature_names: Optional[Sequence[str]] = None,
         feature_types: Optional[Sequence[str]] = None,
         feature_weights: Any = None,
+        label_lower_bound: Any = None,
+        label_upper_bound: Any = None,
         enable_categorical: bool = False,
         device=None,
     ) -> None:
@@ -172,6 +177,14 @@ class DMatrix:
         self.label: Optional[np.ndarray] = None
         self.weight: Optional[np.ndarray] = None
         self.base_margin: Optional[np.ndarray] = None
+        self.label_lower_bound: Optional[np.ndarray] = None
+        self.label_upper_bound: Optional[np.ndarray] = None
+        if label_lower_bound is not None:
+            self.label_lower_bound = self._rows(label_lower_bound,
+                                                "label_lower_bound")
+        if label_upper_bound is not None:
+            self.label_upper_bound = self._rows(label_upper_bound,
+                                                "label_upper_bound")
         if label is not None:
             self.set_label(label)
         if weight is not None:

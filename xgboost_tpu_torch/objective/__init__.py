@@ -44,6 +44,9 @@ class ObjFunction:
     def n_groups(self) -> int:
         return 1
 
+    def task_is_classification(self) -> bool:
+        return False
+
     def get_gradient(self, preds, labels, weights):
         """(R, K) margin, (R,) labels -> (R, K, 2) f32 gpair."""
         raise NotImplementedError
@@ -70,5 +73,15 @@ class ObjFunction:
     def default_metric(self) -> str:
         return "rmse"
 
+    # the adaptive leaf refit (reference: ObjFunction::UpdateTreeLeaf,
+    # objective.h:129; ops/adaptive.py): after each tree its leaves become
+    # the alpha-quantile of their rows' residuals, output group k's alpha
+    def adaptive_leaf(self) -> bool:
+        return False
 
-from . import multiclass, regression  # noqa: E402,F401  (registers objectives)
+    def adaptive_alpha(self, k: int = 0) -> float:
+        raise NotImplementedError
+
+
+# registers the objectives
+from . import multiclass, regression, survival  # noqa: E402,F401

@@ -4,6 +4,10 @@ that the ``hist`` growers read).
 ``TrainParam`` holds the tree parameters the slice supports;
 ``reject_unsupported`` fails loudly on every parameter the port does not
 implement yet, naming it, instead of training a different model quietly.
+The objectives read their own parameters from the dict (``huber_slope``,
+``tweedie_variance_power``, ``quantile_alpha`` and ``expectile_alpha``, a
+number or a list, ``aft_loss_distribution``,
+``aft_loss_distribution_scale``, ``scale_pos_weight``).
 """
 from __future__ import annotations
 

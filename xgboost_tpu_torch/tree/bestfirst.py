@@ -245,6 +245,12 @@ class BestFirstGrower:
             st.n_nodes += 2
         return st
 
+    def leaf_mask(self, st: BFState) -> torch.Tensor:
+        """(n_slots,) bool on the device: which of the table's nodes are
+        leaves (the adaptive refit's mask)."""
+        slots = torch.arange(self.n_slots, device=st.left.device)
+        return (st.left == -1) & (slots < st.n_nodes)
+
     def to_regtree(self, st: BFState, cuts_host: np.ndarray
                    ) -> Tuple[RegTree, torch.Tensor]:
         """(the RegTree in table order, the (n_slots,) leaf values on the
