@@ -172,6 +172,28 @@ holds each CUDA kernel against its plain PyTorch version:
      slice card vs CPU at 20,000 rows, depth 4, byte-identical
      deterministic JSON and f32 trees the same up to a near tie
 
+  2g. K5 (csrc/lambdarank.cu) against lambdarank_topk_plain, bitwise in
+     grad and hess, at the MSLR shape (31,531 queries of 40-199 docs),
+     two queries of 20,000 docs, queries of one and two docs, tied scores,
+     all scores equal (the first round), k above the query size, each
+     normalisation off and the pairwise weights; utils/libm's expf, exp2f
+     and log2f on the card against the same code on the CPU, bitwise, over
+     2^24 sampled inputs; timings of the kernel (per call with the
+     wrapper's sorts, device time a launch), the plain version and the
+     bound from the pairs these inputs need
+  15. learning to rank at full width, MSLR-shaped (scripts/bench_ladder.py:
+     91-94, 136-143): 31,531 queries, about 3.77M x 136 (2% NaN), graded
+     0-4, rank:ndcg, depth 8, eta 0.3, max_bin 256, 5 rounds, ndcg@10:
+     ingest seconds, the train loop's median of 3, K1 and K3 launched 8
+     times a round and K5 once a round (and once for the base score), the
+     final ndcg@10 above the constant model's; rank:pairwise and rank:map
+     with their default metric (map) and the mean pair method once each;
+     one get_gradient's operations (graph_ops: one K5 launch, no copy to
+     the host) and device time; a two-round profile; 15b: card vs CPU on
+     20,000 rows of the generator at depth 6, 3 rounds: deterministic JSON
+     byte-identical for the three objectives and the mean method, the f32
+     trees the same up to a near tie
+
 Phase 2 and 2b also give each case's device time a launch (torch.profiler),
 and phases 7, 8 and 9 the bound, the kernel and the index_add_ yardstick on
 each launch's inputs of a round (8 also K3's bound; 9 a one-round profile
@@ -627,6 +649,7 @@ def _train_main_path(xtt, hist_cuda, params, dtrain, n_rows, rounds, kernel,
     return dict(bst=bst, timed=timed, launches=launches[kernel],
                 scan_launches=launches["split_scan"],
                 sigmoid_launches=launches["sigmoid"],
+                lambdarank_launches=launches["lambdarank"],
                 logloss=final.get("logloss"), auc=final.get("auc"),
                 final=final, train_s=train_s,
                 rate=n_rows * rounds / train_s / 1e6,
@@ -2736,6 +2759,318 @@ def phase_pointwise_parity(xtt):
                           "relative to the largest", Xs)
 
 
+# ------------------------------------------------- learning to rank (15)
+# f64 outside the tensor cores on an H100 SXM (NVIDIA's data sheet): K5's
+# glibc expf is double arithmetic
+F64_FLOPS = 34e12
+# f64 operations of one glibc expf (five fused multiply-adds at two each,
+# and five other double operations), and K5's f32 operations a pair
+EXPF_F64_OPS = 15
+PAIR_F32_OPS = 15
+# the mslr_ndcg configuration of scripts/bench_ladder.py:91-94 (MSLR-WEB30K
+# shaped: 31,531 queries of 40-199 docs, 136 features, graded 0-4)
+MSLR_GROUPS = 31_531
+MSLR_PARAMS = {"objective": "rank:ndcg", "max_depth": 8, "eta": 0.3,
+               "max_bin": 256}
+P15_ROUNDS = 5
+LIBM_SAMPLE = 1 << 24  # phase 2g's f32 inputs of utils/libm, card vs CPU
+
+
+def make_mslr(groups: int = MSLR_GROUPS, seed: int = 0, cols: int = 136):
+    """The ranking data of scripts/bench_ladder.py:136-143: query sizes
+    uniform in [40, 200), N(0, 1) features, relevance clip(int(x0 + 0.5
+    noise + 2), 0, 4); then 2% of the features missing.  Float32 draws
+    (the ladder draws float64), made in bulk."""
+    rng = np.random.default_rng(seed)
+    sizes = rng.integers(40, 200, size=groups)
+    R = int(sizes.sum())
+    X = rng.standard_normal(size=(R, cols), dtype=np.float32)
+    rel = np.clip((X[:, 0] + 0.5 * rng.standard_normal(R, dtype=np.float32)
+                   + 2.0).astype(np.int64), 0, 4).astype(np.float32)
+    X[rng.random((R, cols), dtype=np.float32) < 0.02] = np.nan
+    return X, rel, sizes.astype(np.int64)
+
+
+def _lambdarank_work(s, y, layout, k):
+    """The pairs K5 computes on these inputs (top-k pairs of distinct
+    gains, which for these labels are distinct labels) and the bound of
+    one launch: (pairs, bytes, bound ms, what bounds it).  Bytes: scores,
+    labels and the two orders read once, the (grad, hess) pairs written
+    once (24 bytes a grouped row), the group pointer and the disc table."""
+    from xgboost_tpu_torch.ops.lambdarank_cuda import sorted_order
+
+    G, S, r_g = layout.G, layout.S, layout.r_g
+    y_srt = y[:r_g][sorted_order(s[:r_g], layout.gid)]
+    labels, code = torch.unique(y_srt, return_inverse=True)
+    onehot = torch.zeros((G, S + 1, len(labels)), dtype=torch.int32,
+                         device=s.device)
+    onehot[:, :S][layout.vpos] = torch.nn.functional.one_hot(
+        code, len(labels)).to(torch.int32)
+    # suffix counts of each label from position p on
+    suffix = onehot.flip(1).cumsum(1).flip(1)
+    pos = torch.arange(S, device=s.device)
+    kk = torch.clamp(layout.sizes, max=k)
+    top = (pos[None, :] < kk[:, None]) & layout.vpos
+    after = (layout.sizes[:, None] - pos[None, :] - 1).clamp(min=0)
+    lab = torch.zeros((G, S), dtype=torch.int64, device=s.device)
+    lab[layout.vpos] = code
+    same = suffix[:, 1:].gather(2, lab[:, :, None])[:, :, 0]
+    pairs = int(torch.where(top, after - same, 0).sum())
+    nbytes = 24 * r_g + 4 * (G + 1) + 4 * S
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = pairs * (EXPF_F64_OPS / F64_FLOPS + PAIR_F32_OPS / F32_FLOPS)
+    return (pairs, nbytes, max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def _p2g_cases():
+    """(name, group sizes, score kind, k, ndcg weight, score norm, group
+    norm) of phase 2g."""
+    rng = np.random.default_rng(20)
+    mslr = rng.integers(40, 200, size=MSLR_GROUPS)
+    return [
+        ("mslr", mslr, "normal", 32, True, True, True),
+        ("20k_groups", np.array([20_000, 20_000, 150]), "normal", 32, True,
+         True, True),
+        ("sizes_1_2", np.tile([1, 2, 1, 2, 7], 2000), "normal", 32, True,
+         True, True),
+        ("tied", mslr[:4000], "tied", 32, True, True, True),
+        ("all_equal", mslr[:4000], "zero", 32, True, True, True),
+        ("k_above_n", mslr[:4000], "normal", 256, True, True, True),
+        ("no_score_norm", mslr[:4000], "normal", 32, True, False, True),
+        ("no_group_norm", mslr[:4000], "normal", 32, True, True, False),
+        ("pairwise", mslr[:4000], "normal", 32, False, True, True),
+    ]
+
+
+def phase_lambdarank(hist_cuda):
+    """K5 (csrc/lambdarank.cu) against lambdarank_topk_plain on the card,
+    bitwise in grad and hess, at the MSLR shape and the other cases of
+    _p2g_cases; utils/libm's expf, exp2f and log2f on the card against the
+    same code on the CPU, bitwise, over 2^24 sampled inputs.  Timings of
+    the kernel (per call and device time a launch, the wrapper's sorts
+    included in the per-call time) and the plain version, and the bound."""
+    from xgboost_tpu_torch.ops.lambdarank_cuda import (
+        GroupLayout, lambdarank_topk_cuda, lambdarank_topk_plain)
+    from xgboost_tpu_torch.utils import libm
+
+    rng = np.random.default_rng(21)
+    bits = rng.integers(0, 2**32, LIBM_SAMPLE, dtype=np.uint64).astype(
+        np.uint32)
+    x_cpu = torch.from_numpy(bits.view(np.float32))
+    x_card = x_cpu.cuda()
+    for name in ("expf", "exp2f", "log2f"):
+        fn = getattr(libm, name)
+        same = _same_bits(fn(x_card).cpu(), fn(x_cpu))
+        log(f"phase 2g libm {name}: card vs CPU over {LIBM_SAMPLE} sampled "
+            f"f32 inputs bitwise: {same}")
+        if not same:
+            raise AssertionError(f"phase 2g: utils/libm {name} differs "
+                                 "card vs CPU")
+    cases = []
+    for name, sizes, scores, k, nd, sn, gn in _p2g_cases():
+        gp = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int64)
+        R = int(gp[-1]) + 1000  # rows past the last group stay (0, 0)
+        s = rng.normal(size=R).astype(np.float32)
+        if scores == "tied":
+            s = np.round(2 * s).astype(np.float32)
+            s[::7] = -0.0
+        elif scores == "zero":
+            s[:] = 0.0
+        y = rng.integers(0, 5, R).astype(np.float32)
+        s_card, y_card = torch.from_numpy(s).cuda(), torch.from_numpy(y).cuda()
+        layout = GroupLayout(gp, "cuda")
+        args = (layout, k, nd, sn, gn)
+        got = lambdarank_topk_cuda(s_card, y_card, *args)
+        t0 = time.perf_counter()
+        want = lambdarank_topk_plain(s_card, y_card, *args)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        bitwise = _same_bits(got.cpu(), want.cpu())
+        pairs, nbytes, bound_ms, bound_by = _lambdarank_work(
+            s_card, y_card, layout, k)
+        case = dict(case=name, groups=len(sizes), rows=int(gp[-1]),
+                    largest=int(max(sizes)), k=k, ndcg_weight=nd,
+                    score_norm=sn, group_norm=gn, pairs=pairs,
+                    bitwise=bitwise,
+                    max_abs_err=float((got - want).abs().max()),
+                    kernel_ms=cuda_ms(lambda: lambdarank_topk_cuda(
+                        s_card, y_card, *args), reps=10),
+                    device_ms=device_per_call(lambda: lambdarank_topk_cuda(
+                        s_card, y_card, *args), reps=5)[0],
+                    plain_ms=plain_ms, bytes=nbytes, bound_ms=bound_ms,
+                    bound_by=bound_by, library_ms=None)
+        log("phase 2g kernel vs plain: " + json.dumps(case))
+        cases.append(case)
+    bad = [c["case"] for c in cases if not c["bitwise"]]
+    if bad:
+        raise AssertionError(f"K5 disagrees with its plain version: {bad}")
+    return cases
+
+
+def _p15_want(hist_cuda, depth, rounds, pair_method):
+    def want_fn(evals):
+        want = {k: 0 for k in hist_cuda.launches}
+        want["hist_f32"] = want["split_scan"] = depth * rounds
+        if pair_method == "topk":  # the base score's gradient, then rounds
+            want["lambdarank"] = 1 + rounds
+        return want
+    return want_fn
+
+
+def _rank_constant(bst, dmat, y, metric):
+    """``metric`` of the constant model (every doc its base margin)."""
+    from xgboost_tpu_torch.metric import create_metric
+
+    fn, _ = create_metric(metric)
+    const = np.full(len(y), np.float32(bst.base_score[0]))
+    return fn(const, y, None, **bst._metric_kwargs(dmat))
+
+
+def phase_ranking(xtt, hist_cuda, rounds: int = P15_ROUNDS):
+    """rank:ndcg at full width: MSLR-shaped 31,531 queries (make_mslr,
+    about 3.77M x 136), depth 8, eta 0.3, max_bin 256, ndcg@10 on the
+    training set; the train loop timed as phase 3 (median of 3; K1 and K3
+    launched 8 times a round, K5 once a round and once for the base
+    score); the final ndcg@10 gated above the constant model's; one
+    get_gradient's operations (graph_ops: no copy to the host) and K5's
+    device time; two rounds profiled.  Then rank:pairwise and rank:map
+    with their default metric, and lambdarank_pair_method="mean", once
+    each."""
+    t0 = time.perf_counter()
+    X, y, sizes = make_mslr()
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dtrain = xtt.DMatrix(X, label=y, group=sizes)
+    ell = dtrain.ensure_ellpack(max_bin=256)
+    torch.cuda.synchronize()
+    ingest_s = time.perf_counter() - t0
+    R, F = X.shape
+    del X
+    log(f"phase 15 data: {len(sizes)} queries, {R} x {F} rows (made in "
+        f"{gen_s:.3f} s); ingest (device sketch + bins) {ingest_s:.3f} s; "
+        f"bins {ell.bins.dtype} {ell.bins.numel() * ell.bins.element_size()}"
+        f" bytes")
+    depth = MSLR_PARAMS["max_depth"]
+    out = {}
+    runs = [("rank:ndcg", {}, ("ndcg@10",), 3),
+            ("rank:pairwise", {}, ("map",), 1),
+            ("rank:map", {}, ("map",), 1),
+            ("rank:ndcg", {"lambdarank_pair_method": "mean"}, ("ndcg@10",),
+             1)]
+    for name, extra, metrics, repeats in runs:
+        params = dict(MSLR_PARAMS, objective=name, **extra)
+        pm = extra.get("lambdarank_pair_method", "topk")
+        label = f"15 {name} {pm}"
+        r = _train_main_path(xtt, hist_cuda, params, dtrain, R, rounds,
+                             "hist_f32", label, repeats=repeats,
+                             metrics=metrics,
+                             want_fn=_p15_want(hist_cuda, depth, rounds,
+                                               pm))
+        metric = metrics[0]
+        const = _rank_constant(r["bst"], dtrain, y, metric)
+        final = r["final"][metric]
+        log(f"phase {label}: {R} x {F}, {len(sizes)} queries, depth "
+            f"{depth}, {rounds} rounds; train loop median "
+            f"{r['train_s']:.3f} s = {r['rate']:.3f} M row-rounds/s (runs "
+            f"{r['times']} s); with eval {r['with_eval_s']:.3f} s; K1 and K3 "
+            f"launches {r['launches'] // rounds} a round, K5 "
+            f"{hist_cuda.launches['lambdarank']} in the last timed run; "
+            f"train {metric} {final} against the constant model's {const}")
+        if not final > const:
+            raise AssertionError(f"phase {label}: {metric} {final} not "
+                                 f"above the constant model's {const}")
+        out[(name, pm)] = r
+    _p15_gradient(hist_cuda, dtrain, y)
+    phase_profile(xtt, dtrain, MSLR_PARAMS, "15 (rank:ndcg)")
+    return out
+
+
+def _p15_gradient(hist_cuda, dtrain, y):
+    """One rank:ndcg get_gradient at the main path's rows: every operation
+    it puts on the stream (graph_ops), none a copy to the host, one K5
+    launch; its device time and K5's (torch.profiler)."""
+    from xgboost_tpu_torch.objective import create_objective
+
+    obj = create_objective("rank:ndcg", {})
+    obj.set_group_info(dtrain.group_ptr)
+    R_pad = dtrain.ensure_ellpack(max_bin=256).n_padded
+    rng = np.random.default_rng(16)
+    margin = torch.from_numpy(rng.normal(size=(R_pad, 1)).astype(
+        np.float32)).cuda()
+    labels = torch.zeros(R_pad, dtype=torch.float32, device="cuda")
+    labels[:len(y)] = torch.from_numpy(y).cuda()
+
+    def call():
+        return obj.get_gradient(margin, labels, None)
+    call()
+    before = hist_cuda.launches["lambdarank"]
+    ops = graph_ops(call)
+    k5 = hist_cuda.launches["lambdarank"] - before
+    counts: dict = {}
+    for kind, detail in ops:
+        key = f"memcpy to {detail}" if kind == "memcpy" else kind
+        counts[key] = counts.get(key, 0) + 1
+    k5_nodes = [d for kind, d in ops if kind == "kernel" and d
+                and "lambdarank" in d]
+    for _ in range(3):  # the profiler now and then sees no events
+        ms, n, kernels = device_per_call(call, reps=5)
+        if n:
+            break
+    _no_host_copy(ops, kernels, "the rank:ndcg gradient")
+    k5_ms = [v for k, v in kernels.items() if "lambdarank" in k]
+    timing = (f"{ms} ms of device time a call (torch.profiler: {kernels})"
+              if n else "device time not measured (the profiler saw no "
+              "events)")
+    log(f"phase 15 gradient: one rank:ndcg get_gradient at {R_pad} rows puts "
+        f"{len(ops)} operations on the stream {counts}, K5 nodes "
+        f"{k5_nodes}, no copy to the host; K5 counts {k5} launch(es) of "
+        f"two calls, captured and warm; {timing}")
+    if k5 != 2 or len(k5_nodes) > 1:
+        raise AssertionError(f"phase 15: a get_gradient launched K5 {k5} "
+                             "times in two calls, want 2")
+
+
+def phase_ranking_parity(xtt, rounds: int = 3):
+    """Card vs CPU on 20,000 rows of the MSLR generator at depth 6: under
+    deterministic_histogram=1 byte-identical model JSON for rank:ndcg,
+    rank:pairwise and rank:map with top-k pairs and for rank:ndcg with the
+    mean method; the f32 path the same trees up to a near tie (8b's
+    rule)."""
+    X, y, sizes = make_mslr(groups=200, seed=5)
+    keep = int(np.searchsorted(np.cumsum(sizes), 20_000, side="right"))
+    sizes = sizes[:keep]
+    R = int(sizes.sum())
+    X, y = X[:R], y[:R]
+    base = dict(MSLR_PARAMS, max_depth=6)
+    for name, extra in (("rank:ndcg", {}), ("rank:pairwise", {}),
+                        ("rank:map", {}),
+                        ("rank:ndcg", {"lambdarank_pair_method": "mean"})):
+        params = dict(base, objective=name, **extra)
+        what = f"15b {name} {json.dumps(extra)}"
+        _card_vs_cpu(xtt, dict(params, deterministic_histogram=1), X, y,
+                     rounds, 1e-5, what + " deterministic", identical=True,
+                     group=sizes)
+        if extra:
+            continue
+        got = xtt.train(params, xtt.DMatrix(X, label=y, group=sizes), rounds,
+                        verbose_eval=False)
+        ref = xtt.train(params, xtt.DMatrix(X, label=y, group=sizes,
+                                            device="cpu"),
+                        rounds, verbose_eval=False, device="cpu")
+
+        def margin_diff(got=got, ref=ref):
+            a = got.predict(xtt.DMatrix(X), output_margin=True)
+            b = ref.predict(xtt.DMatrix(X, device="cpu"),
+                            output_margin=True)
+            return float(np.abs(a - b).max() / max(1.0, np.abs(b).max()))
+
+        _same_or_near_tie(got, ref, what + " f32", got.trees_per_round,
+                          margin_diff, 1e-4,
+                          f"card vs CPU on {R} rows, margins relative to the "
+                          "largest", X)
+
+
 def _kernel_entry(name, source, cases, launches):
     # K1 and K2: the line sums the three int16 shapes it has summed since
     # the first slice, (0, 1, 1), (15, 16, 2) and (31, 16, 2), the six
@@ -2749,6 +3084,17 @@ def _kernel_entry(name, source, cases, launches):
             "max_abs_err": c["max_abs_err"], "ms": c["kernel_ms"],
             "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
             "bound_by": c["bound_by"], "library_ms": c["library_ms"],
+        }
+    if name == "lambdarank":
+        # the MSLR-shaped main path's launch
+        c = [c for c in cases if c["case"] == "mslr"][0]
+        return {
+            "name": name, "route": "cuda", "source": source,
+            "replaces": REPLACES[name], "launches": launches,
+            "max_abs_err": max(c["max_abs_err"] for c in cases),
+            "ms": c["kernel_ms"], "plain_ms": c["plain_ms"],
+            "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
+            "library_ms": None,
         }
     if name == "hist_f32_multi":
         # the lockstep layout at Covertype's shapes, its three levels
@@ -2817,7 +3163,10 @@ REPLACES = {"hist_f32": "xgboost_tpu/ops/hist_pallas.py:77",
             "sigmoid": "xgboost_tpu/objective/regression.py:113",
             # K3's categorical mode: no Pallas kernel, the reference's XLA
             # formulation with a cat_mask
-            "split_scan_categorical": "xgboost_tpu/ops/split.py:269"}
+            "split_scan_categorical": "xgboost_tpu/ops/split.py:269",
+            # no Pallas kernel: the reference's native top-k LambdaMART
+            # gradients
+            "lambdarank": "native/xtb_kernels.h:997"}
 
 
 def main() -> int:
@@ -2841,6 +3190,7 @@ def main() -> int:
     cat_cases = timed("2e", phase_split_scan_cat)
     sig_cases = timed("2d", phase_sigmoid, hist_cuda)
     class_cases = timed("2f", phase_class_axis, hist_cuda)
+    rank_cases = timed("2g", phase_lambdarank, hist_cuda)
     X, y = make_data(1_000_000, 28)
     f32, dtrain = timed("3", phase_train, xtt, hist_cuda, X, y, 10)
     timed("3b", phase_profile, xtt, dtrain, BASE, "3b")
@@ -2871,6 +3221,8 @@ def main() -> int:
     del X, y, dtrain
     timed("14", phase_pointwise, xtt, hist_cuda)
     timed("14b", phase_pointwise_parity, xtt)
+    rank = timed("15", phase_ranking, xtt, hist_cuda)
+    timed("15b", phase_ranking_parity, xtt)
 
     kernels = [_kernel_entry(name, hist_cuda.SOURCES[name], cases, n)
                for name, cases, n in (("hist_f32", f32_cases, f32["launches"]),
@@ -2885,6 +3237,9 @@ def main() -> int:
     kernels.append(_kernel_entry(
         "hist_f32_multi", hist_cuda.SOURCES["hist_f32"], class_cases,
         lockstep["launches"]))
+    kernels.append(_kernel_entry(
+        "lambdarank", hist_cuda.SOURCES["lambdarank"], rank_cases,
+        rank[("rank:ndcg", "topk")]["lambdarank_launches"]))
     log(f"chip_smoke total {time.perf_counter() - t_start:.3f} s")
     log(smi)
     log(json.dumps({"kernels": kernels}))

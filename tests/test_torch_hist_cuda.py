@@ -22,7 +22,12 @@ and the vector-leaf layout (one pos, (N, F, B, K, 2)), at each cluster
 size, and the lockstep and vector-leaf trainers launching only it.
 K4 (csrc/sigmoid.cu) held against its plain versions bitwise over the f32
 range and its edges: the sigmoid, and the binary:logistic gradient pairs
-with and without weights and scale_pos_weight.  Multiclass, forest and
+with and without weights and scale_pos_weight.  K5 (csrc/lambdarank.cu)
+held against its plain version bitwise at MSLR-like queries, queries of
+thousands of docs and of one or two, tied and equal scores, k above the
+query size and each normalisation off; utils/libm's functions on the
+card the CPU's bits; ranking training on the card writing the CPU's
+model JSON.  Multiclass, forest and
 CSR training on the card writing the CPU's model JSON, with the kernels'
 launches a level of each tree counted.  Every
 test here needs a CUDA device and skips without one; the file imports
@@ -324,7 +329,7 @@ def test_training_on_card_launches_kernel_and_matches_cpu():
     # and one sigmoid for the base score, then one a round
     assert hist_cuda.launches == {"hist_f32": 4 * 3, "hist_q": 0,
                                   "split_scan": 4 * 3, "sigmoid": 1 + 4,
-                                  "hist_f32_multi": 0}
+                                  "hist_f32_multi": 0, "lambdarank": 0}
     cpu = xtt.train(params, xtt.DMatrix(X, label=y, device="cpu"), 4,
                     verbose_eval=False, device="cpu")
     for a, b in zip(card.trees, cpu.trees):
@@ -372,7 +377,7 @@ def test_deterministic_training_launches_only_k2_and_repeats_bytes():
                         verbose_eval=False)
         assert hist_cuda.launches == {"hist_f32": 0, "hist_q": 3 * 6,
                                       "split_scan": 3 * 6, "sigmoid": 1 + 3,
-                                      "hist_f32_multi": 0}
+                                      "hist_f32_multi": 0, "lambdarank": 0}
         models.append(json.dumps(bst.save_raw_dict()))
     assert models[0] == models[1]
 
@@ -774,7 +779,7 @@ def test_multiclass_training_card_is_the_cpus(sampled):
                     verbose_eval=False)
     assert hist_cuda.launches == {"hist_f32": 0, "hist_q": 3 * 3 * 4,
                                   "split_scan": 3 * 3 * 4, "sigmoid": 0,
-                                  "hist_f32_multi": 0}
+                                  "hist_f32_multi": 0, "lambdarank": 0}
     want = xtt.train(params, xtt.DMatrix(X, label=y, device="cpu", **dm), 3,
                      verbose_eval=False, device="cpu")
     assert json.dumps(got.save_raw_dict()) == json.dumps(want.save_raw_dict())
@@ -916,7 +921,8 @@ def test_lockstep_and_vector_training_launch_the_class_axis():
         assert hist_cuda.launches == {"hist_f32": 0, "hist_q": 0,
                                       "split_scan": 0 if "multi_strategy"
                                       in extra else 3 * 3,
-                                      "sigmoid": 0, "hist_f32_multi": 3 * 3}
+                                      "sigmoid": 0, "hist_f32_multi": 3 * 3,
+                                      "lambdarank": 0}
         want = xtt.train(params, xtt.DMatrix(X, label=y, device="cpu"), 3,
                          verbose_eval=False, device="cpu")
         for a, b in zip(got.trees, want.trees):
@@ -982,5 +988,95 @@ def test_pointwise_objective_card_json_is_the_cpus(objective, extra, target):
     assert hist_cuda.launches["sigmoid"] == (1 + 4 if logistic else 0)
     cpu = xtt.train(params, xtt.DMatrix(X, label=T[target], device="cpu",
                                         **dm), 4, verbose_eval=False,
+                    device="cpu")
+    assert json.dumps(card.save_raw_dict()) == json.dumps(cpu.save_raw_dict())
+
+
+# K5: (name, group sizes, scores, k, ndcg weight, score norm, group norm)
+K5_CASES = [
+    ("mslr", [40, 199, 77, 120, 163, 58, 91, 40] * 40, "normal", 32, True,
+     True, True),
+    ("big_groups", [5000, 3000, 12], "normal", 32, True, True, True),
+    ("sizes_1_2", [1, 2, 1, 2, 5, 1] * 50, "normal", 32, True, True, True),
+    ("tied", [60, 45, 80] * 20, "tied", 32, True, True, True),
+    ("all_equal", [60, 45, 80] * 20, "zero", 32, True, True, True),
+    ("k_above_n", [5, 9, 3, 30] * 20, "normal", 64, True, True, True),
+    ("no_score_norm", [40, 70] * 20, "normal", 32, True, False, True),
+    ("no_group_norm", [40, 70] * 20, "normal", 32, True, True, False),
+    ("pairwise", [40, 70, 2] * 20, "normal", 32, False, True, True),
+]
+
+
+@needs_cuda
+@pytest.mark.parametrize("case", K5_CASES, ids=[c[0] for c in K5_CASES])
+def test_lambdarank_kernel_is_its_plain_version(case):
+    """K5 (csrc/lambdarank.cu) bitwise its plain version, rows past the
+    last group (0, 0), one launch counted."""
+    from xgboost_tpu_torch.ops.lambdarank_cuda import (
+        GroupLayout, lambdarank_topk, lambdarank_topk_plain)
+
+    _, sizes, scores, k, nd, sn, gn = case
+    rng = np.random.default_rng(len(sizes))
+    gp = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int64)
+    R = int(gp[-1]) + 37
+    s = rng.normal(size=R).astype(np.float32)
+    if scores == "tied":
+        s = np.round(2 * s).astype(np.float32)
+        s[::7] = -0.0
+    elif scores == "zero":
+        s[:] = 0.0
+    y = rng.integers(0, 5, R).astype(np.float32)
+    layout = GroupLayout(gp, "cuda")
+    s_card, y_card = torch.from_numpy(s).cuda(), torch.from_numpy(y).cuda()
+    hist_cuda.reset_launches()
+    got = lambdarank_topk(s_card, y_card, layout, k, nd, sn, gn)
+    torch.cuda.synchronize()
+    assert hist_cuda.launches["lambdarank"] == 1
+    want = lambdarank_topk_plain(torch.from_numpy(s), torch.from_numpy(y),
+                                 GroupLayout(gp, "cpu"), k, nd, sn, gn)
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+    assert not got[int(gp[-1]):].any()
+
+
+@needs_cuda
+@pytest.mark.parametrize("name", ["expf", "exp2f", "log2f"])
+def test_libm_card_is_the_cpus(name):
+    """utils/libm on the card: the CPU's bits over sampled f32 inputs."""
+    from xgboost_tpu_torch.utils import libm
+
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.integers(0, 2**32, 1 << 20, dtype=np.uint64)
+                         .astype(np.uint32).view(np.float32))
+    fn = getattr(libm, name)
+    got, want = fn(x.cuda()).cpu(), fn(x)
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan)
+    assert torch.equal(got[~nan].view(torch.int32),
+                       want[~nan].view(torch.int32))
+
+
+@needs_cuda
+@pytest.mark.parametrize("objective,extra", [
+    ("rank:ndcg", {}), ("rank:pairwise", {}), ("rank:map", {}),
+    ("rank:ndcg", {"lambdarank_pair_method": "mean"}),
+])
+def test_ranking_card_json_is_the_cpus(objective, extra):
+    """deterministic_histogram=1: the card's ranking model JSON is the
+    CPU's; K5 launched once a round and once for the base score (top-k),
+    never with the mean method."""
+    rng = np.random.default_rng(9)
+    sizes = rng.integers(5, 80, 40)
+    R = int(sizes.sum())
+    X = rng.normal(size=(R, 6)).astype(np.float32)
+    y = np.clip(np.round(X[:, 0] + rng.normal(size=R)), 0, 4).astype(
+        np.float32)
+    params = {"objective": objective, "max_depth": 4, "max_bin": 64,
+              "deterministic_histogram": 1, **extra}
+    hist_cuda.reset_launches()
+    card = xtt.train(params, xtt.DMatrix(X, label=y, group=sizes), 4,
+                     verbose_eval=False)
+    assert hist_cuda.launches["lambdarank"] == (0 if extra else 1 + 4)
+    cpu = xtt.train(params, xtt.DMatrix(X, label=y, group=sizes,
+                                        device="cpu"), 4, verbose_eval=False,
                     device="cpu")
     assert json.dumps(card.save_raw_dict()) == json.dumps(cpu.save_raw_dict())

@@ -56,8 +56,8 @@ def test_init_estimation_and_links(name):
 
 
 def test_unknown_objective_is_not_implemented():
-    with pytest.raises(NotImplementedError, match="rank:ndcg"):
-        create_objective("rank:ndcg", {})
+    with pytest.raises(NotImplementedError, match="rank:lambdamart"):
+        create_objective("rank:lambdamart", {})
 
 
 def _logistic_inputs(R=100_000, seed=3):

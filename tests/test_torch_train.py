@@ -179,7 +179,7 @@ def test_early_stopping_and_monitor():
     {"objective": "multi:softprob", "num_class": 3,
      "multi_strategy": "multi_output_tree",
      "monotone_constraints": "(1,0,0,0,0,0)"},
-    {"objective": "rank:ndcg"},
+    {"objective": "rank:lambdamart"},
 ])
 def test_unsupported_parameters_raise(params):
     X, z = _data(R=64)

@@ -98,7 +98,8 @@ class _Cache:
 
         self.labels = padded(self.dmat.get_label())
         w = self.dmat.get_weight()
-        self.weights = None if w is None else padded(w)
+        # a weight a query group is the metrics' alone
+        self.weights = None if w is None or len(w) != R else padded(w)
         if self.margin is not None and self.margin.shape[0] != R_pad:
             extra = torch.zeros((R_pad - self.margin.shape[0],
                                  self.margin.shape[1]), device=dev)
@@ -345,6 +346,17 @@ class Booster:
                     "with the original categories")
         if self.feature_names is None and dtrain.feature_names:
             self.feature_names = list(dtrain.feature_names)
+        if hasattr(self.objective, "set_group_info"):
+            # keyed on the matrix and its group version, so continued
+            # training on other query groups rebuilds the layout
+            # (reference core.py:458-467); no groups: one over all rows
+            owner = (id(dtrain), dtrain.group_version)
+            if getattr(self.objective, "_group_owner", None) != owner:
+                gp = dtrain.group_ptr
+                if gp is None:
+                    gp = np.array([0, dtrain.num_row()], np.int64)
+                self.objective.set_group_info(gp)
+                self.objective._group_owner = owner
         self._sync_margin(cache)
         return cache
 
@@ -364,7 +376,7 @@ class Booster:
             gpair = self._dense_gpair(cache, grad, hess)
         else:
             gpair = self.objective.get_gradient(cache.margin, cache.labels,
-                                                cache.weights)
+                                                cache.weights, iteration)
         gpair = gpair * cache.valid[:, None, None]  # (R_pad, K, 2)
         self._boost_trees(cache, gpair, iteration)
 
@@ -637,11 +649,12 @@ class Booster:
         return "\t".join(msgs)
 
     def _metric_kwargs(self, dmat: DMatrix) -> dict:
-        """The metrics' keyword arguments (reference core.py:1697-1708):
-        survival bounds, AFT's distribution and scale (and the booster's
-        device, where aft-nloglik takes its f32 loss), huber_slope, and
+        """The metrics' keyword arguments (reference core.py:1694-1708):
+        the query groups, the booster's device (where aft-nloglik takes
+        its f32 loss and the ranking metrics their segment sums),
+        survival bounds, AFT's distribution and scale, huber_slope, and
         the alphas of a multi-alpha model."""
-        mkw = {}
+        mkw = {"group_ptr": dmat.group_ptr, "device": self.device}
         if dmat.label_lower_bound is not None:
             mkw["y_lower"] = dmat.label_lower_bound
             ub = dmat.label_upper_bound
@@ -650,7 +663,6 @@ class Booster:
         if hasattr(self.objective, "dist"):
             mkw["dist"] = self.objective.dist
             mkw["sigma"] = self.objective.sigma
-            mkw["device"] = self.device  # aft-nloglik's f32 loss
         if "huber_slope" in self.params:
             mkw["slope"] = float(self.params["huber_slope"])
         if hasattr(self.objective, "_alphas") and self.n_groups > 1:

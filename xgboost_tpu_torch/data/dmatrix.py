@@ -124,6 +124,10 @@ class DMatrix:
     ``device``: where the matrix is staged; ``None`` means ``cuda``.
     ``missing`` applies to dense input; sparse input's missing values are
     its implicit zeros (and stored NaN).
+    ``group`` (sizes of consecutive query groups) or ``qid`` (a query id a
+    row; a group wherever it changes): the ranking objectives' query
+    groups, kept as ``group_ptr`` (G + 1,) int64, whose last entry must be
+    the row count; ``group_version`` counts the changes.
     ``label_lower_bound``, ``label_upper_bound``: (R,) f32 survival bounds
     (``survival:aft``; an infinite upper bound is right-censored), also
     settable as attributes, as the reference's info.
@@ -147,6 +151,8 @@ class DMatrix:
         feature_weights: Any = None,
         label_lower_bound: Any = None,
         label_upper_bound: Any = None,
+        group: Any = None,
+        qid: Any = None,
         enable_categorical: bool = False,
         device=None,
     ) -> None:
@@ -179,6 +185,8 @@ class DMatrix:
         self.base_margin: Optional[np.ndarray] = None
         self.label_lower_bound: Optional[np.ndarray] = None
         self.label_upper_bound: Optional[np.ndarray] = None
+        self.group_ptr: Optional[np.ndarray] = None
+        self.group_version = 0
         if label_lower_bound is not None:
             self.label_lower_bound = self._rows(label_lower_bound,
                                                 "label_lower_bound")
@@ -191,6 +199,12 @@ class DMatrix:
             self.set_weight(weight)
         if base_margin is not None:
             self.set_base_margin(base_margin)
+        if group is not None:
+            self.set_group(group)
+        if qid is not None:
+            self.set_qid(qid)
+        if self.group_ptr is not None and self.group_ptr[-1] != self.num_row():
+            raise ValueError("group sizes must sum to num_row")
         self.feature_names: Optional[List[str]] = (
             list(feature_names) if feature_names else None)
         self.feature_types: Optional[List[str]] = (
@@ -217,7 +231,29 @@ class DMatrix:
         self.label = lab[:, 0] if lab.shape[1] == 1 else lab
 
     def set_weight(self, weight: Any) -> None:
-        self.weight = self._rows(weight, "weight").reshape(-1)
+        """(R,) row weights; with query groups also (G,) group weights,
+        which the ranking metrics read and the objectives ignore."""
+        w = np.asarray(weight, dtype=np.float32).reshape(-1)
+        if self.group_ptr is None or len(w) != len(self.group_ptr) - 1:
+            w = self._rows(w, "weight")
+        self.weight = w
+
+    def set_group(self, group: Any) -> None:
+        """Query groups from their sizes (reference dmatrix.py:357)."""
+        g = np.asarray(group, dtype=np.int64)
+        self.group_ptr = np.concatenate([[0], np.cumsum(g)]).astype(np.int64)
+        self.group_version += 1
+
+    def set_qid(self, qid: Any) -> None:
+        """Query groups from a query id a row: a new group wherever the id
+        changes (reference dmatrix.py:362)."""
+        q = np.asarray(qid)
+        if len(q) == 0:
+            return
+        change = np.nonzero(np.diff(q) != 0)[0] + 1
+        self.group_ptr = np.concatenate([[0], change, [len(q)]]).astype(
+            np.int64)
+        self.group_version += 1
 
     def set_base_margin(self, margin: Any) -> None:
         self.base_margin = self._rows(margin, "base_margin")

@@ -1,5 +1,5 @@
-"""Evaluation metrics (port of xgboost_tpu/metric/__init__.py but for the
-ranking metrics ndcg, map and pre; reference src/metric/).
+"""Evaluation metrics (port of xgboost_tpu/metric/__init__.py; reference
+src/metric/).
 
 Metrics take transformed predictions as host numpy arrays and reduce in
 float64 on the host, as the reference's do.  The elementwise ones also
@@ -7,7 +7,11 @@ take the (R, K) predictions and labels of K targets; quantile and
 expectile take the ``alphas`` of a multi-alpha model, the survival
 metrics the rows' bounds (``y_lower``, ``y_upper``) and AFT's ``dist``
 and ``sigma``, mphe the ``slope``: the booster passes them as keywords
-(core.py eval_set).
+(core.py eval_set).  The ranking metrics (ndcg, map, pre, and aucpr's
+per-group branch) take the query groups as ``group_ptr``; from 64 groups
+up, ndcg, map and pre run the segment sums of ``device_rank.py`` on the
+booster's ``device``, below it the loop over groups (``use_device_rank``
+forces either).
 """
 from __future__ import annotations
 
@@ -17,6 +21,12 @@ import numpy as np
 import torch
 
 _REGISTRY: Dict[str, Callable] = {}
+
+# rank metrics with the reference's trailing-minus convention (degenerate
+# groups score 0 instead of 1, ranking_utils.cc ParseMetricName)
+_MINUS_METRICS = {"ndcg", "map", "pre"}
+# the loop over groups wins below this group count
+_MIN_DEVICE_GROUPS = 64
 
 
 def register_metric(name: str):
@@ -28,21 +38,39 @@ def register_metric(name: str):
 
 
 def create_metric(name: str):
-    """Resolve ``base[@arg]`` -> (callable, display name); the callable of
-    ``base@arg`` carries the metric's own function as ``__wrapped__``, whose
-    signature the booster reads."""
-    base, _, param = name.partition("@")
+    """Resolve ``base[@n][-]`` -> (callable, display name) (reference
+    ranking_utils.cc:138 ParseMetricName): ``@n`` is the metric's ``at``
+    (the ranking metrics' truncation), a trailing ``-`` scores degenerate
+    query groups 0 instead of 1 (``ndcg@5-``, ``map-``).  The callable of
+    such a name carries the metric's own function as ``__wrapped__``,
+    whose signature the booster reads."""
+    base, minus, arg = name, False, None
+    if "@" in name:
+        base, param = name.split("@", 1)
+        if param.endswith("-"):
+            minus, param = True, param[:-1]
+        if not param:
+            raise ValueError(f"Invalid metric name {name!r}: '@' needs a "
+                             "numeric truncation/threshold")
+        arg = float(param)
+    elif base.endswith("-") and base[:-1] in _MINUS_METRICS:
+        minus, base = True, base[:-1]
     if base not in _REGISTRY:
         raise NotImplementedError(
             f"metric {name!r} is not supported by xgboost_tpu_torch yet; "
             f"supported: {sorted(_REGISTRY)}")
+    if minus and base not in _MINUS_METRICS:
+        raise ValueError(f"Unknown metric {name!r}: the '-' suffix applies "
+                         f"only to {sorted(_MINUS_METRICS)}")
     fn = _REGISTRY[base]
-    if param:
-        at = float(param)
-        wrapper = lambda *a, **k: fn(*a, **{"at": at, **k})  # noqa: E731
-        wrapper.__wrapped__ = fn
-        return wrapper, name
-    return fn, name
+    if arg is None and not minus:
+        return fn, name
+    extra = {} if arg is None else {"at": arg}
+    if minus:
+        extra["minus"] = True
+    wrapper = lambda *a, **k: fn(*a, **{**extra, **k})  # noqa: E731
+    wrapper.__wrapped__ = fn
+    return wrapper, name
 
 
 def _w(labels, weights):
@@ -117,7 +145,7 @@ def mlogloss(preds, labels, weights=None, **kw):
 
 
 @register_metric("auc")
-def auc(preds, labels, weights=None, **kw):
+def auc(preds, labels, weights=None, group_ptr=None, **kw):
     """Binary ROC-AUC via the rank statistic with exact tie handling
     (reference: src/metric/auc.cc BinaryROCAUC); for (R, K) class
     probabilities the mean of the K one-vs-rest AUCs (MultiClassOVR)."""
@@ -280,10 +308,27 @@ def _pr_area(s, y, w):
 
 
 @register_metric("aucpr")
-def aucpr(preds, labels, weights=None, **kw):
-    """Area under the precision-recall curve (auc.cc BinaryPRAUC)."""
+def aucpr(preds, labels, weights=None, group_ptr=None, **kw):
+    """Area under the precision-recall curve (auc.cc BinaryPRAUC); with
+    query groups the weighted mean of the groups' PR-AUCs over the groups
+    with both classes (auc.cc RankingAUC), weights a group's or a row's."""
     s = np.asarray(preds, dtype=np.float64)
-    area, pairs = _pr_area(s, labels > 0.5, _w(labels, weights))
+    y = labels > 0.5
+    if group_ptr is not None and len(group_ptr) > 1:
+        n_groups = len(group_ptr) - 1
+        group_w = weights is not None and len(weights) == n_groups
+        w = None if group_w else _w(labels, weights)
+        total, valid = 0.0, 0.0
+        for g in range(n_groups):
+            lo, hi = group_ptr[g], group_ptr[g + 1]
+            w_rows = np.ones(hi - lo, np.float64) if group_w else w[lo:hi]
+            area, pairs = _pr_area(s[lo:hi], y[lo:hi], w_rows)
+            if pairs > 0:
+                wg = float(weights[g]) if group_w else 1.0
+                total += area * wg
+                valid += wg
+        return total / valid if valid > 0 else 0.0
+    area, pairs = _pr_area(s, y, _w(labels, weights))
     # the reference's pair-weighted merge of one shard
     return area * pairs / pairs if pairs > 0 else 0.0
 
@@ -335,3 +380,123 @@ def cox_nloglik(preds, labels, weights=None, **kw):
     ll = np.sum(np.log(np.maximum(r_s, 1e-16))[ev_s]
                 - np.log(np.maximum(risk, 1e-16))[ev_s])
     return float(-ll) / max(float(ev_s.sum()), 1.0)
+
+
+# ---------------------------------------------------------------- ranking
+def _use_device_rank(group_ptr, preds, kw) -> bool:
+    """The segment sums for 64 groups or more, the loop below;
+    ``use_device_rank`` forces either (reference metric/__init__.py:55)."""
+    forced = kw.get("use_device_rank")
+    if forced is not None:
+        return bool(forced)
+    return np.ndim(preds) == 1 and len(group_ptr) - 1 >= _MIN_DEVICE_GROUPS
+
+
+def _group_weight(weights, g, lo, n_groups):
+    """A group's weight as the reference keeps it (an f32 value, so that
+    the sum of the weights is an f32 sum, as the reference's)."""
+    if weights is None:
+        return 1.0
+    return weights[g if len(weights) == n_groups else lo]
+
+
+def _dcg_at(rel, k):
+    rel = rel[:k]
+    return np.sum((2.0**rel - 1.0) / np.log2(np.arange(2, len(rel) + 2)))
+
+
+@register_metric("ndcg")
+def ndcg(preds, labels, weights=None, group_ptr=None, at: float = 0,
+         minus: bool = False, **kw):
+    """NDCG with exponential gain, truncated at ``at`` (rank_metric.cc
+    NDCG); groups without a relevant doc score 1, or 0 under ``minus``;
+    the group-weighted mean."""
+    if group_ptr is None:
+        group_ptr = np.array([0, len(labels)])
+    k = int(at) if at else None
+    if _use_device_rank(group_ptr, preds, kw):
+        from .device_rank import ndcg_pair
+
+        n, d = ndcg_pair(preds, labels, group_ptr, weights, k or 0, minus,
+                         kw.get("device"))
+        return n / d if d > 0 else 1.0
+    n_groups = len(group_ptr) - 1
+    vals, ws = [], []
+    for g in range(n_groups):
+        lo, hi = group_ptr[g], group_ptr[g + 1]
+        if hi <= lo:
+            continue
+        y = labels[lo:hi]
+        kk = k or (hi - lo)
+        order = np.argsort(-preds[lo:hi], kind="stable")
+        dcg = _dcg_at(y[order], kk)
+        idcg = _dcg_at(np.sort(y)[::-1], kk)
+        vals.append(dcg / idcg if idcg > 0 else (0.0 if minus else 1.0))
+        ws.append(_group_weight(weights, g, lo, n_groups))
+    num = float(np.dot(vals, ws)) if vals else 0.0
+    den = float(np.sum(ws)) if ws else 0.0
+    return num / den if den > 0 else 1.0
+
+
+@register_metric("map")
+def map_metric(preds, labels, weights=None, group_ptr=None, at: float = 0,
+               minus: bool = False, **kw):
+    """Mean average precision, truncated at ``at`` (rank_metric.cc MAP);
+    groups without a relevant doc score 1, or 0 under ``minus``; the
+    group-weighted mean."""
+    if group_ptr is None:
+        group_ptr = np.array([0, len(labels)])
+    k = int(at) if at else None
+    if _use_device_rank(group_ptr, preds, kw):
+        from .device_rank import map_pair
+
+        n, d = map_pair(preds, labels, group_ptr, weights, k or 0, minus,
+                        kw.get("device"))
+        return n / d if d > 0 else 0.0
+    n_groups = len(group_ptr) - 1
+    vals, ws = [], []
+    for g in range(n_groups):
+        lo, hi = group_ptr[g], group_ptr[g + 1]
+        if hi <= lo:
+            continue
+        y = (labels[lo:hi] > 0).astype(np.float64)
+        order = np.argsort(-preds[lo:hi], kind="stable")
+        yo = y[order][: k or (hi - lo)]
+        hits = np.cumsum(yo)
+        npos = yo.sum()
+        vals.append(float(np.sum(yo * hits / np.arange(1, len(yo) + 1))
+                          / npos) if npos > 0 else (0.0 if minus else 1.0))
+        ws.append(_group_weight(weights, g, lo, n_groups))
+    num = float(np.dot(vals, ws)) if vals else 0.0
+    den = float(np.sum(ws)) if ws else 0.0
+    return num / den if den > 0 else 0.0
+
+
+@register_metric("pre")
+def precision_at(preds, labels, weights=None, group_ptr=None, at: float = 0,
+                 **kw):
+    """Precision@k (rank_metric.cc EvalPrecision, k = ``at`` or 10): per
+    group the label mass of the top k docs over k (the group's size where
+    smaller); the group-weighted mean."""
+    if group_ptr is None:
+        group_ptr = np.array([0, len(labels)])
+    k = int(at) if at else 10
+    if _use_device_rank(group_ptr, preds, kw):
+        from .device_rank import precision_pair
+
+        n, d = precision_pair(preds, labels, group_ptr, weights, k,
+                              kw.get("device"))
+        return n / d if d > 0 else 0.0
+    n_groups = len(group_ptr) - 1
+    vals, ws = [], []
+    for g in range(n_groups):
+        lo, hi = group_ptr[g], group_ptr[g + 1]
+        if hi <= lo:
+            continue
+        order = np.argsort(-preds[lo:hi], kind="stable")
+        n = min(k, hi - lo)
+        wg = _group_weight(weights, g, lo, n_groups)
+        vals.append(float(np.sum(labels[lo:hi][order[:n]])) * wg / n)
+        ws.append(wg)
+    s, wsum = float(np.sum(vals)), float(np.sum(ws))
+    return s / wsum if wsum > 0 else 0.0

@@ -47,8 +47,9 @@ class ObjFunction:
     def task_is_classification(self) -> bool:
         return False
 
-    def get_gradient(self, preds, labels, weights):
-        """(R, K) margin, (R,) labels -> (R, K, 2) f32 gpair."""
+    def get_gradient(self, preds, labels, weights, iteration: int = 0):
+        """(R, K) margin, (R,) labels -> (R, K, 2) f32 gpair; ``iteration``
+        seeds the objectives that draw (ranking's mean pair method)."""
         raise NotImplementedError
 
     def pred_transform(self, margin):
@@ -84,4 +85,4 @@ class ObjFunction:
 
 
 # registers the objectives
-from . import multiclass, regression, survival  # noqa: E402,F401
+from . import multiclass, ranking, regression, survival  # noqa: E402,F401

@@ -26,7 +26,7 @@ class _SoftmaxBase(ObjFunction):
     def n_groups(self):
         return self.num_class
 
-    def get_gradient(self, preds, labels, weights):
+    def get_gradient(self, preds, labels, weights, iteration: int = 0):
         K = self.num_class
         p = softmax_f32(preds.to(torch.float32))  # (R, K)
         cls = torch.arange(K, device=preds.device)

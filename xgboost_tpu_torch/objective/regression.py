@@ -85,7 +85,7 @@ class _Elementwise(ObjFunction):
         # one output column per target (LearnerModelParam num_target)
         return max(int(self.params.get("num_target", 1) or 1), 1)
 
-    def get_gradient(self, preds, labels, weights):
+    def get_gradient(self, preds, labels, weights, iteration: int = 0):
         if self.n_groups() > 1:
             y = labels.to(torch.float32).reshape(labels.shape[0], -1)
             return _pack(*self._grad(preds, y), weights)
@@ -160,7 +160,7 @@ class AbsoluteError(_Elementwise):
 
 
 class _LogisticBase(_Elementwise):
-    def get_gradient(self, preds, labels, weights):
+    def get_gradient(self, preds, labels, weights, iteration: int = 0):
         # one K4 launch on the card (ops/sigmoid_cuda.py); K targets go
         # through it flattened, each row's weight repeated K times
         spw = float(self.params.get("scale_pos_weight", 1.0))
@@ -332,7 +332,7 @@ class Expectile(_MultiAlpha):
             return _alpha_list(self.params["quantile_alpha"])
         return super()._alphas()
 
-    def get_gradient(self, preds, labels, weights):
+    def get_gradient(self, preds, labels, weights, iteration: int = 0):
         alphas = self._alpha_tensor(preds)
         diff = preds - labels.to(torch.float32)[:, None]  # (R, Q)
         w = torch.where(diff >= 0, 1.0 - alphas[None, :], alphas[None, :])
@@ -352,7 +352,7 @@ class QuantileError(_MultiAlpha):
 
     _metric_base = "quantile"
 
-    def get_gradient(self, preds, labels, weights):
+    def get_gradient(self, preds, labels, weights, iteration: int = 0):
         alphas = self._alpha_tensor(preds)
         y = labels.to(torch.float32)[:, None]
         # dL/dpred: 1 - alpha over the label, -alpha under it

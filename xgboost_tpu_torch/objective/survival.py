@@ -360,7 +360,7 @@ class AFT(ObjFunction):
             return y, y
         return self._bounds
 
-    def get_gradient(self, preds, labels, weights):
+    def get_gradient(self, preds, labels, weights, iteration: int = 0):
         pred = preds[:, 0] if preds.ndim == 2 else preds
         lo, hi = self._get_bounds(labels)
         d = _aft(_D(pred, torch.ones_like(pred)), lo, hi, self.dist,
@@ -394,7 +394,7 @@ class Cox(ObjFunction):
     sums.  Two sorts and three cumulative sums in ``jnp.cumsum``'s order
     (utils/fp.py cumsum_f32), on the margin's device."""
 
-    def get_gradient(self, preds, labels, weights):
+    def get_gradient(self, preds, labels, weights, iteration: int = 0):
         pred = preds[:, 0] if preds.ndim == 2 else preds
         y = labels.to(torch.float32)
         t = y.abs()

@@ -19,7 +19,11 @@ per-level gradient histograms on the card.
   jax.nn.sigmoid and the binary:logistic gradient around it): the
   logistic transform and the gradient pairs in XLA's f32 arithmetic, two
   entries counted as one kernel; its wrapper is ops/sigmoid_cuda.py.
-K3 and K4 are built with ``--fmad=false`` so that nvcc fuses no
+- K5 ``lambdarank`` (csrc/lambdarank.cu; no Pallas kernel, it replaces the
+  reference's native top-k LambdaMART kernel): the ranking objectives'
+  gradient pairs with glibc's expf/exp2f/log2f and the native sum orders,
+  one launch a round; its wrapper is ops/lambdarank_cuda.py.
+K3, K4 and K5 are built with ``--fmad=false`` so that nvcc fuses no
 multiply-add the reference does not.
 
 Each source is compiled with nvcc for sm_90a into its own shared library
@@ -70,11 +74,14 @@ _BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = {"hist_f32": "xgboost_tpu_torch/csrc/hist.cu",
            "hist_q": "xgboost_tpu_torch/csrc/hist_q.cu",
            "split_scan": "xgboost_tpu_torch/csrc/split_scan.cu",
-           "sigmoid": "xgboost_tpu_torch/csrc/sigmoid.cu"}
+           "sigmoid": "xgboost_tpu_torch/csrc/sigmoid.cu",
+           "lambdarank": "xgboost_tpu_torch/csrc/lambdarank.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
-# K3 and K4 must round as the reference does: no contracted multiply-adds
-EXTRA_FLAGS = {"split_scan": ["--fmad=false"], "sigmoid": ["--fmad=false"]}
+# K3, K4 and K5 must round as the reference does: no contracted
+# multiply-adds
+EXTRA_FLAGS = {"split_scan": ["--fmad=false"], "sigmoid": ["--fmad=false"],
+               "lambdarank": ["--fmad=false"]}
 
 # kernel launches per kernel since the last reset_launches(); K1's class
 # axis is an entry of K1's library counted under its own name
@@ -106,6 +113,8 @@ _ENTRY = {
     "sigmoid": {"xtb_sigmoid": [_vp, _vp, ctypes.c_longlong, _vp],
                 "xtb_logistic_grad": [_vp, _vp, _vp, ctypes.c_float, _vp,
                                       ctypes.c_longlong, _vp]},
+    "lambdarank": {"xtb_lambdarank": [_vp] * 5 + [_ci, _vp] + [_ci] * 4
+                   + [_vp, ctypes.c_longlong, _vp, _vp]},
 }
 _libs: dict = {}
 _lib_lock = threading.Lock()

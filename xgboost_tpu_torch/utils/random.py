@@ -60,3 +60,24 @@ def bernoulli(key: Key, p: float, n: int, device=None):
     """``jax.random.bernoulli(key, p, (n,))``: uniform < p in f32."""
     return uniform(key, n, device) < torch.tensor(p, dtype=torch.float32,
                                                   device=device)
+
+
+def split(key: Key, num: int = 2):
+    """``jax.random.split(key, num)`` (the partitionable fold-like split):
+    key i is the pair of threefry words of the counter (0, i)."""
+    idx = torch.arange(num, dtype=torch.int64)
+    y0, y1 = threefry2x32(key, idx >> 32, idx & _M32)
+    return [(int(a), int(b)) for a, b in zip(y0.tolist(), y1.tolist())]
+
+
+def randint(key: Key, n: int, minval: int, maxval: int, device=None):
+    """``jax.random.randint(key, (n,), minval, maxval)`` for int32: two
+    draws of 32 bits (from the halves of a split), each taken modulo the
+    span, combined as hi * (2^32 mod span) + lo, modulo the span again in
+    uint32 arithmetic.  (n,) int64 holding the int32 values."""
+    k1, k2 = split(key)
+    hi, lo = random_bits(k1, n, device), random_bits(k2, n, device)
+    span = (maxval - minval) & _M32 if maxval > minval else 1
+    mult = ((2**16 % span) ** 2 & _M32) % span
+    off = (((hi % span) * mult) & _M32) + lo % span
+    return minval + (off & _M32) % span
