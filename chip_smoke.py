@@ -194,6 +194,22 @@ holds each CUDA kernel against its plain PyTorch version:
      byte-identical for the three objectives and the mean method, the f32
      trees the same up to a near tie
 
+  16. the public API on the card: cv on phase 3's 1M x 28 rows (3 folds,
+     10 rounds, depth 6, max_bin 256) on the f32 path and under
+     deterministic_histogram=1, K1 or K2 and K3 launched 6 times a
+     fold-round, K4 once a fold and three times a fold-round, the test AUC
+     above 0.9, the seconds a round beside three of phase 3's, the card's
+     memory the folds hold, two rounds profiled; cv card vs CPU at 20,000
+     rows, deterministic: fold models byte-identical, results dicts
+     equal; serialize -> a fresh Booster -> continuation byte-identical to
+     the uninterrupted run; a pickle round trip and inplace_predict (numpy
+     and a CUDA tensor) equal predict bit for bit on 100,000 rows;
+     XGBClassifier(n_estimators=10, max_depth=6,
+     deterministic_histogram=1)'s predict_proba equal to train()'s with
+     the same parameters, bit for bit, and the fit's time beside
+     train()'s; XGBRanker on 100,000 x 136 rows in 1,000 groups launching
+     K5 rounds + 1 times
+
 Phase 2 and 2b also give each case's device time a launch (torch.profiler),
 and phases 7, 8 and 9 the bound, the kernel and the index_add_ yardstick on
 each launch's inputs of a round (8 also K3's bound; 9 a one-round profile
@@ -699,7 +715,7 @@ def phase_profile(xtt, dtrain, params, label, rounds: int = 2, top: int = 8):
     """Where a training round's time goes: device time by kernel name over
     ``rounds`` rounds (torch.profiler), and the card's idle share of the
     profiled wall time."""
-    from torch.profiler import DeviceType, ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile
 
     xtt.train(params, dtrain, 1, verbose_eval=False)  # warm
     torch.cuda.synchronize()
@@ -709,6 +725,13 @@ def phase_profile(xtt, dtrain, params, label, rounds: int = 2, top: int = 8):
         xtt.train(params, dtrain, rounds, verbose_eval=False)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    _log_profile(prof, wall_ms, label, f"{rounds} rounds", top)
+
+
+def _log_profile(prof, wall_ms, label, what, top: int = 8):
+    """Device time by kernel name and the idle share of ``wall_ms``."""
+    from torch.profiler import DeviceType
+
     rows = []
     for r in prof.key_averages():
         if r.device_type != DeviceType.CUDA:
@@ -723,7 +746,7 @@ def phase_profile(xtt, dtrain, params, label, rounds: int = 2, top: int = 8):
         log(f"phase {label} profile: the profiler saw no device time (not "
             "measured)")
         return
-    log(f"phase {label} profile: {rounds} rounds, wall {wall_ms:.3f} ms under "
+    log(f"phase {label} profile: {what}, wall {wall_ms:.3f} ms under "
         f"the profiler, device busy {busy_ms:.3f} ms, idle share "
         f"{1 - busy_ms / wall_ms:.4f}")
     for ms, n, name in rows[:top]:
@@ -3071,6 +3094,213 @@ def phase_ranking_parity(xtt, rounds: int = 3):
                           "largest", X)
 
 
+# ------------------------------------------------- the API on the card (16)
+P16_ROUNDS = 10
+P16_FOLDS = 3
+
+
+def _fold_recorder(xtt, prof=None):
+    """A callback that keeps cv's folds (the packed model it is handed),
+    the card's memory while they are alive, and the time at the start of
+    each round and at the end; with ``prof`` (a torch.profiler context)
+    it profiles rounds 2 and 3."""
+    class Recorder(xtt.TrainingCallback):
+        def before_training(self, model):
+            self.packs, self.starts = model.packs, []
+            return model
+
+        def before_iteration(self, model, epoch, evals_log):
+            torch.cuda.synchronize()
+            self.starts.append(time.perf_counter())
+            if prof is not None and epoch == 1:
+                prof.__enter__()
+            elif prof is not None and epoch == 3:
+                prof.__exit__(None, None, None)
+            return False
+
+        def after_training(self, model):
+            torch.cuda.synchronize()
+            self.end = time.perf_counter()
+            self.bytes = torch.cuda.memory_allocated()
+            return model
+
+    return Recorder()
+
+
+def _p16_cv(xtt, hist_cuda, dall, params, kernel, label, f32_round_s):
+    """cv at full width: launches gated (K1 or K2 and K3 6 a fold-round,
+    K4 once a fold for the base score and three times a fold-round: the
+    gradient and the two evaluation sets), the test AUC above 0.9, the
+    seconds a round (median of rounds 2-10) beside three of phase 3's, the
+    card's memory the three folds hold, and rounds 2-3 profiled."""
+    from torch.profiler import ProfilerActivity, profile
+
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    rec = _fold_recorder(xtt, prof)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    hist_cuda.reset_launches()
+    t0 = time.perf_counter()
+    res = xtt.cv(dict(params, eval_metric=["logloss", "auc"]), dall,
+                 P16_ROUNDS, nfold=P16_FOLDS, as_pandas=False,
+                 callbacks=[rec])
+    wall = time.perf_counter() - t0
+    launches = dict(hist_cuda.launches)
+    want = _sigmoid_launches(hist_cuda, P16_ROUNDS, evals=2)
+    want["sigmoid"] *= P16_FOLDS
+    want[kernel] = want["split_scan"] = \
+        params["max_depth"] * P16_FOLDS * P16_ROUNDS
+    if launches != want:
+        raise AssertionError(f"phase {label}: cv launched {launches}, want "
+                             f"{want}")
+    rounds = np.diff(rec.starts + [rec.end])
+    round_s = statistics.median(rounds[1:])
+    auc, std = res["test-auc-mean"][-1], res["test-auc-std"][-1]
+    if not auc > 0.9:
+        raise AssertionError(f"phase {label}: cv test AUC {auc} <= 0.9")
+    fold_bytes = rec.bytes - before
+    peak = torch.cuda.max_memory_allocated() - before
+    log(f"phase {label} cv: {dall.num_row()} x {dall.num_col()}, nfold "
+        f"{P16_FOLDS}, {P16_ROUNDS} rounds, depth {params['max_depth']}; "
+        f"wall {wall:.3f} s (folds made in {rec.starts[0] - t0:.3f} s, "
+        f"first round {rounds[0]:.3f} s); a round {round_s:.4f} s, median "
+        f"of rounds 2-{P16_ROUNDS} (against 3x phase 3's "
+        f"{3 * f32_round_s:.4f} s), each fold's train and test evaluated; "
+        f"test-auc {auc:.6f}+{std:.6f}, test-logloss "
+        f"{res['test-logloss-mean'][-1]:.6f}; launches {launches}; the three "
+        f"folds hold {fold_bytes} bytes of the card's memory after "
+        f"training (peak {peak} above what was allocated before)")
+    _log_profile(prof, (rec.starts[3] - rec.starts[1]) * 1e3, label,
+                 "cv rounds 2-3 (three folds, each updated and its train "
+                 "and test evaluated)")
+    return dict(round_s=round_s, fold_bytes=fold_bytes, peak=peak, res=res,
+                launches=launches)
+
+
+def _p16_cv_parity(xtt):
+    """cv card vs CPU at 20,000 rows under deterministic_histogram=1: every
+    fold's model JSON byte-identical and the results dicts equal."""
+    X, y = make_data(20_000, 28, seed=3)
+    params = dict(SMALL, deterministic_histogram=1, subsample=0.8, seed=5,
+                  eval_metric=["logloss", "auc"])
+    recs, results = [], []
+    for dm_kw, cv_kw in (({}, {}), ({"device": "cpu"}, {"device": "cpu"})):
+        rec = _fold_recorder(xtt)
+        results.append(xtt.cv(params, xtt.DMatrix(X, label=y, **dm_kw), 3,
+                              nfold=P16_FOLDS, as_pandas=False,
+                              callbacks=[rec], **cv_kw))
+        recs.append(rec)
+    same = [_model_bytes(a.bst) == _model_bytes(b.bst)
+            for a, b in zip(recs[0].packs, recs[1].packs)]
+    if not all(same) or results[0] != results[1]:
+        raise AssertionError(f"phase 16 cv parity: fold models identical "
+                             f"{same}, results {results}")
+    log(f"phase 16 cv parity: card vs CPU on 20,000 rows, {P16_FOLDS} folds, "
+        "deterministic: every fold's model JSON byte-identical, results "
+        f"dicts equal (test-auc {results[0]['test-auc-mean'][-1]:.6f})")
+
+
+def phase_api_surface(xtt, hist_cuda, f32):
+    """The public API on the card at phase 3's shapes: cv on both
+    histogram paths, cv card vs CPU, serialize -> a fresh Booster ->
+    continuation byte-identical to the uninterrupted run, a pickle round
+    trip, XGBClassifier against train(), XGBRanker's K5 launches and
+    inplace_predict against predict."""
+    import pickle
+
+    X, y = make_data(1_000_000, 28)
+    dall = xtt.DMatrix(X, label=y)
+    f32_round_s = f32["train_s"] / 10
+    out = {}
+    for label, params, kernel in (("16 f32", BASE, "hist_f32"),
+                                  ("16 deterministic", DET, "hist_q")):
+        out[label] = _p16_cv(xtt, hist_cuda, dall, params, kernel, label,
+                             f32_round_s)
+    del dall
+    _p16_cv_parity(xtt)
+
+    dtrain = xtt.DMatrix(X, label=y)
+    params = dict(DET, subsample=0.8, seed=13)
+    full = xtt.train(params, dtrain, 10, verbose_eval=False)
+    half = xtt.train(params, dtrain, 5, verbose_eval=False)
+    restored = xtt.Booster()
+    restored.unserialize(half.serialize())
+    cont = xtt.train({}, dtrain, 5, verbose_eval=False, xgb_model=restored)
+    if _model_bytes(cont) != _model_bytes(full):
+        raise AssertionError("phase 16: serialize -> continuation differs "
+                             "from the uninterrupted run")
+    dtest = xtt.DMatrix(X[:100_000])
+    pred = full.predict(dtest)
+    back = pickle.loads(pickle.dumps(full))
+    if back.device != full.device or not np.array_equal(
+            back.predict(dtest).view(np.uint32), pred.view(np.uint32)):
+        raise AssertionError("phase 16: the pickle round trip predicts "
+                             "differently")
+    for name, data in (("numpy", X[:100_000]),
+                       ("tensor", torch.from_numpy(X[:100_000]).cuda())):
+        got = full.inplace_predict(data)
+        if not np.array_equal(got.view(np.uint32), pred.view(np.uint32)):
+            raise AssertionError(f"phase 16: inplace_predict of a {name} "
+                                 "input differs from predict")
+    log("phase 16 API: serialize -> Booster() -> 5 more rounds "
+        "byte-identical to 10 (deterministic, subsample 0.8, 1M x 28); "
+        "pickle round trip and inplace_predict (numpy and a CUDA tensor) "
+        "equal predict on 100,000 rows bit for bit")
+
+    # the estimator against train() with its parameters, full width; the
+    # deterministic path, whose models do not depend on the order of the
+    # card's atomic adds, so that the two agree bit for bit
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    clf = xtt.XGBClassifier(n_estimators=10, max_depth=6,
+                            deterministic_histogram=1).fit(X, y)
+    proba = clf.predict_proba(X[:100_000])
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bst = xtt.train({"objective": "binary:logistic", "max_depth": 6,
+                     "deterministic_histogram": 1},
+                    xtt.DMatrix(X, label=y), 10, verbose_eval=False)
+    p = bst.predict(xtt.DMatrix(X[:100_000]))
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    want = np.stack([1 - p, p], axis=1)
+    if not np.array_equal(proba.view(np.uint32), want.view(np.uint32)):
+        raise AssertionError("phase 16: XGBClassifier.predict_proba differs "
+                             "from train()'s predictions")
+    imp = clf.feature_importances_
+    log(f"phase 16 XGBClassifier: 10 rounds, depth 6, deterministic, "
+        f"1M x 28: "
+        f"predict_proba on 100,000 rows equals train()'s bit for bit; fit "
+        f"and predict {fit_s:.3f} s against DMatrix, train() and predict "
+        f"{train_s:.3f} s (overhead {fit_s - train_s:.3f} s, one run each; "
+        f"the device sketch of each); feature_importances_ sum "
+        f"{imp.sum():.6f}, top feature f{int(np.argmax(imp))}")
+
+    rng = np.random.default_rng(16)
+    sizes = np.full(1000, 100)
+    R = int(sizes.sum())
+    Xr = rng.standard_normal(size=(R, 136), dtype=np.float32)
+    rel = np.clip((Xr[:, 0] + 0.5 * rng.standard_normal(R, dtype=np.float32)
+                   + 2.0).astype(np.int64), 0, 4).astype(np.float32)
+    rounds = 5
+    hist_cuda.reset_launches()
+    ranker = xtt.XGBRanker(n_estimators=rounds, max_depth=6).fit(
+        Xr, rel, group=sizes)
+    k5 = hist_cuda.launches["lambdarank"]
+    if k5 != rounds + 1:
+        raise AssertionError(f"phase 16: XGBRanker launched K5 {k5} times "
+                             f"in {rounds} rounds, want {rounds + 1}")
+    scores = ranker.predict(Xr)
+    if not np.all(np.isfinite(scores)):
+        raise AssertionError("phase 16: XGBRanker scores not finite")
+    log(f"phase 16 XGBRanker: {R} x 136 in {len(sizes)} groups, {rounds} "
+        f"rounds: K5 launched {k5} times (rounds + 1), scores finite")
+    out["fit_s"], out["train_s"] = fit_s, train_s
+    return out
+
+
 def _kernel_entry(name, source, cases, launches):
     # K1 and K2: the line sums the three int16 shapes it has summed since
     # the first slice, (0, 1, 1), (15, 16, 2) and (31, 16, 2), the six
@@ -3223,6 +3453,7 @@ def main() -> int:
     timed("14b", phase_pointwise_parity, xtt)
     rank = timed("15", phase_ranking, xtt, hist_cuda)
     timed("15b", phase_ranking_parity, xtt)
+    timed("16", phase_api_surface, xtt, hist_cuda, f32)
 
     kernels = [_kernel_entry(name, hist_cuda.SOURCES[name], cases, n)
                for name, cases, n in (("hist_f32", f32_cases, f32["launches"]),

@@ -226,9 +226,10 @@ def test_port_imports_neither_jax_nor_reference():
 
 
 def test_port_imports_no_frame_library_at_module_level():
-    """The card's machine has no pandas or pyarrow: no module of the port
-    and not chip_smoke.py may import them when it is imported (a frame is
-    read through its own methods)."""
+    """The card's machine has no pandas, pyarrow, sklearn, matplotlib or
+    graphviz: no module of the port and not chip_smoke.py may import them
+    when it is imported (a frame is read through its own methods; the
+    estimators and plotting import them when called)."""
     sources = [os.path.join(d, f) for d, _, fs in os.walk(PORT)
                for f in fs if f.endswith(".py")]
     sources.append(os.path.join(os.path.dirname(HERE), "chip_smoke.py"))
@@ -242,5 +243,6 @@ def test_port_imports_no_frame_library_at_module_level():
             else:
                 continue
             for mod in mods:
-                assert mod.split(".")[0] not in ("pandas", "pyarrow"), \
-                    (path, mod)
+                assert mod.split(".")[0] not in (
+                    "pandas", "pyarrow", "sklearn", "matplotlib",
+                    "graphviz"), (path, mod)

@@ -54,7 +54,8 @@ from .ops.adaptive import segment_quantile_leaf
 from .ops.predict import (predict_leaf_ids, predict_margin_delta,
                           predict_margin_delta_multi)
 from .ops.split import SplitParams
-from .params import TrainParam, canonicalize, reject_unsupported
+from .params import (KNOWN_LEARNER_KEYS, TrainParam, canonicalize,
+                     reject_unsupported, split_unknown, tree_keys)
 from .tree.bestfirst import BestFirstGrower
 from .tree.grow import HistTreeGrower, leaf_margin_delta
 from .tree.grow_lockstep import LockstepHistGrower, leaf_margin_delta_k
@@ -146,13 +147,16 @@ class _Cache:
 class Booster:
     """Gradient-boosted tree model (reference: core.py:1749,
     learner.cc:1030).  ``device``: where training and prediction run;
-    ``None`` means the ``device`` parameter if given, else ``cuda``."""
+    ``None`` means the ``device`` parameter if given, else ``cuda``.  An
+    explicit ``device`` wins over the ``device`` parameter, from
+    ``params``, ``set_param`` or a loaded configuration alike."""
 
     def __init__(self, params: Optional[Dict[str, Any]] = None,
                  cache: Sequence[DMatrix] = (),
                  model_file: Optional[Union[str, os.PathLike]] = None,
                  device=None) -> None:
         self.params: Dict[str, Any] = canonicalize(dict(params or {}))
+        self._explicit_device = device is not None
         self.device = resolve_device(
             device if device is not None else self.params.get("device"))
         self.trees: List[RegTree] = []
@@ -179,6 +183,10 @@ class Booster:
         if self._configured:
             return
         p = self.params
+        unknown = split_unknown(p)
+        if unknown and str(p.get("validate_parameters", "")).lower() in (
+                "1", "true"):
+            raise ValueError(f"Unknown parameters: {unknown}")
         reject_unsupported(p)
         self.tparam = TrainParam.from_dict(p)
         self.objective: ObjFunction = create_objective(
@@ -264,6 +272,8 @@ class Booster:
         structural = any(k in self._STRUCTURAL_KEYS
                          and self.params.get(k) != v
                          for k, v in params.items())
+        if params.get("device") is not None and not self._explicit_device:
+            self.device = resolve_device(params["device"])
         self.params.update(params)
         self._configured = False
         if structural:
@@ -672,6 +682,9 @@ class Booster:
     def _eval_metric_list(self):
         names = self.params.get("eval_metric", None)
         if names is None:
+            if str(self.params.get("disable_default_eval_metric", "0")
+                   ).lower() in ("1", "true"):
+                return []
             names = [self.objective.default_metric()]
         elif isinstance(names, str):
             names = [names]
@@ -757,6 +770,22 @@ class Booster:
             out = out[:, 0]
         return out
 
+    def inplace_predict(self, data, iteration_range: Tuple[int, int] = (0, 0),
+                        predict_type: str = "value", missing: float = np.nan,
+                        validate_features: bool = True, base_margin=None,
+                        strict_shape: bool = False) -> np.ndarray:
+        """Predict from raw data without a caller's DMatrix (reference
+        core.py:2044): a numpy array, a scipy sparse matrix, a pandas frame
+        or a tensor on the CPU or the card, staged on the booster's device.
+        ``predict_type``: ``"value"`` or ``"margin"``."""
+        if predict_type not in ("value", "margin"):
+            raise ValueError(f"unknown predict_type {predict_type!r}")
+        d = DMatrix(data, missing=missing, base_margin=base_margin,
+                    device=self.device)
+        return self.predict(d, output_margin=predict_type == "margin",
+                            iteration_range=iteration_range,
+                            strict_shape=strict_shape)
+
     # ------------------------------------------------------------------ model
     @property
     def trees_per_round(self) -> int:
@@ -768,18 +797,34 @@ class Booster:
     def num_boosted_rounds(self) -> int:
         return len(self.trees) // self.trees_per_round
 
-    def copy(self) -> "Booster":
-        """A booster of the same trees and parameters, without the caches
-        (reference core.py:2502)."""
+    def __getitem__(self, val: slice) -> "Booster":
+        """The rounds ``val.start`` to ``val.stop`` as a booster of their
+        own, on this booster's device, without the caches (reference
+        core.py:2478, Learner::Slice)."""
+        if not isinstance(val, slice):
+            raise TypeError("Booster slicing requires a slice of rounds")
+        if val.step not in (None, 1):
+            raise ValueError("Booster slicing takes no step")
+        self._configure()
+        lo = val.start or 0
+        hi = val.stop if val.stop is not None else self.num_boosted_rounds()
         out = Booster(dict(self.params), device=self.device)
-        for name in ("trees", "tree_info"):
-            setattr(out, name, list(getattr(self, name)))
+        k = self.trees_per_round
+        out.trees = self.trees[lo * k: hi * k]
+        out.tree_info = self.tree_info[lo * k: hi * k]
+        # the training frame's categories too: a slice recodes frames at
+        # prediction as its booster does
         for name in ("_base_margin_value", "_num_feature", "feature_names",
                      "feature_types", "best_iteration", "best_score",
                      "_cat_categories"):
             setattr(out, name, getattr(self, name))
         out.attributes = dict(self.attributes)
         return out
+
+    def copy(self) -> "Booster":
+        """A booster of the same trees and parameters, without the caches
+        (reference core.py:2502)."""
+        return self[0: self.num_boosted_rounds()]
 
     def num_features(self) -> int:
         if self._num_feature:
@@ -795,19 +840,65 @@ class Booster:
         (reference: ``XGBoosterGetCategories``)."""
         return categories_by_name(self._cat_categories, self.feature_names)
 
+    def _fmap_names(self, fmap: str) -> Optional[List[str]]:
+        """The feature names, those of a feature-map file where given:
+        ``<id>\t<name>\t<type>`` a line (reference core.py:2505-2520,
+        src/common/feature_map.h LoadText); tab-separated, so names may
+        hold spaces; split on whitespace only where a line has no tab."""
+        names = self.feature_names
+        if not fmap:
+            return names
+        names = list(names or [f"f{i}" for i in range(self.num_features())])
+        with open(fmap) as fh:
+            for line in fh:
+                line = line.rstrip("\n")
+                parts = line.split("\t") if "\t" in line else line.split()
+                if len(parts) >= 2:
+                    fid = int(parts[0])
+                    while len(names) <= fid:
+                        names.append(f"f{len(names)}")
+                    names[fid] = parts[1]
+        return names
+
     def get_dump(self, fmap: str = "", with_stats: bool = False,
                  dump_format: str = "text") -> List[str]:
         """Each tree as text or JSON (tree_model.cc DumpModel), features
-        named by ``feature_names``."""
-        if fmap:
-            raise NotImplementedError(
-                "a feature map file is not supported by xgboost_tpu_torch "
-                "yet")
+        named by ``feature_names`` or the feature map ``fmap``."""
+        names = self._fmap_names(fmap)
         if dump_format == "json":
-            return [t.dump_json(self.feature_names, with_stats)
-                    for t in self.trees]
-        return [t.dump_text(self.feature_names, with_stats)
-                for t in self.trees]
+            return [t.dump_json(names, with_stats) for t in self.trees]
+        return [t.dump_text(names, with_stats) for t in self.trees]
+
+    def get_score(self, fmap: str = "", importance_type: str = "weight"
+                  ) -> Dict[str, float]:
+        """Feature importance by name (reference core.py:2526): ``weight``
+        (the splits on a feature), ``gain`` and ``cover`` (the mean loss
+        change and hessian sum of its splits), ``total_gain`` and
+        ``total_cover`` (their sums).  Features named as ``get_dump`` names
+        them."""
+        if importance_type not in ("weight", "gain", "cover", "total_gain",
+                                   "total_cover"):
+            raise ValueError(f"unknown importance_type {importance_type!r}")
+        self._configure()
+        names = self._fmap_names(fmap) or [
+            f"f{i}" for i in range(self.num_features())]
+        acc: Dict[str, float] = {}
+        cnt: Dict[str, int] = {}
+        for t in self.trees:
+            for nid in range(t.n_nodes):
+                if t.left_children[nid] == -1:
+                    continue
+                f = names[t.split_indices[nid]]
+                cnt[f] = cnt.get(f, 0) + 1
+                if importance_type in ("gain", "total_gain"):
+                    acc[f] = acc.get(f, 0.0) + float(t.loss_changes[nid])
+                elif importance_type in ("cover", "total_cover"):
+                    acc[f] = acc.get(f, 0.0) + float(t.sum_hessian[nid])
+                else:
+                    acc[f] = acc.get(f, 0.0) + 1.0
+        if importance_type in ("gain", "cover"):
+            return {k: v / cnt[k] for k, v in acc.items()}
+        return acc
 
     def attr(self, key: str) -> Optional[str]:
         return self.attributes.get(key)
@@ -963,3 +1054,202 @@ class Booster:
                                 if cc else None)
         self.feature_names = learner.get("feature_names") or None
         self.feature_types = learner.get("feature_types") or None
+
+    # ------------------------------------------------------- configuration
+    # The model files above carry the model; these carry the training
+    # configuration (reference: learner.cc:625 SaveConfig, :570 LoadConfig),
+    # in the reference's layout, so a restored booster continues training
+    # as the one it was saved from.
+    def _device_str(self) -> str:
+        """``cpu`` or ``cuda:N``: the device this booster runs on."""
+        if self.device.type != "cuda":
+            return self.device.type
+        index = self.device.index
+        if index is None:
+            index = torch.cuda.current_device()
+        return f"cuda:{index}"
+
+    def _config_dict(self) -> dict:
+        """(reference core.py:2284) Every value a string, as the
+        reference's: lists and tuples as JSON, booleans as "1"/"0"."""
+        self._configure()
+
+        def s(v):
+            if isinstance(v, bool):
+                return "1" if v else "0"
+            if isinstance(v, (list, tuple, dict)):
+                return json.dumps(v)
+            return str(v)
+
+        params = {k: v for k, v in self.params.items() if v is not None}
+        tkeys = tree_keys()
+        hist_param = {}
+        for k in sorted(tkeys):
+            v = getattr(self.tparam, "lambda_" if k == "lambda" else k)
+            if v is not None:
+                hist_param[k] = s(v)
+        placed = set(tkeys)
+
+        def take(section: dict, key: str, default=None) -> None:
+            if key in params:
+                section[key] = s(params[key])
+                placed.add(key)
+            elif default is not None:
+                section[key] = s(default)
+
+        learner_train = {"booster": "gbtree",
+                         "objective": self.objective.name}
+        placed |= {"booster", "objective"}
+        take(learner_train, "disable_default_eval_metric", 0)
+        take(learner_train, "multi_strategy", self.multi_strategy)
+
+        # the device the booster runs on, whatever the parameter said
+        generic = {"device": self._device_str()}
+        placed.add("device")
+        take(generic, "seed", 0)
+        take(generic, "seed_per_iteration", 0)
+        take(generic, "nthread", 0)
+        take(generic, "validate_parameters", 0)
+
+        gbt = {"num_parallel_tree": s(self.num_parallel_tree)}
+        placed.add("num_parallel_tree")
+        take(gbt, "process_type", "default")
+        take(gbt, "tree_method", "hist")
+        take(gbt, "updater")
+        gb = {"name": "gbtree", "gbtree_train_param": gbt,
+              "updater": {"grow_quantile_histmaker": {
+                  "hist_train_param": hist_param}}}
+
+        obj_sec: dict = {"name": self.objective.name}
+        for k in ("scale_pos_weight", "num_class", "tweedie_variance_power",
+                  "huber_slope", "quantile_alpha", "expectile_alpha",
+                  "aft_loss_distribution", "aft_loss_distribution_scale",
+                  "lambdarank_num_pair_per_sample", "lambdarank_pair_method",
+                  "ndcg_exp_gain", "lambdarank_unbiased",
+                  "lambdarank_bias_norm"):
+            take(obj_sec, k)
+
+        names = params.get("eval_metric")
+        if names is None:
+            metrics = []
+        elif isinstance(names, (list, tuple)):
+            metrics = [{"name": str(m)} for m in names]
+        else:
+            metrics = [{"name": str(names)}]
+        placed.add("eval_metric")
+
+        # the user's other known parameters ride in generic_param, so that
+        # load_config restores every one of them
+        for k in sorted(params):
+            if k not in placed and k in (KNOWN_LEARNER_KEYS | tkeys):
+                generic[k] = s(params[k])
+
+        return {
+            "version": [3, 1, 0],
+            "learner": {
+                "generic_param": generic,
+                "gradient_booster": gb,
+                "learner_model_param": {
+                    "base_score": ("5E-1" if self._base_margin_value is None
+                                   else self._base_score_str()),
+                    "num_class": str(self.num_class),
+                    "num_feature": str(self.num_features()),
+                    "num_target": str(self.n_groups if self.num_class == 0
+                                      else 1),
+                },
+                "learner_train_param": learner_train,
+                "metrics": metrics,
+                "objective": obj_sec,
+            },
+        }
+
+    def save_config(self) -> str:
+        """The training configuration as a JSON string (reference:
+        Booster.save_config, XGBoosterSaveJsonConfig)."""
+        return json.dumps(self._config_dict())
+
+    def load_config(self, config: Union[str, bytes, dict]) -> None:
+        """Apply a ``save_config()`` snapshot, this package's or the
+        reference's (learner.cc:570 LoadConfig): every known parameter of
+        its sections, as strings.  Leading-underscore keys are not part of
+        a configuration.  The ``device`` it names applies unless this
+        booster was given one explicitly."""
+        obj = config if isinstance(config, dict) else json.loads(config)
+        learner = obj.get("learner", obj)
+        known = KNOWN_LEARNER_KEYS | tree_keys()
+        collected: Dict[str, Any] = {}
+
+        def walk(d: dict) -> None:
+            for k, v in d.items():
+                if k == "learner_model_param":
+                    continue  # model state, not configuration
+                if isinstance(v, dict):
+                    walk(v)
+                elif k != "name" and isinstance(v, (str, int, float, bool)):
+                    if k in known:
+                        collected[k] = v
+
+        walk(learner)
+        metrics = learner.get("metrics") or []
+        names = [m["name"] if isinstance(m, dict) else str(m)
+                 for m in metrics]
+        if names:
+            collected["eval_metric"] = names
+        else:
+            collected.pop("eval_metric", None)
+        booster_name = learner.get("gradient_booster", {}).get("name")
+        if booster_name:
+            collected["booster"] = booster_name
+        if collected:
+            self.set_param(collected)
+
+    def serialize(self) -> bytearray:
+        """Model and training configuration in one UBJSON buffer,
+        ``{"Model": ..., "Config": ...}`` (reference core.py:2441,
+        learner.cc:987 Save)."""
+        import io
+
+        from .utils.ubjson import dump_ubjson
+
+        buf = io.BytesIO()
+        dump_ubjson({"Model": self.save_raw_dict(),
+                     "Config": self._config_dict()}, buf)
+        return bytearray(buf.getvalue())
+
+    def unserialize(self, buf: Union[bytes, bytearray]) -> None:
+        """Restore a ``serialize()`` buffer, this package's or the
+        reference's (learner.cc:1003 Load).  The configuration applies
+        first: the model's output groups may depend on it (a list of
+        ``quantile_alpha``)."""
+        import io
+
+        from .utils.ubjson import load_ubjson
+
+        try:
+            snap = json.loads(buf)
+        except (UnicodeDecodeError, json.JSONDecodeError):
+            snap = load_ubjson(io.BytesIO(bytes(buf)))
+        self.load_config(snap["Config"])
+        self.load_model_dict(snap["Model"])
+
+    def __getstate__(self) -> dict:
+        """A pickle holds the ``serialize()`` bytes and the device's name:
+        no tensor and no cache."""
+        return {"raw": bytes(self.serialize()), "device": str(self.device)}
+
+    def __setstate__(self, state: dict) -> None:
+        try:
+            device = resolve_device(state["device"])
+        except RuntimeError as e:
+            raise RuntimeError(
+                f"this Booster was pickled on {state['device']} and no CUDA "
+                "device is available here; restore its bytes on the CPU "
+                "with xgboost_tpu_torch.Booster(device=\"cpu\")"
+                ".unserialize(bst.serialize())") from e
+        self.__init__(device=device)
+        self.unserialize(state["raw"])
+        best = self.attr("best_iteration")
+        if best is not None:  # early stopping's bests, as the attributes
+            self.best_iteration = int(best)
+            score = self.attr("best_score")
+            self.best_score = None if score is None else float(score)

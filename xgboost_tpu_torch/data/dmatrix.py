@@ -294,6 +294,44 @@ class DMatrix:
             return None
         return np.asarray([t == "c" for t in ft], dtype=bool)
 
+    def slice(self, rindex: Sequence[int]) -> "DMatrix":
+        """The rows ``rindex`` as a DMatrix on the same device (reference
+        dmatrix.py:500, XGDMatrixSliceDMatrix; cv's folds): labels,
+        weights, base margin, survival bounds, query groups re-derived from
+        the rows' query ids, the feature weights, names and types, and the
+        frame's categories, so that the slice recodes as its source does.
+        A weight a query group stays with its group."""
+        idx = np.asarray(rindex, dtype=np.int64)
+        if self._csr is None:
+            data = self._host[idx]
+        else:
+            import scipy.sparse as sp
+
+            indptr, indices, values = self._csr
+            data = sp.csr_matrix((values, indices, indptr),
+                                 shape=self._shape)[idx]
+        out = DMatrix(data, device=self.device)
+        out.cat_categories = self.cat_categories
+        for name in ("label", "base_margin", "label_lower_bound",
+                     "label_upper_bound"):
+            v = getattr(self, name)
+            if v is not None:
+                setattr(out, name, v[idx])
+        if self.group_ptr is not None:
+            qid = np.repeat(np.arange(len(self.group_ptr) - 1),
+                            np.diff(self.group_ptr))[idx]
+            out.set_qid(qid)
+        w = self.weight
+        if w is not None and len(w) != self.num_row():
+            # a weight a group: each new group takes its source group's
+            out.weight = w[qid[out.group_ptr[:-1]]] if len(qid) else w[:0]
+        elif w is not None:
+            out.weight = w[idx]
+        out.feature_weights = self.feature_weights
+        out.feature_names = self.feature_names
+        out.feature_types = self.feature_types
+        return out
+
     def ensure_ellpack(self, max_bin: int = 256,
                        row_align: int = 1024) -> EllpackPage:
         """Sketch and bin once per ``max_bin``."""

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 # alias -> canonical (reference: DMLC_DECLARE_ALIAS in src/tree/param.h)
 _ALIASES = {
@@ -52,8 +52,10 @@ class TrainParam:
     # categorical splits: one-hot below this many categories, the sorted
     # partition from it on (src/tree/param.h max_cat_to_onehot)
     max_cat_to_onehot: int = 4
-    # accepted as the reference accepts it; no split code reads it
+    # accepted as the reference accepts them; no code of the port reads
+    # them (refresh_leaf is the refresh updater's, process_type=update)
     max_cat_threshold: int = 64
+    refresh_leaf: bool = True
 
     @staticmethod
     def from_dict(params: Dict[str, Any]) -> "TrainParam":
@@ -79,6 +81,9 @@ class TrainParam:
                 v = int(v)
             elif f.type == "float":
                 v = float(v)
+            elif f.type == "bool":
+                v = v if isinstance(v, bool) else \
+                    str(v).lower() in ("1", "true", "yes")
             setattr(self, f.name, v)
         self.validate()
         return self
@@ -105,9 +110,56 @@ class TrainParam:
                 "sampling_method must be 'uniform' or 'gradient_based'")
 
 
+# Known learner-level keys (reference: xgboost_tpu/params.py:123-142,
+# src/learner.cc LearnerTrainParam and the objective and metric registries):
+# what load_config collects, and what validate_parameters accepts beside
+# the tree parameters
+KNOWN_LEARNER_KEYS = {
+    "objective", "base_score", "num_class", "eval_metric", "seed", "nthread",
+    "device", "tree_method", "booster", "verbosity",
+    "disable_default_eval_metric", "num_parallel_tree", "multi_strategy",
+    "num_target",
+    # dart
+    "rate_drop", "one_drop", "skip_drop", "sample_type", "normalize_type",
+    # gblinear
+    "updater", "feature_selector", "top_k",
+    # ranking
+    "lambdarank_num_pair_per_sample", "lambdarank_pair_method",
+    "ndcg_exp_gain", "lambdarank_unbiased", "lambdarank_bias_norm",
+    "lambdarank_normalization", "lambdarank_score_normalization",
+    # survival / quantile
+    "aft_loss_distribution", "aft_loss_distribution_scale", "quantile_alpha",
+    "expectile_alpha",
+    # tweedie / huber
+    "tweedie_variance_power", "huber_slope",
+    "scale_pos_weight", "enable_categorical", "missing", "validate_parameters",
+    "n_devices", "process_type", "refresh_leaf", "deterministic_histogram",
+}
+
+
+def tree_keys() -> set:
+    """The TrainParam fields under their parameter names."""
+    return {("lambda" if f.name == "lambda_" else f.name)
+            for f in dataclasses.fields(TrainParam)}
+
+
+def split_unknown(params: Dict[str, Any]) -> List[str]:
+    """Parameters neither a tree nor a learner key; leading-underscore
+    keys are internal hooks (``_lockstep``, ``_hist_impl``), outside the
+    public surface (reference params.py:145)."""
+    known = tree_keys() | KNOWN_LEARNER_KEYS
+    return [k for k in canonicalize(params)
+            if k not in known and not k.startswith("_")]
+
+
 def _is_default(key: str, v) -> bool:
-    return {"booster": "gbtree", "tree_method": "hist",
-            "process_type": "default", "n_devices": 1}[key] == v
+    """Whether ``v`` is the one value of ``key`` the port implements,
+    compared parsed: ``load_config`` gives every value as a string."""
+    if key == "n_devices":
+        return not isinstance(v, bool) and str(v).strip() == "1"
+    if key == "tree_method":  # the reference's aliases of hist
+        return str(v) in ("hist", "auto", "gpu_hist")
+    return str(v) == {"booster": "gbtree", "process_type": "default"}[key]
 
 
 # parameters the port does not implement: at any value but their default
