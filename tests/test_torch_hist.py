@@ -314,28 +314,100 @@ def test_k2_plan_at_the_main_levels():
         hist_cuda.plan_q(1 << 20, 28, 16, 256, 6, lambda *a: 0, 2)
 
 
+def _class_owners(plan, n_nodes, n_features, n_classes):
+    """How many lanes of the class axis's blocks own each (class, node,
+    feature, channel): block (feature group x, class group z) at node t
+    (one node a block), accumulating warp u, lane -> (fsub, k, c) by
+    class_axis_lanes."""
+    owners = np.zeros((n_classes, n_nodes, n_features, 2), np.int64)
+    lanes = [(lane, own) for lane, own in
+             enumerate(hist_cuda.class_axis_lanes(plan)) if own is not None]
+    assert len({own for _, own in lanes}) == len(lanes)
+    fsub = np.array([own[0] for _, own in lanes])
+    k = np.array([own[1] for _, own in lanes])
+    ch = np.array([own[2] for _, own in lanes])
+    n_fg = -(-n_features // plan.feat_group)
+    n_cg = -(-n_classes // plan.class_group)
+    x, z, u = np.meshgrid(np.arange(n_fg), np.arange(n_cg),
+                          np.arange(plan.units), indexing="ij")
+    f = (x[..., None] * plan.feat_group + u[..., None] * plan.feats_per_warp
+         + fsub)
+    kk = z[..., None] * plan.class_group + k
+    keep = (f < n_features) & (k < plan.class_group) & (kk < n_classes)
+    f, kk = f[keep], kk[keep]
+    c = np.broadcast_to(ch, keep.shape)[keep]
+    for t in range(0, n_nodes, plan.node_tile):
+        np.add.at(owners, (kk, t, f, c), 1)
+    return owners
+
+
+@pytest.mark.parametrize("K", [1, 3, 7])
 @pytest.mark.parametrize("n_features", [1, 3, 28, 54])
 @pytest.mark.parametrize("n_bin", [16, 256, 1024])
 @pytest.mark.parametrize("depth", range(11))
-def test_class_axis_plan_at_one_class_is_k1s(depth, n_bin, n_features):
-    """K1's class axis with one class plans exactly what plan_f32 (pinned
-    to the frozen planner above) plans; with K classes each class keeps
-    K1's row blocks, so a cell adds the rows K1's adds, and every (node,
-    feature) pair of a class is still flushed once."""
+def test_class_axis_plan_owns_every_cell_once(depth, n_bin, n_features, K):
+    """K1's class axis at every level of a depth-``depth`` tree, both
+    layouts: every (class, node, feature, channel) cell is owned by
+    exactly one lane of one block, each (unit, bin) row of a block's
+    cells is flushed by exactly one block of its cluster, the lanes of a
+    warp fall on distinct banks (bin rows of a power of two words), the
+    block's cells and staged chunks fit the budget beside K1's row lists
+    and a chunk at most three groups a staging thread,
+    C divides the row blocks, the levels that skip rows are bucketed (one
+    class a block with a pos per class, all K together otherwise), and
+    a block sums no more rows of a cell than K1's plan (pinned to the
+    frozen planner above) gives a block at the same level, nor, bucketed,
+    more of a node's rows than K1's block finds in that node (above four
+    staged chunks)."""
     levels = {(1 << depth, 1), (1 << max(0, depth - 1), 2 if depth else 1)}
     for n_nodes, stride in sorted(levels):
         for n_rows, limit in ((1 << 20, 8), (581_012, 2), (1000, 8)):
-            one = hist_cuda.plan_f32_multi(n_rows, n_features, n_nodes,
-                                           n_bin, 1, _card(limit), stride)
-            assert one == hist_cuda.plan_f32(n_rows, n_features, n_nodes,
-                                             n_bin, _card(limit), stride)
-            assert tuple(one) == _plan_f32_before(
-                n_rows, n_features, n_nodes, n_bin, _card(limit), stride)
-            many = hist_cuda.plan_f32_multi(n_rows, n_features, n_nodes,
-                                            n_bin, 7, _card(limit), stride)
-            assert many == one
-            assert many.row_blocks % many.cluster == 0
-            assert (_owners(many, n_nodes, n_features) == 1).all()
+            k1 = _plan_f32_before(n_rows, n_features, n_nodes, n_bin,
+                                  _card(limit), stride)
+            for shared in (False, True):
+                plan = hist_cuda.plan_f32_multi(
+                    n_rows, n_features, n_nodes, n_bin, K, _card(limit),
+                    stride, shared_pos=shared)
+                assert plan.bucketed == (stride > 1 or n_nodes > 1)
+                kg = 1 if plan.bucketed and not shared else K
+                assert plan.class_group == kg and plan.node_tile == 1
+                assert plan.feat_group % plan.feats_per_warp == 0
+                assert 1 <= plan.units <= hist_cuda.MULTI_MAX_UNITS
+                row = plan.cell_row
+                assert plan.feats_per_warp * 2 * kg <= row <= 32
+                assert row & (row - 1) == 0
+                assert hist_cuda.multi_smem(
+                    plan.units, n_bin, row, kg, plan.feats_per_warp, 2,
+                    shared, plan.bucketed) \
+                    <= hist_cuda.SMEM_BUDGET - hist_cuda.STAGE_BYTES
+                assert plan.threads == hist_cuda.MULTI_THREADS
+                assert hist_cuda.multi_roles(
+                    plan.units, kg, plan.feats_per_warp, shared,
+                    plan.bucketed) <= hist_cuda.MULTI_ROLES * (
+                        plan.threads - 32 * plan.units)
+                assert plan.cluster in hist_cuda.CLUSTERS
+                assert plan.cluster <= limit
+                assert plan.row_blocks % plan.cluster == 0
+                k1_rows = -(-n_rows // k1[2])
+                assert plan.rows_per_block <= k1_rows
+                floor = 4 * hist_cuda.multi_chunk(shared, plan.bucketed)
+                assert plan.k1_rows == k1_rows
+                if plan.bucketed:  # a node's share of K1's block
+                    for count in (0, 1, 100, n_rows // 7, n_rows):
+                        rows = hist_cuda.class_axis_item_rows(
+                            plan, count, n_rows, shared)
+                        assert rows <= k1_rows
+                        assert rows <= max(floor,
+                                           -(-count * k1_rows // n_rows))
+                assert (_class_owners(plan, n_nodes, n_features, K)
+                        == 1).all()
+                flushed = np.concatenate([
+                    np.arange(r.start, r.stop) for r in
+                    (hist_cuda.slice_units(plan.units * n_bin, plan.cluster,
+                                           rank)
+                     for rank in range(plan.cluster))])
+                assert np.array_equal(flushed,
+                                      np.arange(plan.units * n_bin))
 
 
 def test_class_axis_plan_at_covertype_fits_the_card():
@@ -352,6 +424,18 @@ def test_class_axis_plan_at_covertype_fits_the_card():
         assert cols * plan.row_blocks // plan.cluster >= 1
         assert plan.feat_group * plan.node_tile * 256 * 8 \
             + hist_cuda.STAGE_BYTES <= hist_cuda.SMEM_BUDGET
+        # at the root the seven classes share a block, two features a warp
+        # in bin rows of 32 words: five warps of 32 KB cells beside the
+        # staged chunks; below it a block takes one class, 16 features a
+        # warp: four warps hold all 54
+        want = (7, 2, 32, 5) if d == 0 else (1, 16, 32, 4)
+        assert (plan.class_group, plan.feats_per_warp, plan.cell_row,
+                plan.units) == want
+        assert plan.feat_group >= 54 or d == 0
+        assert hist_cuda.multi_smem(plan.units, 256, 32, plan.class_group,
+                                    plan.feats_per_warp, 2, False,
+                                    plan.bucketed) \
+            <= hist_cuda.SMEM_BUDGET - hist_cuda.STAGE_BYTES
 
 
 def test_class_axis_dispatch_takes_plain_versions_on_cpu():

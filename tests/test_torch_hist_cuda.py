@@ -16,10 +16,12 @@ features, 26 categorical, 128 bins), one-hot and partition, monotone or
 not, from the histogram or its limb form, and a categorical training on
 the card writing the CPU's model JSON.
 K3 also at widths past its chunks and levels, up to the widest it takes.
-K1's class axis (xtb_hist_f32_multi) against K plain histograms at
+K1's class axis (csrc/hist_multi.cu) against K plain histograms at
 rtol/atol 1e-4, in the lockstep layout (a pos per class, (K, N, F, B, 2))
-and the vector-leaf layout (one pos, (N, F, B, K, 2)), at each cluster
-size, and the lockstep and vector-leaf trainers launching only it.
+and the vector-leaf layout (one pos, (N, F, B, K, 2)), at 1 to 16
+classes, with each cluster size, in class groups, at a bucketed level
+with empty nodes, a refused plan raising, and the lockstep and
+vector-leaf trainers launching only it.
 K4 (csrc/sigmoid.cu) held against its plain versions bitwise over the f32
 range and its edges: the sigmoid, and the binary:logistic gradient pairs
 with and without weights and scale_pos_weight.  K5 (csrc/lambdarank.cu)
@@ -851,16 +853,19 @@ def _class_plain(bins, gpair, pos, shared, **kw):
 
 
 @needs_cuda
+@pytest.mark.parametrize("F", [1, 29])
 @pytest.mark.parametrize("shared", [False, True])
-@pytest.mark.parametrize("K", [1, 3, 7])
-@pytest.mark.parametrize("node0,n_nodes,stride", [(0, 1, 1), (15, 8, 2),
-                                                  (3, 4, 1), (255, 128, 2)])
-def test_class_axis_matches_plain(node0, n_nodes, stride, K, shared):
-    """K histograms in one launch against the plain versions: the
-    lockstep layout (pos (K, R), hist (K, N, F, B, 2)) and the vector-leaf
-    layout (one pos, hist (N, F, B, K, 2)), one thread per row, staged and
-    node-tiled; one launch counted, none of the single kernel."""
-    bins, gpair, pos = _class_case(16384, 29, 256, K, node0,
+@pytest.mark.parametrize("K", [1, 2, 3, 7, 8, 16])
+@pytest.mark.parametrize("node0,n_nodes,stride", [(0, 1, 1), (1, 1, 2),
+                                                  (15, 8, 2), (3, 4, 1),
+                                                  (255, 128, 2)])
+def test_class_axis_matches_plain(node0, n_nodes, stride, K, shared, F):
+    """K histograms in one call against the plain versions: the lockstep
+    layout (pos (K, R), hist (K, N, F, B, 2)) and the vector-leaf layout
+    (one pos, hist (N, F, B, K, 2)), unbucketed at the root and bucketed
+    by node below it, at one feature and at 29 (a ragged feature group
+    and warp); one launch counted, none of the single kernel."""
+    bins, gpair, pos = _class_case(16384, F, 256, K, node0,
                                    stride * n_nodes, node0 + K, shared)
     kw = dict(node0=node0, n_nodes=n_nodes, n_bin=256, stride=stride)
     hist_cuda.reset_launches()
@@ -871,6 +876,76 @@ def test_class_axis_matches_plain(node0, n_nodes, stride, K, shared):
     assert hist_cuda.launches["hist_f32"] == 0
     torch.testing.assert_close(got, _class_plain(bins, gpair, pos, shared,
                                                  **kw), rtol=1e-4, atol=1e-4)
+
+
+@needs_cuda
+@pytest.mark.parametrize("shared", [False, True])
+@pytest.mark.parametrize("node0,n_nodes,stride", [(0, 1, 1), (31, 16, 2)])
+def test_class_axis_with_fewer_classes_a_block(node0, n_nodes, stride,
+                                               shared):
+    """K = 17 and 33, more than a warp's 16: class groups (9 and a ragged
+    8; three of 11), or one class a block where a pos per class is
+    bucketed: the same histograms."""
+    kw = dict(node0=node0, n_nodes=n_nodes, n_bin=256, stride=stride)
+    for K in (17, 33):
+        bins, gpair, pos = _class_case(20000, 29, 256, K, node0,
+                                       stride * n_nodes, 5, shared)
+        plan = hist_cuda.planned_multi(bins, K, n_nodes, 256, stride, shared)
+        assert plan.class_group < K
+        got = hist_cuda.run_f32_multi(bins, gpair, pos, plan,
+                                      shared_pos=shared, **kw)
+        torch.testing.assert_close(got, _class_plain(bins, gpair, pos, shared,
+                                                     **kw),
+                                   rtol=1e-4, atol=1e-4)
+
+
+@needs_cuda
+@pytest.mark.parametrize("shared", [False, True])
+def test_class_axis_bucketed_level_with_empty_nodes(shared):
+    """A bucketed 64-node level whose rows sit in every third node only
+    (the rest empty, as are some classes' nodes), most of them in one
+    node, with uint8 and int32 bins: the plain versions' histograms."""
+    rng = np.random.default_rng(7)
+    R, F, K = 30000, 6, 5
+    shape = (R,) if shared else (K, R)
+    node = rng.choice(np.arange(0, 64, 3), size=shape)
+    node[rng.random(shape) < 0.6] = 3
+    p = 63 + 2 * node
+    p[rng.random(shape) < 0.05] = -1
+    pos = torch.from_numpy(p.astype(np.int32)).cuda()
+    gpair = torch.from_numpy(rng.normal(size=(R, K, 2)).astype(
+        np.float32)).cuda()
+    kw = dict(node0=63, n_nodes=64, n_bin=64, stride=2)
+    for dtype in (torch.uint8, torch.int32):
+        bins = torch.from_numpy(rng.integers(0, 65, size=(R, F))).to(
+            dtype).cuda()
+        fn = (hist_cuda.build_level_hist_multi if shared
+              else hist_cuda.build_histogram_multi)
+        got = fn(bins, gpair, pos, **kw)
+        want = _class_plain(bins, gpair, pos, shared, **kw)
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+        empty = (want.abs().sum(dim=(1, 2, 4)) if shared
+                 else want.abs().sum(dim=(0, 2, 3, 4)))
+        assert (empty == 0).sum() >= 40
+
+
+@needs_cuda
+def test_class_axis_refuses_a_plan_it_cannot_take():
+    """A plan the kernel refuses raises: row blocks not a multiple of the
+    cluster, an unbucketed plan for a level of many nodes, several classes
+    a block where a pos per class is bucketed."""
+    bins, gpair, pos = _class_case(4096, 8, 64, 3, 3, 8, 0, False)
+    plan = hist_cuda.planned_multi(bins, 3, 4, 64, 2, False)
+    kw = dict(node0=3, n_nodes=4, n_bin=64, stride=2)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        hist_cuda.run_f32_multi(bins, gpair, pos, plan._replace(
+            cluster=2, row_blocks=3), **kw)
+    with pytest.raises(ValueError, match="unbucketed"):
+        hist_cuda.run_f32_multi(bins, gpair, pos,
+                                plan._replace(bucketed=False), **kw)
+    with pytest.raises(ValueError, match="one class a block"):
+        hist_cuda.run_f32_multi(bins, gpair, pos,
+                                plan._replace(class_group=3), **kw)
 
 
 @needs_cuda

@@ -48,20 +48,7 @@
 //   their bins.  Where every row counts (stride 1, one node tile), one
 //   thread per row is cheaper, and the kernel takes that loop.
 //
-// - Class axis (xtb_hist_f32_multi).  K histograms in one launch over the
-//   same bins: gpair is (R, K, 2) (row stride 2K floats, class stride 2),
-//   pos has a class stride (R for the lockstep grower's (K, R) positions,
-//   0 where the K targets of a vector-leaf tree share one pos), and the
-//   class folds into the node-tile grid dimension, so each block
-//   accumulates one class's (feature group, node tile) exactly as above,
-//   with the row blocks K1 gives one histogram (plan_f32_multi): a cell
-//   adds the rows it adds in K1, and rounds as much.
-//   The output strides place class k: (K, N, F, B, 2) for lockstep (class
-//   stride N*F*B*2 floats, cell stride 2) or (N, F, B, K, 2) for the
-//   vector-leaf grower (class stride 2, cell stride 2K), which then needs
-//   no permute.  Each class reads the bins again: reading them once for all
-//   K classes is a later redesign.  xtb_hist_f32 is the same launch with
-//   K = 1.
+// K1's class axis, K histograms a call, is csrc/hist_multi.cu.
 //
 // Float atomics sum in no fixed order, so the result matches the plain
 // version within f32 tolerance only, and its last bits can change from run
@@ -115,21 +102,13 @@ __global__ void __launch_bounds__(kThreads, 1)
 hist_kernel(const BinT* __restrict__ bins, const float2* __restrict__ gpair,
             const int* __restrict__ pos, float* __restrict__ out, int n_rows,
             int n_features, int n_bin, int node0, int n_nodes, int stride,
-            int feat_group, int node_tile, int rows_per_block, int n_classes,
-            long long pos_class_stride, long long out_class_stride,
-            int out_cell_stride) {
+            int feat_group, int node_tile, int rows_per_block) {
   extern __shared__ float2 hist[];
   // per warp, the rows of its node tile: (row, offset of its node's cells)
   __shared__ int2 queue[kStaged ? kWarps : 1][kQueue];
-  // the class and node tile of this block: z = class * n_tiles + tile
-  const int n_tiles = (n_nodes + node_tile - 1) / node_tile;
-  const int k = (int)blockIdx.z / n_tiles;
-  gpair += k;                       // row r of class k: gpair[r * K + k]
-  pos += k * pos_class_stride;
-  out += k * out_class_stride;
   const int f0 = blockIdx.x * feat_group;
   const int fg = min(feat_group, n_features - f0);  // ragged last group
-  const int t0 = ((int)blockIdx.z - k * n_tiles) * node_tile;
+  const int t0 = (int)blockIdx.z * node_tile;
   const int nt = min(node_tile, n_nodes - t0);  // ragged last node tile
   const int node_len = feat_group * n_bin;      // cells of one node
   const int hist_len = node_tile * node_len;
@@ -172,7 +151,7 @@ hist_kernel(const BinT* __restrict__ bins, const float2* __restrict__ gpair,
       // one row a lane: its gradient and kUnroll bins loaded before their adds
       if (lane < n) {
         const int2 e = list[lane];
-        const float2 g = gpair[(size_t)e.x * n_classes];
+        const float2 g = gpair[e.x];
         const BinT* row = bins + (size_t)e.x * n_features + f0;
         float2* node_hist = hist + e.y;
         for (int f = 0; f < fg; f += kUnroll) {
@@ -204,7 +183,7 @@ hist_kernel(const BinT* __restrict__ bins, const float2* __restrict__ gpair,
       if (local < 0 || local % stride != 0) continue;  // pad row / other level
       const int slot = local / stride - t0;
       if (slot < 0 || slot >= nt) continue;  // another block's node tile
-      const float2 g = gpair[(size_t)r * n_classes];
+      const float2 g = gpair[r];
       const BinT* row = bins + (size_t)r * n_features + f0;
       float2* node_hist = hist + slot * node_len;
       for (int f = 0; f < fg; ++f) {
@@ -243,7 +222,7 @@ hist_kernel(const BinT* __restrict__ bins, const float2* __restrict__ gpair,
       }
     }
     float* dst = out + (((size_t)(t0 + slot) * n_features + f0 + f) * n_bin
-                        + b) * out_cell_stride;
+                        + b) * 2;
     if (acc.x != 0.f) atomicAdd(dst, acc.x);
     if (acc.y != 0.f) atomicAdd(dst + 1, acc.y);
   }
@@ -291,17 +270,15 @@ int max_clusters(int smem, int cluster, int threads, int* n) {
 template <typename BinT, bool kStaged>
 int launch(const void* bins, const void* gpair, const void* pos, void* out,
            int n_rows, int n_features, int n_bin, int node0, int n_nodes,
-           int stride, int n_classes, long long pos_class_stride,
-           long long out_class_stride, int out_cell_stride, int feat_group,
-           int node_tile, int row_blocks, int cluster, int threads,
-           cudaStream_t stream) {
+           int stride, int feat_group, int node_tile, int row_blocks,
+           int cluster, int threads, cudaStream_t stream) {
   const size_t smem = (size_t)node_tile * feat_group * n_bin * sizeof(float2);
   cudaError_t err = set_smem<BinT, kStaged>(smem);
   if (err != cudaSuccess) return status(err);
   cudaLaunchAttribute attr = cluster_attr(cluster);
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((n_features + feat_group - 1) / feat_group, row_blocks,
-                     (n_nodes + node_tile - 1) / node_tile * n_classes);
+                     (n_nodes + node_tile - 1) / node_tile);
   cfg.blockDim = dim3(threads, 1, 1);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
@@ -312,50 +289,23 @@ int launch(const void* bins, const void* gpair, const void* pos, void* out,
       &cfg, hist_kernel<BinT, kStaged>, static_cast<const BinT*>(bins),
       static_cast<const float2*>(gpair), static_cast<const int*>(pos),
       static_cast<float*>(out), n_rows, n_features, n_bin, node0, n_nodes,
-      stride, feat_group, node_tile, rows_per_block, n_classes,
-      pos_class_stride, out_class_stride, out_cell_stride));
+      stride, feat_group, node_tile, rows_per_block));
 }
 
 template <typename BinT>
 int launch_any(bool staged, const void* bins, const void* gpair,
                const void* pos, void* out, int n_rows, int n_features,
-               int n_bin, int node0, int n_nodes, int stride, int n_classes,
-               long long pos_class_stride, long long out_class_stride,
-               int out_cell_stride, int feat_group, int node_tile,
-               int row_blocks, int cluster, int threads, cudaStream_t s) {
+               int n_bin, int node0, int n_nodes, int stride, int feat_group,
+               int node_tile, int row_blocks, int cluster, int threads,
+               cudaStream_t s) {
   return staged
              ? launch<BinT, true>(bins, gpair, pos, out, n_rows, n_features,
-                                  n_bin, node0, n_nodes, stride, n_classes,
-                                  pos_class_stride, out_class_stride,
-                                  out_cell_stride, feat_group, node_tile,
-                                  row_blocks, cluster, threads, s)
+                                  n_bin, node0, n_nodes, stride, feat_group,
+                                  node_tile, row_blocks, cluster, threads, s)
              : launch<BinT, false>(bins, gpair, pos, out, n_rows, n_features,
-                                   n_bin, node0, n_nodes, stride, n_classes,
-                                   pos_class_stride, out_class_stride,
-                                   out_cell_stride, feat_group, node_tile,
-                                   row_blocks, cluster, threads, s);
-}
-
-int launch_bins(int bin_code, bool staged, const void* bins,
-                const void* gpair, const void* pos, void* out, int n_rows,
-                int n_features, int n_bin, int node0, int n_nodes, int stride,
-                int n_classes, long long pos_class_stride,
-                long long out_class_stride, int out_cell_stride,
-                int feat_group, int node_tile, int row_blocks, int cluster,
-                int threads, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define XTB_LAUNCH(T)                                                       \
-  launch_any<T>(staged, bins, gpair, pos, out, n_rows, n_features, n_bin,   \
-                node0, n_nodes, stride, n_classes, pos_class_stride,        \
-                out_class_stride, out_cell_stride, feat_group, node_tile,   \
-                row_blocks, cluster, threads, s)
-  switch (bin_code) {
-    case 0: return XTB_LAUNCH(uint8_t);
-    case 1: return XTB_LAUNCH(int16_t);
-    case 2: return XTB_LAUNCH(int32_t);
-    default: return (int)cudaErrorInvalidValue;
-  }
-#undef XTB_LAUNCH
+                                   n_bin, node0, n_nodes, stride, feat_group,
+                                   node_tile, row_blocks, cluster, threads,
+                                   s);
 }
 
 }  // namespace
@@ -372,31 +322,18 @@ int xtb_hist_f32(const void* bins, int bin_code, const void* gpair,
                  int n_bin, int node0, int n_nodes, int stride, int feat_group,
                  int node_tile, int row_blocks, int cluster, int threads,
                  int staged, void* stream) {
-  return launch_bins(bin_code, staged != 0, bins, gpair, pos, out, n_rows,
-                     n_features, n_bin, node0, n_nodes, stride, 1, 0, 0, 2,
-                     feat_group, node_tile, row_blocks, cluster, threads,
-                     stream);
-}
-
-// The class axis: K = n_classes histograms in one launch.  gpair is
-// (n_rows, K, 2) f32; class k reads pos + k * pos_class_stride (0: one pos
-// shared by the classes) and writes its cell (n, f, b) at out +
-// k * out_class_stride + ((n * n_features + f) * n_bin + b) *
-// out_cell_stride floats, every cell zeroed beforehand.  The rest as
-// xtb_hist_f32.
-int xtb_hist_f32_multi(const void* bins, int bin_code, const void* gpair,
-                       const void* pos, void* out, int n_rows,
-                       int n_features, int n_bin, int node0, int n_nodes,
-                       int stride, int n_classes, long long pos_class_stride,
-                       long long out_class_stride, int out_cell_stride,
-                       int feat_group, int node_tile, int row_blocks,
-                       int cluster, int threads, int staged, void* stream) {
-  if (n_classes < 1) return (int)cudaErrorInvalidValue;
-  return launch_bins(bin_code, staged != 0, bins, gpair, pos, out, n_rows,
-                     n_features, n_bin, node0, n_nodes, stride, n_classes,
-                     pos_class_stride, out_class_stride, out_cell_stride,
-                     feat_group, node_tile, row_blocks, cluster, threads,
-                     stream);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define XTB_LAUNCH(T)                                                       \
+  launch_any<T>(staged != 0, bins, gpair, pos, out, n_rows, n_features,     \
+                n_bin, node0, n_nodes, stride, feat_group, node_tile,       \
+                row_blocks, cluster, threads, s)
+  switch (bin_code) {
+    case 0: return XTB_LAUNCH(uint8_t);
+    case 1: return XTB_LAUNCH(int16_t);
+    case 2: return XTB_LAUNCH(int32_t);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef XTB_LAUNCH
 }
 
 // The most clusters of `cluster` blocks of `threads` threads and `smem`

@@ -4,11 +4,19 @@ per-level gradient histograms on the card.
 - K1 ``hist_f32`` (csrc/hist.cu, port of xgboost_tpu/ops/hist_pallas.py:
   _hist_kernel): f32 (g, h) sums, the default path.  Launched in thread
   block clusters along its row blocks, as ``plan_f32`` plans from the
-  card's occupancy.  Its class axis, ``xtb_hist_f32_multi`` of the same
-  library, counted as ``hist_f32_multi``, builds K histograms in one
-  launch: the lockstep grower's K class trees, each with its own pos
+  card's occupancy.
+- K1's class axis ``hist_f32_multi`` (csrc/hist_multi.cu): K histograms in
+  one call, each row read once for the classes of a block and added by
+  the one lane that owns its cell, no shared-memory atomics: the lockstep
+  grower's K class trees, each with its own pos
   (``build_histogram_multi``), and a vector-leaf tree's K targets under
-  one pos (``build_level_hist_multi``); ``plan_f32_multi`` plans it.
+  one pos (``build_level_hist_multi``); ``plan_f32_multi`` plans it.  A
+  call is two CUDA launches (histogram, rounding of its f64 sums), and
+  five where it buckets the level's rows by node first (count, scan,
+  scatter before them), counted as one.  ``class_axis_lanes``,
+  ``bucket_level``, ``class_axis_items``, ``class_axis_item_rows`` and
+  ``class_axis_model`` are its index logic in PyTorch, which the CPU
+  tests hold against the plain versions.
 - K2 ``hist_q`` (csrc/hist_q.cu, port of _hist_kernel_q): exact int32 sums
   of the int8 gradient limbs, the ``deterministic_histogram=1`` path.
   Launched the same way, as ``plan_q`` plans.
@@ -63,15 +71,19 @@ __all__ = ["build_histogram", "build_histogram_cuda", "build_histogram_plain",
            "build_level_hist_multi_cuda", "build_level_hist_multi_plain",
            "build_histogram_q", "build_histogram_q_cuda",
            "build_histogram_q_plain", "build_all", "card_max_clusters",
-           "choose_block", "Plan", "load_library", "launches", "plan_f32",
-           "plan_f32_multi", "plan_q", "reset_launches", "run_f32",
-           "run_f32_multi", "run_q", "slice_units", "launched", "on_device",
-           "SOURCES"]
+           "choose_block", "Plan", "MultiPlan", "load_library", "launches",
+           "plan_f32", "plan_f32_multi", "plan_q", "planned_multi",
+           "reset_launches", "run_f32", "run_f32_multi", "run_q",
+           "slice_units", "launched", "on_device", "multi_smem",
+           "multi_scratch", "multi_partial", "multi_roles", "multi_chunk",
+           "class_axis_lanes", "bucket_level", "class_axis_items",
+           "class_axis_item_rows", "class_axis_model", "SOURCES"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _BUILD_DIR = os.path.join(_PKG, "_build")
 # kernel name -> its source, relative to the repository root
 SOURCES = {"hist_f32": "xgboost_tpu_torch/csrc/hist.cu",
+           "hist_f32_multi": "xgboost_tpu_torch/csrc/hist_multi.cu",
            "hist_q": "xgboost_tpu_torch/csrc/hist_q.cu",
            "split_scan": "xgboost_tpu_torch/csrc/split_scan.cu",
            "sigmoid": "xgboost_tpu_torch/csrc/sigmoid.cu",
@@ -83,10 +95,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 EXTRA_FLAGS = {"split_scan": ["--fmad=false"], "sigmoid": ["--fmad=false"],
                "lambdarank": ["--fmad=false"]}
 
-# kernel launches per kernel since the last reset_launches(); K1's class
-# axis is an entry of K1's library counted under its own name
+# kernel launches per kernel since the last reset_launches()
 launches = {name: 0 for name in SOURCES}
-launches["hist_f32_multi"] = 0
 
 _BIN_CODES = {torch.uint8: 0, torch.int16: 1, torch.int32: 2}
 # shared memory one block may use for its histogram; 227 KB is the H100's
@@ -102,9 +112,10 @@ _vp, _ci = ctypes.c_void_p, ctypes.c_int
 # C signatures of each kernel library's entry points {name: argtypes}
 _ENTRY = {
     "hist_f32": {"xtb_hist_f32": [_vp, _ci, _vp, _vp, _vp] + [_ci] * 12
-                 + [_vp],
-                 "xtb_hist_f32_multi": [_vp, _ci, _vp, _vp, _vp] + [_ci] * 7
-                 + [ctypes.c_longlong] * 2 + [_ci] * 7 + [_vp]},
+                 + [_vp]},
+    "hist_f32_multi": {"xtb_hist_f32_multi": [_vp, _ci] + [_vp] * 6
+                       + [_ci] * 8 + [ctypes.c_longlong] + [_ci] * 10
+                       + [_vp]},
     "hist_q": {"xtb_hist_q": [_vp, _ci, _vp, _vp, _vp] + [_ci] * 13
                + [_vp]},
     "split_scan": {"xtb_split_scan": [_vp] * 4 + [_ci] + [_vp] * 3 + [_ci]
@@ -342,19 +353,323 @@ def plan_f32(n_rows: int, n_features: int, n_nodes: int, n_bin: int,
                  "hist_f32")
 
 
+class MultiPlan(NamedTuple):
+    """The class axis's launch (csrc/hist_multi.cu): ``feat_group``
+    features a block, ``feats_per_warp`` to each of its feat_group /
+    feats_per_warp accumulating warps; one node a block (``node_tile``);
+    ``class_group`` classes a block (one where a pos per class is
+    bucketed); bin rows of ``cell_row`` words a
+    warp; items of ``cluster`` * ``rows_per_block`` steps of one node,
+    taken in turn by the ``row_blocks`` / ``cluster`` clusters of each
+    feature group; ``bucketed``: the (class, row) pairs are bucketed
+    by node first, else step s is row s of the level's one node;
+    ``k1_rows``, the rows of K1's block at the level, of which a bucketed
+    node takes its share."""
+    feat_group: int
+    node_tile: int
+    class_group: int
+    feats_per_warp: int
+    cell_row: int
+    rows_per_block: int
+    row_blocks: int
+    cluster: int
+    threads: int
+    bucketed: bool
+    k1_rows: int
+
+    @property
+    def units(self) -> int:
+        """The block's accumulating warps."""
+        return self.feat_group // self.feats_per_warp
+
+
+# a class-axis block: MULTI_THREADS threads, at most MULTI_MAX_UNITS
+# accumulating warps; the other 8 or more warps stage rows, each thread at
+# most MULTI_ROLES groups of 4 steps of a staged row
+MULTI_THREADS = 640
+MULTI_MAX_UNITS = 12
+MULTI_ROLES = 3
+
+
+def multi_chunk(shared_pos: bool, bucketed: bool) -> int:
+    """Steps a class-axis block stages at once: 64 where a block takes one
+    class of a pos per class (bucketed), else 128."""
+    return 64 if bucketed and not shared_pos else 128
+
+
+def multi_roles(units: int, class_group: int, feats_per_warp: int,
+                shared_pos: bool, bucketed: bool) -> int:
+    """Groups of 4 steps that a class-axis block stages a chunk: of its
+    classes' gradient rows (both channels a group), its features' bins
+    rows and, bucketed, the row ids."""
+    rows = class_group + units * feats_per_warp + (1 if bucketed else 0)
+    return multi_chunk(shared_pos, bucketed) // 4 * rows
+
+
+def multi_smem(units: int, n_bin: int, cell_row: int, class_group: int,
+               feats_per_warp: int, bin_bytes: int, shared_pos: bool,
+               bucketed: bool) -> int:
+    """Shared memory of a class-axis block, in bytes: the cells (units x
+    (n_bin + 1) x cell_row f32 words; bin row n_bin takes the adds of
+    missing bins), two staging buffers (a gradient row a class and
+    channel, a bins row a feature) and two slots of staged row ids
+    (csrc/hist_multi.cu: layout)."""
+    chunk = multi_chunk(shared_pos, bucketed)
+    cells = -(-units * (n_bin + 1) * cell_row * 4 // 16) * 16
+    bin_pitch = chunk * bin_bytes + 16
+    buf = (2 * class_group * (chunk + 4) * 4
+           + units * feats_per_warp * bin_pitch)
+    return cells + 2 * buf + 2 * chunk * 4
+
+
 def plan_f32_multi(n_rows: int, n_features: int, n_nodes: int, n_bin: int,
                    n_classes: int,
                    max_clusters: Callable[[bool, int, int], int],
-                   stride: int = 1) -> Plan:
-    """K1's class axis: ``plan_f32``'s plan for one class, whatever
-    ``n_classes``.  Each class gets the row blocks K1 gives one histogram,
-    so every f32 cell adds the rows it adds in K1 and rounds as much; the
-    launch is ``n_classes`` times K1's blocks, in as many waves.  (Sharing
-    one wave among the K classes' columns cuts a class's row blocks K-fold,
-    and a cell's error grew up to 20-fold at a Covertype round's levels
-    2-5, where most rows sit in one node.)"""
-    return _plan(n_rows, n_features, n_nodes, n_bin, 2, max_clusters, stride,
-                 "hist_f32")
+                   stride: int = 1, k1_clusters=None, *,
+                   shared_pos: bool = False,
+                   bin_bytes: int = 2) -> MultiPlan:
+    """The class axis's launch.  Classes: one a block where a pos per
+    class is bucketed (the classes' rows differ there, so a block of
+    several would stage each class's rows apart, which took longer over a
+    lockstep round's levels, PERF.md §6); else groups of at most 16 (a
+    warp's lanes), as even as they go.  A
+    warp owns feats_per_warp = 32 // (2 KG) features of KG classes and
+    both channels, in bin rows of 32 words (so its lanes never share a
+    bank); where one such warp's cells do not fit, one feature a warp in
+    rows of the next power of two above 2 KG, with fewer classes a group
+    if even that does not fit.  As many warps a block (at most
+    MULTI_MAX_UNITS) as fit the budget K1's histogram has beside its row
+    lists (so K1's occupancy query also answers for this kernel), even
+    over the feature groups, and no more than leave MULTI_ROLES groups
+    of a chunk to each staging thread.  Bucketed where the level skips
+    rows (``stride`` > 1 or more than one node), one node a block; the
+    root walks all the rows, each read once for every class, as K1
+    does.  The
+    cluster size as ``_plan`` picks it, from ``max_clusters(bucketed,
+    smem, C)``; as many clusters per feature group as one wave holds,
+    taking the items of every class group in turn (so a class whose level
+    holds more rows gets more clusters).  Rows a block an item: at most
+    the rows K1's plan gives a block at this level (``plan_f32`` with
+    ``k1_clusters``, default ``max_clusters``): unbucketed, fewer where
+    that gives each cluster one item; bucketed, a node's share of them
+    (``class_axis_item_rows``: K1's block sums a node's rows among all
+    the others'), so a cell sums no more rows in one block than K1's and
+    rounds as much, and no more than about four items a cluster would
+    take were one node to hold every row; never fewer than four staged
+    chunks."""
+    k1 = plan_f32(n_rows, n_features, n_nodes, n_bin,
+                  k1_clusters or max_clusters, stride)
+    k1_rows = -(-n_rows // k1.row_blocks)
+    bucketed = stride > 1 or n_nodes > 1
+    budget = SMEM_BUDGET - STAGE_BYTES
+
+    def smem(units, kg, per_warp, row):
+        roles = multi_roles(units, kg, per_warp, shared_pos, bucketed)
+        if roles > MULTI_ROLES * (MULTI_THREADS - 32 * units):
+            return budget + 1  # more than the staging threads hold
+        return multi_smem(units, n_bin, row, kg, per_warp, bin_bytes,
+                          shared_pos, bucketed)
+
+    n_cg = (n_classes if bucketed and not shared_pos
+            else -(-n_classes // min(n_classes, 16)))
+    kg = -(-n_classes // n_cg)
+    per_warp, row = 32 // (2 * kg), 32
+    if smem(1, kg, per_warp, row) > budget:
+        per_warp = 1
+        while True:
+            row = 1 << (2 * kg - 1).bit_length()
+            if smem(1, kg, 1, row) <= budget:
+                break
+            if kg == 1:
+                raise ValueError(
+                    f"one class's histogram of one feature ({n_bin} bins) "
+                    f"does not fit {budget} B of shared memory")
+            n_cg = -(-n_classes // (kg - 1))
+            kg = -(-n_classes // n_cg)
+    max_units = 1
+    while max_units < MULTI_MAX_UNITS \
+            and smem(max_units + 1, kg, per_warp, row) <= budget:
+        max_units += 1
+    n_units = -(-n_features // per_warp)
+    n_fg = -(-n_units // max_units)
+    units = -(-n_units // n_fg)
+    need = smem(units, kg, per_warp, row)
+    wave = {c: c * max_clusters(bucketed, need, c) for c in CLUSTERS}
+    if not any(wave.values()):
+        raise ValueError(f"the card holds no block of hist_f32_multi with "
+                         f"{need} B of shared memory")
+    cluster = max(wave, key=lambda c: (wave[c], c))
+    n_q = max(1, wave[cluster] // cluster // n_fg)
+    floor = 4 * multi_chunk(shared_pos, bucketed)
+    # unbucketed, one item a cluster; bucketed, at most about four a
+    # cluster were one node to hold every row (each node takes its share
+    # of K1's block below that)
+    rows = -(-n_cg * n_rows // ((4 if bucketed else 1) * cluster * n_q))
+    rows = min(k1_rows, max(floor, rows))
+    if not bucketed:
+        n_q = min(n_q, n_cg * -(-n_rows // (cluster * rows)))
+    return MultiPlan(units * per_warp, 1, kg, per_warp, row, rows,
+                     cluster * n_q, cluster, MULTI_THREADS, bucketed, k1_rows)
+
+
+def class_axis_item_rows(plan: MultiPlan, count: int, n_rows: int,
+                         shared_pos: bool = False) -> int:
+    """Rows a class-axis block sums in one item of a node whose list holds
+    ``count`` rows: unbucketed, rows_per_block; bucketed, the node's share
+    of K1's block (k1_rows of the n_rows rows, count * k1_rows / n_rows of
+    them in the node), at least four staged chunks and at most
+    rows_per_block (csrc/hist_multi.cu: item_rows)."""
+    if not plan.bucketed:
+        return plan.rows_per_block
+    share = -(-count * plan.k1_rows // n_rows)
+    floor = 4 * multi_chunk(shared_pos, True)
+    return min(plan.rows_per_block, max(floor, share))
+
+
+def class_axis_lanes(plan: MultiPlan):
+    """Lane l of an accumulating warp -> (feature of the warp's
+    feats_per_warp, class of the group, channel) whose cells, every bin,
+    it owns, or None for an idle lane: lane = feature * 2 KG + 2 class +
+    channel (csrc/hist_multi.cu)."""
+    lanes = 2 * plan.class_group
+    out = []
+    for lane in range(32):
+        fsub, kc = divmod(lane, lanes)
+        out.append((fsub, kc >> 1, kc & 1)
+                   if fsub < plan.feats_per_warp else None)
+    return out
+
+
+def multi_scratch(n_rows: int, n_nodes: int, n_classes: int,
+                  class_group: int, shared_pos: bool) -> int:
+    """int32 words of a bucketed call's scratch: counts, starts and
+    cursors a (list, node), the items prefix over the (class group, node)
+    pairs and its total, and the lists, one a class or one shared
+    (csrc/hist_multi.cu)."""
+    n_lists = 1 if shared_pos else n_classes
+    n_cg = -(-n_classes // class_group)
+    return 3 * n_lists * n_nodes + n_cg * n_nodes + 1 + n_lists * n_rows
+
+
+def multi_partial(plan: MultiPlan, n_features: int, n_classes: int,
+                  n_bin: int) -> int:
+    """f64 words of a call's partial sums: each block's share of its
+    cluster's flush (a 1/cluster of its units * n_bin bin rows of
+    cell_row words), kept over the items of one node and added to the
+    output once (csrc/hist_multi.cu)."""
+    blocks = -(-n_features // plan.feat_group) * plan.row_blocks
+    return blocks * (-(-plan.units * n_bin // plan.cluster) * plan.cell_row)
+
+
+def bucket_level(pos, *, node0: int, n_nodes: int, stride: int = 1):
+    """The count, scan and scatter of a bucketed call, on (L, R) pos (a
+    list a class, or one (1, R) shared): counts (L, N), the rows of list l
+    in the level's node t; starts (L, N), where they begin in the flat
+    (L * R,) ``rows`` (l * R plus the rows of l in earlier nodes); rows,
+    each list's rows node by node (ascending here; the card's warps
+    scatter in no fixed order within a node), -1 past its level's
+    rows."""
+    L, R = pos.shape
+    local = pos.long() - node0
+    ok = (local >= 0) & (local % stride == 0) & (local // stride < n_nodes)
+    node = torch.where(ok, local // stride, n_nodes)  # n_nodes: outside
+    counts = torch.zeros((L, n_nodes + 1), dtype=torch.int64,
+                         device=pos.device)
+    counts.scatter_add_(1, node, torch.ones_like(node))
+    counts = counts[:, :n_nodes]
+    starts = (torch.cumsum(counts, 1) - counts
+              + torch.arange(L, device=pos.device)[:, None] * R)
+    order = torch.sort(node, dim=1, stable=True).indices
+    rows = torch.where(torch.arange(R, device=pos.device)[None]
+                       < counts.sum(1, keepdim=True), order, -1)
+    return counts, starts, rows.reshape(-1)
+
+
+def class_axis_items(counts, plan: MultiPlan, n_classes: int, n_rows: int,
+                     shared_pos: bool = False):
+    """(n_cgroups * N + 1,): the items of the (class group, node) pairs
+    before (g, t) at g * N + t, their total last; a pair's items cover its
+    list (the shared one, or class g's, one class a group) in spans of
+    cluster * ``class_axis_item_rows`` steps (the scan of
+    csrc/hist_multi.cu)."""
+    L, N = counts.shape
+    n = []
+    for g in range(-(-n_classes // plan.class_group)):
+        for t in range(N):
+            count = int(counts[0 if L == 1 else g, t])
+            span = plan.cluster * class_axis_item_rows(plan, count, n_rows,
+                                                       shared_pos)
+            n.append(-(-count // span))
+    return torch.cumsum(torch.tensor([0] + n), 0)
+
+
+def class_axis_model(bins, gpair, pos, plan: MultiPlan, *, node0: int,
+                     n_nodes: int, n_bin: int, stride: int = 1,
+                     shared_pos: bool = False):
+    """K1's class axis as csrc/hist_multi.cu computes it, in PyTorch: for
+    every feature group and each item of the one queue its clusters take
+    (a class group and, bucketed, a node), each rank's rows of every class
+    of the group (bucketed: its list's steps in the item's node, that
+    node's ``class_axis_item_rows`` a rank; else the rows of the item
+    flagged in the node), summed with the plain histogram, then each
+    lane's (feature, class, channel) cells added to the output as the
+    flush does.  Returns the lockstep (K, N, F, B, 2) layout, or (N, F,
+    B, K, 2) with ``shared_pos``."""
+    R, F = bins.shape
+    K = gpair.shape[1]
+    pk = pos.reshape(1, R) if shared_pos else pos
+    out = torch.zeros((K, n_nodes, F, n_bin, 2), dtype=torch.float32)
+    C, KG, P = plan.cluster, plan.class_group, plan.feats_per_warp
+    n_cg = -(-K // KG)
+    per_g = -(-R // (C * plan.rows_per_block))
+    lanes = [(u, lane, own) for u in range(plan.units)
+             for lane, own in enumerate(class_axis_lanes(plan))
+             if own is not None]
+    if plan.bucketed:
+        counts, starts, rows = bucket_level(pk, node0=node0, n_nodes=n_nodes,
+                                            stride=stride)
+        items = class_axis_items(counts, plan, K, R, shared_pos)
+    n_items = int(items[-1]) if plan.bucketed else n_cg * per_g
+    for x in range(-(-F // plan.feat_group)):
+        f0 = x * plan.feat_group
+        feats = torch.arange(f0, min(F, f0 + plan.feat_group))
+        for item in range(n_items):  # cluster item % n_q takes it
+            if plan.bucketed:
+                ft = int(torch.searchsorted(items, item, right=True)) - 1
+                z, t = divmod(ft, n_nodes)
+                j = item - int(items[ft])
+                step = class_axis_item_rows(
+                    plan, int(counts[0 if shared_pos else z, t]), R,
+                    shared_pos)
+            else:
+                (z, j), t = divmod(item, per_g), 0
+                step = plan.rows_per_block
+            k0, kg = z * KG, min(KG, K - z * KG)
+            for rank in range(C):
+                s0 = (j * C + rank) * step
+                s1 = s0 + step
+                block = torch.zeros((kg, len(feats), n_bin, 2))
+                for kk in range(kg):
+                    k = k0 + kk
+                    if plan.bucketed:
+                        l = 0 if shared_pos else k
+                        n = int(counts[l, t])
+                        at = int(starts[l, t])
+                        walk = rows[at + min(s0, n):at + min(s1, n)]
+                        in_node = torch.ones_like(walk, dtype=torch.bool)
+                    else:
+                        walk = torch.arange(min(s0, R), min(s1, R))
+                        in_node = pk[0 if shared_pos else k][walk] == node0
+                    walk = walk[in_node]
+                    block[kk] = build_histogram_plain(
+                        bins[walk][:, feats], gpair[walk, k],
+                        torch.zeros(len(walk), dtype=torch.int32),
+                        node0=0, n_nodes=1, n_bin=n_bin)[0]
+                for u, _, (fsub, kk, ch) in lanes:
+                    f = u * P + fsub
+                    if kk < kg and f < len(feats):
+                        out[k0 + kk, t, f0 + f, :, ch] += block[kk, f, :, ch]
+    return out.permute(1, 2, 3, 0, 4) if shared_pos else out
 
 
 def plan_q(n_rows: int, n_features: int, n_nodes: int, n_bin: int,
@@ -373,7 +688,8 @@ def slice_units(n_units: int, cluster: int, rank: int) -> range:
     return range(rank * n_units // cluster, (rank + 1) * n_units // cluster)
 
 
-def card_max_clusters(device, bin_dtype, kernel: str = "hist_f32"
+def card_max_clusters(device, bin_dtype, kernel: str = "hist_f32",
+                      threads: int = THREADS
                       ) -> Callable[[bool, int, int], int]:
     """``max_clusters`` for ``plan_f32`` (or, with ``kernel="hist_q"``,
     ``plan_q``) on ``device``: the CUDA runtime's
@@ -385,11 +701,11 @@ def card_max_clusters(device, bin_dtype, kernel: str = "hist_f32"
     fn = getattr(lib, f"xtb_{kernel}_max_clusters")
 
     def query(staged: bool, smem: int, cluster: int) -> int:
-        key = (kernel, str(device), code, staged, THREADS, smem, cluster)
+        key = (kernel, str(device), code, staged, threads, smem, cluster)
         if key not in _clusters:
             n = _ci(0)
             with torch.cuda.device(device):
-                rc = fn(code, smem, cluster, THREADS, int(staged),
+                rc = fn(code, smem, cluster, threads, int(staged),
                         ctypes.byref(n))
             if rc != 0:
                 raise RuntimeError(
@@ -444,15 +760,16 @@ def build_histogram_cuda(bins, gpair, pos, *, node0: int, n_nodes: int,
                    node0=node0, n_nodes=n_nodes, n_bin=n_bin, stride=stride)
 
 
-def run_f32_multi(bins, gpair, pos, plan: Plan, *, node0: int, n_nodes: int,
-                  n_bin: int, stride: int = 1, shared_pos: bool = False):
+def run_f32_multi(bins, gpair, pos, plan: MultiPlan, *, node0: int,
+                  n_nodes: int, n_bin: int, stride: int = 1,
+                  shared_pos: bool = False):
     """Launch K1's class axis with ``plan``: K histograms from gpair
-    (R, K, 2) f32 in one launch on the inputs' card.  ``pos`` (K, R)
+    (R, K, 2) f32 in one call on the inputs' card.  ``pos`` (K, R)
     int32, class k's rows at pos[k] (the lockstep grower), gives hist
     (K, n_nodes, F, n_bin, 2); with ``shared_pos`` one (R,) pos routes
     every class (a vector-leaf tree's targets) and hist is (n_nodes, F,
-    n_bin, K, 2), written in that layout by the kernel.  A launch the card
-    refuses raises."""
+    n_bin, K, 2), written in that layout by the kernel.  A plan or launch
+    the card refuses raises."""
     if gpair.dim() != 3 or gpair.shape[-1] != 2:
         raise ValueError(f"gpair must be (R, K, 2) f32, got "
                          f"{tuple(gpair.shape)}")
@@ -468,33 +785,66 @@ def run_f32_multi(bins, gpair, pos, plan: Plan, *, node0: int, n_nodes: int,
                stride)
         if not pos.is_contiguous():
             raise ValueError("bins, gradients and pos must be contiguous")
+    if not plan.bucketed and (n_nodes != 1 or stride != 1):
+        raise ValueError("an unbucketed class-axis plan takes one node at "
+                         "stride 1")
+    if plan.bucketed and not shared_pos and plan.class_group != 1:
+        raise ValueError("a bucketed class-axis plan with a pos per class "
+                         "takes one class a block")
     F = bins.shape[1]
     cells = n_nodes * F * n_bin
     if shared_pos:
-        out = torch.zeros((n_nodes, F, n_bin, K, 2), dtype=torch.float32,
-                          device=bins.device)
-        pos_stride, out_class, out_cell = 0, 2, 2 * K
+        shape, out_class, out_cell = (n_nodes, F, n_bin, K, 2), 2, 2 * K
     else:
-        out = torch.zeros((K, n_nodes, F, n_bin, 2), dtype=torch.float32,
-                          device=bins.device)
-        pos_stride, out_class, out_cell = R, 2 * cells, 2
+        shape, out_class, out_cell = (K, n_nodes, F, n_bin, 2), 2 * cells, 2
     if R == 0 or F == 0:
-        return out
-    lib = load_library("hist_f32")
+        return torch.zeros(shape, dtype=torch.float32, device=bins.device)
+    # the kernel writes every cell of `out`, rounding the f64 sums `acc`
+    out = torch.empty(shape, dtype=torch.float32, device=bins.device)
+    acc = torch.zeros(shape, dtype=torch.float64, device=bins.device)
+    scratch = torch.empty(
+        multi_scratch(R, n_nodes, K, plan.class_group, shared_pos)
+        if plan.bucketed else 0, dtype=torch.int32, device=bins.device)
+    partial = torch.empty(multi_partial(plan, F, K, n_bin),
+                          dtype=torch.float64, device=bins.device)
+    lib = load_library("hist_f32_multi")
     rc = on_device(
         bins.device, lib.xtb_hist_f32_multi, bins.data_ptr(),
         _BIN_CODES[bins.dtype], gpair.data_ptr(), pos.data_ptr(),
-        out.data_ptr(), R, F, n_bin, node0, n_nodes, stride, K, pos_stride,
-        out_class, out_cell, plan.feat_group, plan.node_tile,
-        plan.row_blocks, plan.cluster, plan.threads, int(plan.staged))
+        out.data_ptr(), acc.data_ptr(), scratch.data_ptr(),
+        partial.data_ptr(), R, F,
+        n_bin, node0, n_nodes,
+        stride, K, int(shared_pos), out_class, out_cell, plan.units,
+        plan.class_group, plan.feats_per_warp, plan.cell_row,
+        plan.rows_per_block, plan.k1_rows, plan.row_blocks, plan.cluster,
+        int(plan.bucketed))
     launched("hist_f32_multi", lib, rc)
     return out
+
+
+def planned_multi(bins, n_classes: int, n_nodes: int, n_bin: int,
+                  stride: int, shared_pos: bool) -> MultiPlan:
+    """The class axis's launch for these inputs, planned from the card's
+    occupancy of it and of K1 once per (card, bin type, shapes, level)
+    and cached."""
+    R, F = bins.shape
+    key = ("hist_f32_multi", str(bins.device), bins.dtype, R, F, n_classes,
+           n_nodes, n_bin, stride, shared_pos)
+    if key not in _plans:
+        _plans[key] = plan_f32_multi(
+            R, F, n_nodes, n_bin, n_classes,
+            card_max_clusters(bins.device, bins.dtype, "hist_f32_multi",
+                              MULTI_THREADS),
+            stride, card_max_clusters(bins.device, bins.dtype),
+            shared_pos=shared_pos, bin_bytes=bins.element_size())
+    return _plans[key]
 
 
 def _multi_cuda(bins, gpair, pos, node0, n_nodes, n_bin, stride, shared):
     if not bins.is_cuda:
         raise ValueError("the histogram kernels need CUDA tensors")
-    plan = _planned("hist_f32", bins, n_nodes, n_bin, stride, 2)
+    plan = planned_multi(bins, gpair.shape[1], n_nodes, n_bin, stride,
+                         shared)
     return run_f32_multi(bins, gpair, pos, plan, node0=node0,
                          n_nodes=n_nodes, n_bin=n_bin, stride=stride,
                          shared_pos=shared)
