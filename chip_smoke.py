@@ -181,11 +181,16 @@ holds each CUDA kernel against its plain PyTorch version:
      grad and hess, at the MSLR shape (31,531 queries of 40-199 docs),
      two queries of 20,000 docs, queries of one and two docs, tied scores,
      all scores equal (the first round), k above the query size, each
-     normalisation off and the pairwise weights; utils/libm's expf, exp2f
-     and log2f on the card against the same code on the CPU, bitwise, over
-     2^24 sampled inputs; timings of the kernel (per call with the
-     wrapper's sorts, device time a launch), the plain version and the
-     bound from the pairs these inputs need
+     normalisation off, the pairwise weights, NaN scores, scores all +0.0
+     or -0.0, queries at K5's shared-memory cap and a doc above it, both
+     kinds in one launch, and k = 1, each on the path it must take (the
+     sorts in the kernel where every query fits the cap, else the
+     wrapper's); ptxas's registers and K5's shared memory and blocks an
+     SM; utils/libm's expf, exp2f and log2f on the card against the same
+     code on the CPU, bitwise, over 2^24 sampled inputs; timings of the
+     kernel (per call with whatever the wrapper does, device time a
+     launch and a call), the plain version and the bound from the pairs
+     these inputs need
   15. learning to rank at full width, MSLR-shaped (scripts/bench_ladder.py:
      91-94, 136-143): 31,531 queries, about 3.77M x 136 (2% NaN), graded
      0-4, rank:ndcg, depth 8, eta 0.3, max_bin 256, 5 rounds, ndcg@10:
@@ -2225,22 +2230,24 @@ def _class_case(hist_cuda, bins, gpair, pos, shared, *, node0, n_nodes,
                 plan=plan)
 
 
-def _ptxas_report(hist_cuda, name):
+def _ptxas_report(hist_cuda, name, phase="2f"):
     """ptxas's registers, spills and shared memory of each kernel of
-    ``name``'s source (nvcc -Xptxas -v, a cubin in the build directory)."""
+    ``name``'s source (nvcc -Xptxas -v with the library's own flags, a
+    cubin in the build directory)."""
     src = hist_cuda._src_path(name)
     out = os.path.join(hist_cuda._BUILD_DIR, f"ptxas_{name}.cubin")
     os.makedirs(hist_cuda._BUILD_DIR, exist_ok=True)
     r = subprocess.run(
         [hist_cuda._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-         "-std=c++17", "-O3", "-Xptxas", "-v", "-cubin", "-o", out, src],
+         "-std=c++17", "-O3", *hist_cuda.EXTRA_FLAGS.get(name, []),
+         "-Xptxas", "-v", "-cubin", "-o", out, src],
         capture_output=True, text=True, check=True)
     kernel = None
     for line in r.stderr.splitlines():
         if "Compiling entry function" in line:
             kernel = line.split("'")[1]
         elif "Used" in line or "spill" in line:
-            log(f"phase 2f ptxas {os.path.basename(src)} {kernel}: "
+            log(f"phase {phase} ptxas {os.path.basename(src)} {kernel}: "
                 f"{line.split(':', 1)[-1].strip()}")
     os.unlink(out)
 
@@ -2984,19 +2991,88 @@ def _p2g_cases():
         ("no_score_norm", mslr[:4000], "normal", 32, True, False, True),
         ("no_group_norm", mslr[:4000], "normal", 32, True, True, False),
         ("pairwise", mslr[:4000], "normal", 32, False, True, True),
+        ("nan_scores", mslr[:4000], "nan", 32, True, True, True),
+        ("signed_zero", mslr[:4000], "signed_zero", 32, True, True, True),
+        ("at_cap", np.tile([256, 199, 40], 400), "normal", 32, True, True,
+         True),
+        ("above_cap", np.tile([257, 120], 200), "normal", 32, True, True,
+         True),
+        ("mixed", np.concatenate([mslr[:2000], [300], mslr[2000:4000]]),
+         "normal", 32, True, True, True),
+        ("k_1", mslr[:4000], "normal", 1, True, True, True),
     ]
+
+
+def _k5_plan(hist_cuda, layout):
+    """K5's launch for ``layout``: (bundles, the most docs of a bundle,
+    large groups, dynamic shared memory bytes, blocks an SM, query groups
+    resident an SM at the mean bundle)."""
+    t = layout.kernel_tables
+    lib = hist_cuda.load_library("lambdarank")
+    nbytes, blocks = ctypes.c_int(0), ctypes.c_int(0)
+    rc = lib.xtb_lambdarank_plan(t.bundle_docs, t.max_n, t.n_bundles,
+                                 t.n_big, ctypes.byref(nbytes),
+                                 ctypes.byref(blocks))
+    if rc != 0:
+        raise RuntimeError("phase 2g: K5's occupancy query failed: "
+                           + lib.xtb_cuda_error_string(rc).decode())
+    per = len(t.bgroups) / max(t.n_bundles, 1)
+    return (t.n_bundles, t.bundle_docs, t.n_big, nbytes.value,
+            blocks.value, blocks.value * per)
+
+
+def k5_device_ms(fn, reps: int = 5):
+    """torch.profiler over ``reps`` calls of ``fn``, each one K5 launch:
+    (device ms a call, K5's device ms a launch, {kernel: launches a
+    call}), both over the K5 launches the profiler saw (it may miss a
+    call's events); (None, None, {}) where it saw no K5 launch in three
+    tries (not measured)."""
+    from torch.profiler import DeviceType, ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total = k5_us = 0.0
+        k5_n = 0
+        kernels: dict = {}
+        for r in prof.key_averages():
+            if r.device_type != DeviceType.CUDA:
+                continue
+            t = getattr(r, "self_device_time_total", None)
+            us = r.self_cuda_time_total if t is None else t
+            total += us
+            kernels[r.key[:60]] = kernels.get(r.key[:60], 0) + r.count
+            if "lambdarank" in r.key:
+                k5_us += us
+                k5_n += r.count
+        if k5_n:
+            return (total / 1e3 / k5_n, k5_us / 1e3 / k5_n,
+                    {k: round(n / k5_n, 2) for k, n in kernels.items()})
+    return None, None, {}
 
 
 def phase_lambdarank(hist_cuda):
     """K5 (csrc/lambdarank.cu) against lambdarank_topk_plain on the card,
     bitwise in grad and hess, at the MSLR shape and the other cases of
-    _p2g_cases; utils/libm's expf, exp2f and log2f on the card against the
-    same code on the CPU, bitwise, over 2^24 sampled inputs.  Timings of
-    the kernel (per call and device time a launch, the wrapper's sorts
-    included in the per-call time) and the plain version, and the bound."""
+    _p2g_cases, each one launch on the path it must take (the sorts in the
+    kernel where every group fits K5's cap, else the wrapper's); ptxas's
+    report and K5's launch (bundles, shared memory, blocks and groups an
+    SM); utils/libm's expf, exp2f and log2f on the card against the same
+    code on the CPU, bitwise, over 2^24 sampled inputs.  Timings of the
+    kernel (CUDA events a call, whatever the wrapper does included; device
+    time a call and K5's a launch) and the plain version, and the
+    bound."""
+    from xgboost_tpu_torch.ops import lambdarank_cuda as lr
     from xgboost_tpu_torch.ops.lambdarank_cuda import (
         GroupLayout, lambdarank_topk_cuda, lambdarank_topk_plain)
     from xgboost_tpu_torch.utils import libm
+
+    _ptxas_report(hist_cuda, "lambdarank", "2g")
 
     rng = np.random.default_rng(21)
     bits = rng.integers(0, 2**32, LIBM_SAMPLE, dtype=np.uint64).astype(
@@ -3021,11 +3097,26 @@ def phase_lambdarank(hist_cuda):
             s[::7] = -0.0
         elif scores == "zero":
             s[:] = 0.0
+        elif scores == "nan":
+            s[::11] = np.nan
+        elif scores == "signed_zero":
+            s = np.where(rng.random(R) < 0.5, -0.0, 0.0).astype(np.float32)
         y = rng.integers(0, 5, R).astype(np.float32)
         s_card, y_card = torch.from_numpy(s).cuda(), torch.from_numpy(y).cuda()
         layout = GroupLayout(gp, "cuda")
         args = (layout, k, nd, sn, gn)
+        in_kernel = int(max(sizes)) <= lr.CAP
+        before = hist_cuda.launches["lambdarank"]
         got = lambdarank_topk_cuda(s_card, y_card, *args)
+        launched = hist_cuda.launches["lambdarank"] - before
+        if launched != 1 or layout.sorts_in_kernel != in_kernel:
+            raise AssertionError(
+                f"phase 2g {name}: {launched} launch(es), sorts in the "
+                f"{'kernel' if layout.sorts_in_kernel else 'wrapper'}, "
+                f"want one launch sorting in the "
+                f"{'kernel' if in_kernel else 'wrapper'}")
+        bundles, bdocs, n_big, smem, blocks, resident = _k5_plan(
+            hist_cuda, layout)
         t0 = time.perf_counter()
         want = lambdarank_topk_plain(s_card, y_card, *args)
         torch.cuda.synchronize()
@@ -3033,15 +3124,21 @@ def phase_lambdarank(hist_cuda):
         bitwise = _same_bits(got.cpu(), want.cpu())
         pairs, nbytes, bound_ms, bound_by = _lambdarank_work(
             s_card, y_card, layout, k)
+        call_ms, launch_ms, call_kernels = k5_device_ms(
+            lambda: lambdarank_topk_cuda(s_card, y_card, *args))
+        diff = (got - want).abs()
         case = dict(case=name, groups=len(sizes), rows=int(gp[-1]),
                     largest=int(max(sizes)), k=k, ndcg_weight=nd,
                     score_norm=sn, group_norm=gn, pairs=pairs,
-                    bitwise=bitwise,
-                    max_abs_err=float((got - want).abs().max()),
+                    bitwise=bitwise, sorts="kernel" if in_kernel
+                    else "wrapper", bundles=bundles, bundle_docs=bdocs,
+                    large_groups=n_big, smem_bytes=smem,
+                    blocks_per_sm=blocks, groups_per_sm=resident,
+                    max_abs_err=float(diff[~torch.isnan(diff)].max()),
                     kernel_ms=cuda_ms(lambda: lambdarank_topk_cuda(
                         s_card, y_card, *args), reps=10),
-                    device_ms=device_per_call(lambda: lambdarank_topk_cuda(
-                        s_card, y_card, *args), reps=5)[0],
+                    device_ms=call_ms, launch_ms=launch_ms,
+                    call_kernels=call_kernels,
                     plain_ms=plain_ms, bytes=nbytes, bound_ms=bound_ms,
                     bound_by=bound_by, library_ms=None)
         log("phase 2g kernel vs plain: " + json.dumps(case))

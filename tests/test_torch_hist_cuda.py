@@ -26,10 +26,12 @@ K4 (csrc/sigmoid.cu) held against its plain versions bitwise over the f32
 range and its edges: the sigmoid, and the binary:logistic gradient pairs
 with and without weights and scale_pos_weight.  K5 (csrc/lambdarank.cu)
 held against its plain version bitwise at MSLR-like queries, queries of
-thousands of docs and of one or two, tied and equal scores, k above the
-query size and each normalisation off; utils/libm's functions on the
-card the CPU's bits; ranking training on the card writing the CPU's
-model JSON.  Multiclass, forest and
+thousands of docs and of one or two, tied, equal, NaN and signed-zero
+scores, queries at and a doc above its shared-memory cap and both in
+one launch, k above the query size, k = 1 and each normalisation off,
+with the path (sorts in the kernel or in the wrapper) each took;
+utils/libm's functions on the card the CPU's bits; ranking training on
+the card writing the CPU's model JSON.  Multiclass, forest and
 CSR training on the card writing the CPU's model JSON, with the kernels'
 launches a level of each tree counted.  Every
 test here needs a CUDA device and skips without one; the file imports
@@ -1079,38 +1081,89 @@ K5_CASES = [
     ("no_score_norm", [40, 70] * 20, "normal", 32, True, False, True),
     ("no_group_norm", [40, 70] * 20, "normal", 32, True, True, False),
     ("pairwise", [40, 70, 2] * 20, "normal", 32, False, True, True),
+    ("nan_scores", [40, 199, 77, 120] * 10, "nan", 32, True, True, True),
+    ("signed_zero", [60, 45, 80] * 20, "signed_zero", 32, True, True, True),
+    ("at_cap", [256, 40, 256, 120] * 5, "normal", 32, True, True, True),
+    ("above_cap", [257, 40] * 5, "normal", 32, True, True, True),
+    ("mixed", [40, 199, 77] * 10 + [300] + [120, 60] * 10, "normal", 32,
+     True, True, True),
+    ("k_1", [40, 199, 77, 120, 163, 58, 91, 40] * 10, "normal", 1, True,
+     True, True),
 ]
+
+
+def _k5_scores(kind, R, rng):
+    s = rng.normal(size=R).astype(np.float32)
+    if kind == "tied":
+        s = np.round(2 * s).astype(np.float32)
+        s[::7] = -0.0
+    elif kind == "zero":
+        s[:] = 0.0
+    elif kind == "nan":
+        s[::11] = np.nan
+    elif kind == "signed_zero":  # every score +0.0 or -0.0: one tie a group
+        s = np.where(rng.random(R) < 0.5, -0.0, 0.0).astype(np.float32)
+    return s
 
 
 @needs_cuda
 @pytest.mark.parametrize("case", K5_CASES, ids=[c[0] for c in K5_CASES])
 def test_lambdarank_kernel_is_its_plain_version(case):
     """K5 (csrc/lambdarank.cu) bitwise its plain version, rows past the
-    last group (0, 0), one launch counted."""
-    from xgboost_tpu_torch.ops.lambdarank_cuda import (
-        GroupLayout, lambdarank_topk, lambdarank_topk_plain)
+    last group (0, 0), one launch counted, the sorts in the kernel exactly
+    where every group fits a bundle (at most CAP docs).  With NaN scores
+    the plain version runs on the card too: NaNs made by arithmetic carry
+    the card's one NaN, the CPU's others."""
+    from xgboost_tpu_torch.ops import lambdarank_cuda as lr
 
     _, sizes, scores, k, nd, sn, gn = case
     rng = np.random.default_rng(len(sizes))
     gp = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int64)
     R = int(gp[-1]) + 37
-    s = rng.normal(size=R).astype(np.float32)
-    if scores == "tied":
-        s = np.round(2 * s).astype(np.float32)
-        s[::7] = -0.0
-    elif scores == "zero":
-        s[:] = 0.0
+    s = _k5_scores(scores, R, rng)
     y = rng.integers(0, 5, R).astype(np.float32)
-    layout = GroupLayout(gp, "cuda")
+    layout = lr.GroupLayout(gp, "cuda")
     s_card, y_card = torch.from_numpy(s).cuda(), torch.from_numpy(y).cuda()
     hist_cuda.reset_launches()
-    got = lambdarank_topk(s_card, y_card, layout, k, nd, sn, gn)
+    got = lr.lambdarank_topk(s_card, y_card, layout, k, nd, sn, gn)
     torch.cuda.synchronize()
     assert hist_cuda.launches["lambdarank"] == 1
-    want = lambdarank_topk_plain(torch.from_numpy(s), torch.from_numpy(y),
-                                 GroupLayout(gp, "cpu"), k, nd, sn, gn)
-    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+    assert layout.sorts_in_kernel == (max(sizes) <= lr.CAP)
+    want = lr.lambdarank_topk_plain(torch.from_numpy(s), torch.from_numpy(y),
+                                    lr.GroupLayout(gp, "cpu"), k, nd, sn, gn)
+    got = got.cpu()
+    if scores == "nan":
+        want_card = lr.lambdarank_topk_plain(s_card, y_card, layout, k, nd,
+                                             sn, gn).cpu()
+        assert torch.equal(got.view(torch.int32), want_card.view(torch.int32))
+        nan = torch.isnan(want)
+        assert nan.any() and torch.equal(torch.isnan(got), nan)
+        assert torch.equal(got[~nan].view(torch.int32),
+                           want[~nan].view(torch.int32))
+    else:
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
     assert not got[int(gp[-1]):].any()
+
+
+@needs_cuda
+@pytest.mark.parametrize("docs,groups,max_n", [
+    ("docs", 1, 40), (100, "groups", 40), (300, 1, "cap")])
+def test_lambdarank_entry_refuses_bundles_beyond_its_geometry(docs, groups,
+                                                              max_n):
+    """K5's bundles are the library's own (CAP, BUNDLE_DOCS,
+    BUNDLE_GROUPS), and its entry refuses, before any launch, a bundle of
+    more docs or more groups than a block takes, or a larger group."""
+    from xgboost_tpu_torch.ops import lambdarank_cuda as lr
+
+    lib = hist_cuda.load_library("lambdarank")
+    assert lr._geometry(lib) == (lr.CAP, lr.BUNDLE_DOCS, lr.BUNDLE_GROUPS)
+    docs = lr.BUNDLE_DOCS + 1 if docs == "docs" else docs
+    groups = lr.BUNDLE_GROUPS + 1 if groups == "groups" else groups
+    max_n = lr.CAP + 1 if max_n == "cap" else max_n
+    rc = lib.xtb_lambdarank(None, None, None, None, None, 1, docs, groups,
+                            max_n, None, 0, None, None, None, 0, None, 32,
+                            1, 1, 1, None, None)
+    assert rc == 1  # cudaErrorInvalidValue
 
 
 @needs_cuda

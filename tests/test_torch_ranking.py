@@ -3,8 +3,9 @@ inputs: query groups in DMatrix; glibc's expf/exp2f/log2f (utils/libm.py)
 bitwise against the C library on a sample with the special values; the
 top-k LambdaMART gradients bitwise against the reference's native kernel
 (its gate on, so that no other path is compared), at one group of many
-docs, groups of one and two docs, tied and equal scores, k above the
-group size and each normalisation off; the mean pair method bitwise
+docs, groups of one and two docs, tied, equal and signed-zero scores,
+a group at K5's shared-memory cap, k above the group size and each
+normalisation off; the mean pair method bitwise
 against the reference's XLA version over three rounds; ndcg, map and pre
 (@k, the '-' suffix, group and row weights) and aucpr with groups within
 1e-6 of the reference on both of its paths; deterministic models of the
@@ -30,7 +31,7 @@ from xgboost_tpu_torch.convert import _plain, booster_to_dict
 from xgboost_tpu_torch.objective import create_objective
 from xgboost_tpu_torch.objective.ranking import lambda_gradients_mean
 from xgboost_tpu_torch.ops import hist_cuda
-from xgboost_tpu_torch.ops.lambdarank_cuda import (GroupLayout,
+from xgboost_tpu_torch.ops.lambdarank_cuda import (CAP, GroupLayout,
                                                    lambdarank_topk,
                                                    make_group_layout)
 from xgboost_tpu_torch.utils import libm
@@ -166,6 +167,10 @@ TOPK_CASES = {
     "pairwise_weights": dict(sizes=[40, 70, 2], ndcg=False),
     "padded_rows": dict(sizes=[30, 20], pad=24),
     "real_labels": dict(sizes=[50, 60], labels="real"),
+    # every score +0.0 or -0.0: one tie across each group
+    "signed_zero": dict(sizes=[60, 45, 80], scores="signed_zero"),
+    # a group of exactly K5's cap, the largest its bundles take
+    "at_cap": dict(sizes=[CAP, 40, CAP - 1]),
 }
 
 
@@ -179,6 +184,8 @@ def _topk_inputs(sizes, scores="normal", labels="graded", pad=0, seed=0):
         s[::7] = -0.0
     elif scores == "zero":
         s[:] = 0.0
+    elif scores == "signed_zero":
+        s = np.where(rng.random(R) < 0.5, -0.0, 0.0).astype(np.float32)
     y = rng.integers(0, 5, R).astype(np.float32)
     if labels == "real":
         y = rng.uniform(0, 4, R).astype(np.float32)

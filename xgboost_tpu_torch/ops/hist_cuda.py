@@ -30,7 +30,8 @@ per-level gradient histograms on the card.
 - K5 ``lambdarank`` (csrc/lambdarank.cu; no Pallas kernel, it replaces the
   reference's native top-k LambdaMART kernel): the ranking objectives'
   gradient pairs with glibc's expf/exp2f/log2f and the native sum orders,
-  one launch a round; its wrapper is ops/lambdarank_cuda.py.
+  one launch a round, bundles of query groups sorted and held in shared
+  memory; its wrapper is ops/lambdarank_cuda.py.
 K3, K4 and K5 are built with ``--fmad=false`` so that nvcc fuses no
 multiply-add the reference does not.
 
@@ -124,8 +125,12 @@ _ENTRY = {
     "sigmoid": {"xtb_sigmoid": [_vp, _vp, ctypes.c_longlong, _vp],
                 "xtb_logistic_grad": [_vp, _vp, _vp, ctypes.c_float, _vp,
                                       ctypes.c_longlong, _vp]},
-    "lambdarank": {"xtb_lambdarank": [_vp] * 5 + [_ci, _vp] + [_ci] * 4
-                   + [_vp, ctypes.c_longlong, _vp, _vp]},
+    "lambdarank": {"xtb_lambdarank": [_vp] * 5 + [_ci] * 4 + [_vp, _ci]
+                   + [_vp] * 3 + [ctypes.c_longlong, _vp] + [_ci] * 4
+                   + [_vp, _vp],
+                   "xtb_lambdarank_plan": [_ci] * 4
+                   + [ctypes.POINTER(_ci)] * 2,
+                   "xtb_lambdarank_geometry": [ctypes.POINTER(_ci)] * 3},
 }
 _libs: dict = {}
 _lib_lock = threading.Lock()

@@ -17,14 +17,31 @@ launches K5, which computes the same bits in one launch a call.
 tensor to K5 (which raises if it cannot run).  Each launch is counted in
 ``hist_cuda.launches["lambdarank"]``.
 
-The per-group sorts come from PyTorch's stable sort of one int64 key a
-row: the group id above the order-preserving bits of the negated value,
-with -0.0 taken as +0.0 and NaN last, as the reference's comparator sees
-them (a radix sort on the card would put -0.0 first).
+K5 takes groups of up to ``CAP`` docs in bundles (``bundle_groups``,
+made once a layout as ``GroupLayout.kernel_tables``), a block a bundle
+with every row in shared memory, and sorts them itself.  Where every
+group fits (``GroupLayout.sorts_in_kernel``; MSLR-shaped sets always do)
+the wrapper sorts nothing and allocates nothing but the output.  A group
+above ``CAP`` docs takes a block of its own through global scratch rows,
+in the same launch, and the wrapper then sorts those groups' rows first
+(``sorted_order`` over them alone).  ``GroupLayout.sorts_in_kernel`` is
+the path a call takes: the wrapper chooses by it.  The bundles' geometry
+(``CAP``, ``BUNDLE_DOCS``, ``BUNDLE_GROUPS``) is the kernel's own: the
+wrapper checks it against the built library, and the kernel's entry
+refuses a bundle beyond it.
+
+The plain version's per-group sorts come from PyTorch's stable sort of
+one int64 key a row (``sorted_order``): the group id above the
+order-preserving bits of the negated value, with -0.0 taken as +0.0 and
+NaN last, as the reference's comparator sees them (a radix sort on the
+card would put -0.0 first).  K5 ranks each group's docs by the same key,
+with ties by row.
 """
 from __future__ import annotations
 
+import ctypes
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -32,10 +49,17 @@ import torch
 from ..utils.libm import exp2f, expf, log2f
 from .hist_cuda import launched, load_library, on_device
 
-__all__ = ["GroupLayout", "lambdarank_topk", "lambdarank_topk_cuda",
-           "lambdarank_topk_plain", "make_group_layout", "sorted_order"]
+__all__ = ["BUNDLE_DOCS", "BUNDLE_GROUPS", "CAP", "GroupLayout",
+           "KernelTables", "bundle_groups", "lambdarank_topk",
+           "lambdarank_topk_cuda", "lambdarank_topk_plain",
+           "make_group_layout", "sorted_order"]
 
 _I32_MAX = 2**31 - 1
+# K5's bundles (csrc/lambdarank.cu kCap, kBundleDocs, kBundleGroups): the
+# largest group a bundle takes, and a bundle's most docs and groups
+CAP = 256
+BUNDLE_DOCS = 1024
+BUNDLE_GROUPS = 10
 
 
 def make_group_layout(group_ptr):
@@ -53,6 +77,45 @@ def make_group_layout(group_ptr):
     g = np.repeat(np.arange(G), sizes)
     inv = (g * S + rows - gp[:-1][g]).astype(np.int32)
     return idx, mask, inv
+
+
+def bundle_groups(sizes):
+    """K5's bundles: the groups of 2 to ``CAP`` docs, in order, packed
+    greedily (a bundle closes before the group that would take it past
+    ``BUNDLE_DOCS`` docs or ``BUNDLE_GROUPS`` groups).  Returns (group ids
+    (n,) int64, bundle pointer (n_bundles + 1,) int64 into them)."""
+    sizes = np.asarray(sizes, np.int64)
+    fit = np.flatnonzero((sizes >= 2) & (sizes <= CAP))
+    ptr = [0]
+    n_docs = n_groups = 0
+    for idx, n in enumerate(sizes[fit].tolist()):
+        if n_groups == BUNDLE_GROUPS or n_docs + n > BUNDLE_DOCS:
+            ptr.append(idx)
+            n_docs = n_groups = 0
+        n_docs += n
+        n_groups += 1
+    if n_groups:
+        ptr.append(len(fit))
+    return fit, np.asarray(ptr, np.int64)
+
+
+class KernelTables(NamedTuple):
+    """K5's tables for one layout (int32 tensors on its device): the
+    bundles (``bptr`` into ``bgroups``), the most docs of a bundle and the
+    largest bundled group; the groups above CAP (``big_ptr`` offsets into
+    ``big_rows``, their rows in group order, int64, and ``big_gid``, each
+    such row's index among them, int64)."""
+    bptr: torch.Tensor
+    bgroups: torch.Tensor
+    n_bundles: int
+    bundle_docs: int
+    bundle_ngroups: int  # the most groups of a bundle
+    max_n: int
+    big_ptr: torch.Tensor
+    big_rows: torch.Tensor
+    big_gid: torch.Tensor
+    n_big: int
+    r_big: int
 
 
 class GroupLayout:
@@ -79,6 +142,39 @@ class GroupLayout:
         two = torch.full((self.S,), 2.0, dtype=torch.float32, device=dev)
         self.disc = torch.div(torch.ones_like(two),
                               log2f(two + p.to(torch.float32)))
+
+    @property
+    def sorts_in_kernel(self) -> bool:
+        """Every group fits K5's bundles (at most CAP docs), so K5 sorts
+        them itself and the wrapper sorts nothing."""
+        return self.G == 0 or self.S <= CAP
+
+    @functools.cached_property
+    def kernel_tables(self) -> KernelTables:
+        """K5's bundles and large groups, made on first use."""
+        gp = self.group_ptr
+        sizes = np.diff(gp)
+        fit, ptr = bundle_groups(sizes)
+        docs = np.add.reduceat(sizes[fit], ptr[:-1]) if len(fit) else []
+        big = np.flatnonzero(sizes > CAP)
+        big_n = sizes[big]
+        big_ptr = np.concatenate([[0], np.cumsum(big_n)])
+        big_gid = np.repeat(np.arange(len(big)), big_n)
+        big_rows = gp[big][big_gid] + np.arange(int(big_ptr[-1])) \
+            - big_ptr[:-1][big_gid]
+        dev = self.gptr.device
+
+        def put(a, dtype):
+            return torch.from_numpy(np.asarray(a, dtype)).to(dev)
+        return KernelTables(
+            bptr=put(ptr, np.int32), bgroups=put(fit, np.int32),
+            n_bundles=len(ptr) - 1,
+            bundle_docs=int(max(docs)) if len(fit) else 0,
+            bundle_ngroups=int(np.diff(ptr).max(initial=0)),
+            max_n=int(sizes[fit].max()) if len(fit) else 0,
+            big_ptr=put(big_ptr, np.int32), big_rows=put(big_rows, np.int64),
+            big_gid=put(big_gid, np.int64), n_big=len(big),
+            r_big=int(big_ptr[-1]))
 
     @functools.cached_property
     def _padded(self):
@@ -194,8 +290,9 @@ def lambdarank_topk_plain(s, y, layout: GroupLayout, k: int,
 def lambdarank_topk_cuda(s, y, layout: GroupLayout, k: int,
                          ndcg_weight: bool, score_norm: bool,
                          group_norm: bool):
-    """Launch K5: what ``lambdarank_topk_plain`` computes, one block a
-    group, on the inputs' card.  A launch the card refuses raises."""
+    """Launch K5: what ``lambdarank_topk_plain`` computes, a block a bundle
+    of groups (and a block a group above CAP docs), on the inputs' card.
+    A launch the card refuses raises."""
     if not (s.is_cuda and y.is_cuda):
         raise ValueError("the lambdarank kernel needs CUDA tensors")
     if s.dtype != torch.float32 or y.dtype != torch.float32:
@@ -211,19 +308,41 @@ def lambdarank_topk_cuda(s, y, layout: GroupLayout, k: int,
     if layout.G == 0 or layout.r_g == 0:
         return out
     s, y = s.contiguous(), y.contiguous()
-    r_g = layout.r_g
-    order = sorted_order(s[:r_g], layout.gid).to(torch.int32)
-    ideal = sorted_order(y[:r_g], layout.gid).to(torch.int32)
-    scratch = torch.empty((4, r_g), dtype=torch.float32, device=s.device)
+    t = layout.kernel_tables
+    order = ideal = scratch = None
+    if not layout.sorts_in_kernel:  # the large groups' rows, sorted
+        # by score and by label
+        rows = t.big_rows
+        order = rows[sorted_order(s[rows], t.big_gid)].to(torch.int32)
+        ideal = rows[sorted_order(y[rows], t.big_gid)].to(torch.int32)
+        scratch = torch.empty((4, t.r_big), dtype=torch.float32,
+                              device=s.device)
     lib = load_library("lambdarank")
+    if _geometry(lib) != (CAP, BUNDLE_DOCS, BUNDLE_GROUPS):
+        raise RuntimeError(f"K5 was built for bundles {_geometry(lib)}, "
+                           f"not {(CAP, BUNDLE_DOCS, BUNDLE_GROUPS)}")
     rc = on_device(s.device, lib.xtb_lambdarank, s.data_ptr(), y.data_ptr(),
-                   order.data_ptr(), ideal.data_ptr(), layout.gptr.data_ptr(),
-                   layout.G, layout.disc.data_ptr(), min(int(k), _I32_MAX),
+                   layout.gptr.data_ptr(), t.bptr.data_ptr(),
+                   t.bgroups.data_ptr(), t.n_bundles, t.bundle_docs,
+                   t.bundle_ngroups, t.max_n, t.big_ptr.data_ptr(), t.n_big,
+                   _ptr(order), _ptr(ideal), _ptr(scratch), t.r_big,
+                   layout.disc.data_ptr(), min(int(k), _I32_MAX),
                    int(bool(ndcg_weight)), int(bool(score_norm)),
-                   int(bool(group_norm)), scratch.data_ptr(), r_g,
-                   out.data_ptr())
+                   int(bool(group_norm)), out.data_ptr())
     launched("lambdarank", lib, rc)
     return out
+
+
+@functools.cache
+def _geometry(lib):
+    """(kCap, kBundleDocs, kBundleGroups) of a built K5 library."""
+    vals = [ctypes.c_int() for _ in range(3)]
+    lib.xtb_lambdarank_geometry(*(ctypes.byref(v) for v in vals))
+    return tuple(v.value for v in vals)
+
+
+def _ptr(t) -> int:
+    return 0 if t is None else t.data_ptr()
 
 
 def lambdarank_topk(s, y, layout: GroupLayout, k: int, ndcg_weight: bool,
