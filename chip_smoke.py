@@ -1,6 +1,6 @@
 """Smoke run of xgboost_tpu_torch on one NVIDIA GPU.
 
-Drives the port's two training paths through its public entry points and
+Drives the port's training paths through its public entry points and
 holds each CUDA kernel against its plain PyTorch version:
 
   1. device: card name and power limit; build every kernel library (one
@@ -219,6 +219,37 @@ holds each CUDA kernel against its plain PyTorch version:
      the same parameters, bit for bit, and the fit's time beside
      train()'s; XGBRanker on 100,000 x 136 rows in 1,000 groups launching
      K5 rounds + 1 times
+
+  17. the other boosters and updaters at phase 3's full width (1M x 28,
+     binary:logistic, depth 6, max_bin 256, eta 0.3, 10 rounds):
+     (a) booster="dart", rate_drop 0.1, uniform drops with the "tree"
+     rescale and weighted drops with "forest", on both histogram paths:
+     the rounds that dropped, the train loop's median of 3 beside phase
+     3's, K1 or K2 and K3 6 times a round and K4's gradient once a round,
+     AUC > 0.9, two deterministic runs byte-identical, JSON and UBJ
+     reloads predicting identically, a profile of the first two rounds
+     from the first that drops trees;
+     (b) tree_method="approx" on both paths: K1 or K2 and K3 6 times a
+     round, AUC > 0.9, two deterministic runs byte-identical; the
+     hessian copy, the host sketch and the device bins of a round timed
+     apart; a two-round profile; (c) booster="gblinear",
+     binary:logistic (K4 once a round and once for the base score) and
+     reg:squarederror, coord_descent (cyclic), shotgun (shuffle) and
+     greedy (top_k 8), 10 rounds each: ms a round, the operations of one
+     round (torch.profiler) and of one group's coordinate chain (a CUDA
+     graph, no copy to the host), K1-K3 never, the final logloss and
+     rmse below the constant model's, reloads predicting identically;
+     (d) process_type="update" over a 10-round model: refresh alone
+     (refresh_leaf 0) keeps every tree's structure and the predictions,
+     refresh,prune with refresh_leaf 1 and 0 at the median gain of the
+     splits above two leaves removes splits, K4 once a round; (e)
+     tree_method="exact" on the first 2^18 rows, 3 rounds: seconds a
+     round split into the host enumeration and the device gradient,
+     AUC > 0.9; 17f: card vs CPU on 20,000 rows at depth 4: deterministic
+     DART (both sample and normalize types, one_drop and skip_drop),
+     approx, exact and refresh,prune of one model byte-identical, f32
+     DART and approx the same trees up to a near tie, gblinear weights
+     within 1e-5 relative, 1e-6 absolute
 
 Phase 2 and 2b also give each case's device time a launch (torch.profiler),
 and phases 7, 8 and 9 the bound, the kernel and the index_add_ yardstick on
@@ -3519,6 +3550,438 @@ def phase_api_surface(xtt, hist_cuda, f32):
     return out
 
 
+# ------------------------------------------------------------------ 17
+P17_ROUNDS = 10
+P17_DART = {"uniform/tree": dict(BASE, booster="dart", rate_drop=0.1),
+            "weighted/forest": dict(BASE, booster="dart", rate_drop=0.1,
+                                    sample_type="weighted",
+                                    normalize_type="forest")}
+P17_APPROX = dict(BASE, tree_method="approx")
+# the exact phase's rows: the largest power of two whose three rounds of
+# host enumeration stay within about 120 s (1,000,000 rows take about 4x
+# 2^18's time, which is about 60 s on the H100's host; PERF.md §6)
+P17_EXACT_ROWS = 1 << 18
+
+
+def _dart_drops(xtt, params, dtrain, rounds):
+    """{round: trees dropped} of a DART training, from the booster's own
+    draw before each update (update() draws the same set)."""
+    bst = xtt.Booster(params, cache=[dtrain])
+    drops = {}
+    for i in range(rounds):
+        d = bst._select_dart_drops(i)
+        if d:
+            drops[i] = len(d)
+        bst.update(dtrain, i)
+    return drops
+
+
+def _profile_rounds(xtt, dtrain, params, label, first: int, rounds: int = 2,
+                    top: int = 8):
+    """A profile of rounds ``first`` .. ``first + rounds - 1`` of one
+    booster (a DART round drops trees only once there are trees), with the
+    trees each dropped."""
+    from torch.profiler import ProfilerActivity, profile
+
+    bst = xtt.Booster(params, cache=[dtrain])
+    for i in range(first):
+        bst.update(dtrain, i)
+    torch.cuda.synchronize()
+    dropped = []
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(first, first + rounds):
+            dropped.append(len(bst._select_dart_drops(i)))
+            bst.update(dtrain, i)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    _log_profile(prof, wall_ms, label,
+                 f"rounds {first}-{first + rounds - 1} of one booster "
+                 f"(trees dropped: {dropped})", top)
+
+
+def phase_dart(xtt, hist_cuda, dtrain, X, f32, det):
+    """DART at phase 3's full width on both histogram paths, uniform drops
+    with the "tree" rescale and weighted drops with "forest": K1 or K2
+    and K3 6 times a round and K4's gradient once a round (the drop
+    rounds' gradient on the reduced margin), AUC > 0.9, two deterministic
+    runs byte-identical, JSON and UBJ reloads predicting identically."""
+    dtest = xtt.DMatrix(X[:100_000])
+    out, first_drops = {}, {}
+    for name, params in P17_DART.items():
+        for path, kernel, base in (("f32", "hist_f32", f32),
+                                   ("deterministic", "hist_q", det)):
+            p = params if path == "f32" else dict(
+                params, deterministic_histogram=1)
+            label = f"17a {name} {path}"
+            r = _train_main_path(xtt, hist_cuda, p, dtrain, X.shape[0],
+                                 P17_ROUNDS, kernel, label)
+            same = _model_bytes(r["bst"]) == _model_bytes(r["timed"])
+            if path == "deterministic" and not same:
+                raise AssertionError(f"phase {label}: two deterministic runs "
+                                     "wrote different models")
+            drops = _dart_drops(xtt, p, dtrain, P17_ROUNDS)
+            if not drops:
+                raise AssertionError(f"phase {label}: no round dropped a "
+                                     "tree")
+            _reload_check(xtt, r["bst"], dtest, label)
+            w = r["bst"].tree_weights
+            log(f"phase {label}: {X.shape[0]} x {X.shape[1]}, "
+                f"{P17_ROUNDS} rounds, rate_drop 0.1; rounds that dropped "
+                f"(trees): {drops}; train loop median {r['train_s']:.3f} s "
+                f"= {r['rate']:.3f} M row-rounds/s (runs {r['times']} s; "
+                f"gbtree, phase 3{'' if path == 'f32' else 'c'}: "
+                f"{base['train_s']:.3f} s); logloss {r['logloss']:.6f} auc "
+                f"{r['auc']:.6f}; {kernel} and K3 launches {r['launches']} "
+                f"each, K4 {r['sigmoid_launches']}; tree weights "
+                f"{min(w):.6f}-{max(w):.6f}; two runs byte-identical: "
+                f"{same}; JSON and UBJ reload identically")
+            out[(name, path)] = r
+            first_drops[name] = min(drops)
+    # two rounds from the first that drops trees
+    _profile_rounds(xtt, dtrain, P17_DART["uniform/tree"], "17a (DART)",
+                    first=first_drops["uniform/tree"])
+    return out
+
+
+def phase_approx(xtt, hist_cuda, dtrain, X, f32, det):
+    """tree_method="approx" at phase 3's full width on both paths: each
+    round's hessians to the host, the weighted host sketch, the device's
+    bins; K1 or K2 and K3 6 times a round, AUC > 0.9, two deterministic
+    runs byte-identical; the three steps' seconds a round."""
+    from xgboost_tpu_torch.data.ellpack import build_ellpack
+
+    t0 = time.perf_counter()
+    sketch = dtrain.weighted_sketch()
+    setup_s = time.perf_counter() - t0
+    out = {}
+    for path, kernel, p, base in (
+            ("f32", "hist_f32", P17_APPROX, f32),
+            ("deterministic", "hist_q",
+             dict(P17_APPROX, deterministic_histogram=1), det)):
+        label = f"17b {path}"
+        r = _train_main_path(xtt, hist_cuda, p, dtrain, X.shape[0],
+                             P17_ROUNDS, kernel, label, repeats=1)
+        same = _model_bytes(r["bst"]) == _model_bytes(r["timed"])
+        if path == "deterministic" and not same:
+            raise AssertionError(f"phase {label}: two deterministic runs "
+                                 "wrote different models")
+        log(f"phase {label}: {X.shape[0]} x {X.shape[1]}, {P17_ROUNDS} "
+            f"rounds; train loop {r['train_s']:.3f} s = {r['rate']:.3f} M "
+            f"row-rounds/s (one run; hist, phase "
+            f"3{'' if path == 'f32' else 'c'}: {base['train_s']:.3f} s); "
+            f"logloss {r['logloss']:.6f} auc {r['auc']:.6f}; {kernel} and "
+            f"K3 launches {r['launches']} each, K4 {r['sigmoid_launches']}; "
+            f"two runs byte-identical: {same}")
+        out[path] = r
+    # the round's three steps on their own, at one round's gradient
+    bst = xtt.Booster(P17_APPROX, cache=[dtrain])
+    cache = bst._train_cache(dtrain)
+    bst._sync_margin(cache)
+    gpair = bst.objective.get_gradient(cache.margin, cache.labels,
+                                       cache.weights, 0)
+    copy_s, sketch_s, bin_s = [], [], []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hess = gpair[..., 1].cpu().numpy()
+        t1 = time.perf_counter()
+        cuts = sketch.cuts(256, hess.sum(axis=1)[: cache.n_real].astype(
+            np.float64))
+        t2 = time.perf_counter()
+        page = build_ellpack(dtrain.X, cuts)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        copy_s.append(t1 - t0)
+        sketch_s.append(t2 - t1)
+        bin_s.append(t3 - t2)
+    round_s = out["f32"]["train_s"] / P17_ROUNDS
+    med = statistics.median
+    log(f"phase 17b steps a round (median of 3): hessian copy to the host "
+        f"{med(copy_s) * 1e3:.3f} ms, host sketch {med(sketch_s):.4f} s "
+        f"(its columns' sorts once a matrix: {setup_s:.3f} s), device bins "
+        f"{med(bin_s) * 1e3:.3f} ms ({page.bins.dtype}, "
+        f"{page.n_padded} rows); an f32 approx round {round_s:.4f} s, the "
+        f"sketch {100 * med(sketch_s) / round_s:.1f}% of it")
+    out["steps"] = dict(copy_s=med(copy_s), sketch_s=med(sketch_s),
+                        bin_s=med(bin_s), setup_s=setup_s, round_s=round_s)
+    phase_profile(xtt, dtrain, P17_APPROX, "17b (approx)")
+    return out
+
+
+def _constant_loss(y, objective):
+    """The final metric of the constant model (the label mean)."""
+    m = float(np.mean(y))
+    if objective == "binary:logistic":
+        return float(-np.mean(y * np.log(m) + (1 - y) * np.log(1 - m)))
+    return float(np.sqrt(np.mean((y - m) ** 2)))
+
+
+def phase_gblinear(xtt, hist_cuda, X, y):
+    """gblinear at phase 3's full width: binary:logistic (K4 once for the
+    base score and once a round) and reg:squarederror, coord_descent
+    (cyclic), shotgun (shuffle) and greedy (top_k 8), 10 rounds each;
+    K1, K2 and K3 never launch; the final logloss and rmse below the
+    constant model's; a reload predicts identically; ms a round, and the
+    operations of one round and of one group's coordinate chain."""
+    from xgboost_tpu_torch.models import gblinear
+
+    yr = (1.5 * X[:, 0] + X[:, 1] * X[:, 2] - 0.8 * np.abs(X[:, 3])
+          + 0.5 * X[:, 4]).astype(np.float32)
+    dtest = xtt.DMatrix(X[:100_000])
+    configs = (("coord_descent cyclic", {}),
+               ("shotgun shuffle", {"updater": "shotgun"}),
+               ("coord_descent greedy top_k 8",
+                {"feature_selector": "greedy", "top_k": 8}))
+    out = {}
+    for objective, labels in (("binary:logistic", y),
+                              ("reg:squarederror", yr)):
+        d = xtt.DMatrix(X, label=labels)
+        const = _constant_loss(labels, objective)
+        for name, extra in configs:
+            label = f"17c {objective} {name}"
+            p = dict(booster="gblinear", objective=objective, eta=0.5,
+                     **extra)
+            want = {k: 0 for k in hist_cuda.launches}
+            if objective == "binary:logistic":
+                want["sigmoid"] = 1 + P17_ROUNDS
+            hist_cuda.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            bst = xtt.train(p, d, P17_ROUNDS, verbose_eval=False)
+            torch.cuda.synchronize()
+            train_s = time.perf_counter() - t0
+            k4 = hist_cuda.launches["sigmoid"]
+            if hist_cuda.launches != want:
+                raise AssertionError(f"phase {label}: launches "
+                                     f"{hist_cuda.launches}, want {want}")
+            pred = bst.predict(d)
+            if objective == "binary:logistic":
+                pc = np.clip(pred, 1e-7, 1 - 1e-7)
+                loss = float(-np.mean(labels * np.log(pc)
+                                      + (1 - labels) * np.log(1 - pc)))
+            else:
+                loss = float(np.sqrt(np.mean((pred - labels) ** 2)))
+            if not loss < const:
+                raise AssertionError(f"phase {label}: final loss {loss} not "
+                                     f"below the constant model's {const}")
+            _reload_check(xtt, bst, dtest, label)
+            # one more round's device operations (torch.profiler)
+            rounds = iter(range(P17_ROUNDS, P17_ROUNDS + 100))
+            ms, ops, kernels = device_per_call(
+                lambda: bst.update(d, next(rounds)), reps=5)
+            log(f"phase {label}: {X.shape[0]} x {X.shape[1]}, "
+                f"{P17_ROUNDS} rounds {train_s:.3f} s = "
+                f"{train_s / P17_ROUNDS * 1e3:.3f} ms a round; final "
+                f"{'logloss' if objective == 'binary:logistic' else 'rmse'} "
+                f"{loss:.6f} (constant model {const:.6f}); K4 {k4}, "
+                f"K1/K2/K3 0; one more round puts {ops} operations on the "
+                f"stream, device "
+                f"{'not measured' if ms is None else f'{ms:.3f} ms'}; JSON "
+                f"and UBJ reload identically")
+            out[label] = dict(train_s=train_s, loss=loss, const=const,
+                              ops=ops, device_ms=ms)
+        del d
+    # one group's coordinate chain, captured as a CUDA graph
+    d = xtt.DMatrix(X, label=yr)
+    bst = xtt.train(dict(booster="gblinear"), d, 1, verbose_eval=False)
+    XT = bst._linear_XT(bst._caches[id(d)])
+    g = torch.randn(X.shape[0], device=XT.device)
+    h = torch.rand(X.shape[0], device=XT.device)
+    w = torch.zeros(X.shape[1], device=XT.device)
+    b = torch.zeros((), device=XT.device)
+    order = np.arange(X.shape[1])
+    chain = graph_ops(lambda: gblinear.linear_update(
+        XT, g, h, w, b, order, eta=0.5, lambda_=0.0, alpha=0.0))
+    greedy = graph_ops(lambda: gblinear.linear_update_greedy(
+        XT, g, h, w, b, steps=8, eta=0.5, lambda_=0.0, alpha=0.0))
+    for what, ops in (("cyclic", chain), ("greedy top_k 8", greedy)):
+        if any(op == ("memcpy", "host") for op in ops):
+            raise AssertionError(f"phase 17c: the {what} chain copies to the "
+                                 "host")
+    log(f"phase 17c chain: one group's coordinate chain over "
+        f"{X.shape[1]} features is {len(chain)} operations (cyclic), "
+        f"{len(greedy)} (greedy, 8 steps), read from CUDA graphs; none "
+        f"copies to the host")
+    out["chain_ops"] = (len(chain), len(greedy))
+    return out
+
+
+def phase_update(xtt, hist_cuda, dtrain, X):
+    """process_type="update" over a 10-round model of phase 3's data on
+    the card: refresh alone (refresh_leaf 0) keeps every tree's structure
+    and the predictions; refresh,prune with refresh_leaf 1 and 0 at a
+    positive gamma removes splits; K4 once a round (each round's
+    gradient, on the card, copied to the host once), K1-K3 never."""
+    base = xtt.train(BASE, dtrain, P17_ROUNDS, verbose_eval=False)
+    raw = bytes(base.save_raw("json"))
+    dtest = xtt.DMatrix(X[:100_000])
+    p0 = base.predict(dtest)
+    splits = lambda b: sum(int((t.left_children != -1).sum())  # noqa: E731
+                           for t in b.trees)
+    # the median gain of the base model's splits above two leaves
+    gains = [float(t.loss_changes[n]) for t in base.trees
+             for n in range(t.n_nodes) if t.left_children[n] != -1
+             and t.left_children[t.left_children[n]] == -1
+             and t.left_children[t.right_children[n]] == -1]
+    gamma = float(np.median(gains))
+    out = {}
+    for updater, rl, g in (("refresh", 0, 0.0),
+                           ("refresh,prune", 1, gamma),
+                           ("refresh,prune", 0, gamma)):
+        label = f"17d {updater} refresh_leaf={rl}"
+        p = dict(BASE, process_type="update", updater=updater,
+                 refresh_leaf=rl, gamma=g)
+        want = {k: 0 for k in hist_cuda.launches}
+        want["sigmoid"] = P17_ROUNDS  # one gradient a round
+        hist_cuda.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bst = xtt.train(p, dtrain, P17_ROUNDS, verbose_eval=False,
+                        xgb_model=bytearray(raw))
+        torch.cuda.synchronize()
+        s = time.perf_counter() - t0
+        if hist_cuda.launches != want:
+            raise AssertionError(f"phase {label}: launches "
+                                 f"{hist_cuda.launches}, want {want}")
+        if bst.num_boosted_rounds() != P17_ROUNDS:
+            raise AssertionError(f"phase {label}: {bst.num_boosted_rounds()} "
+                                 "rounds after the update")
+        pred = bst.predict(dtest)
+        if updater == "refresh":
+            for a, b in zip(base.trees, bst.trees):
+                if not np.array_equal(a.left_children, b.left_children) or \
+                        not np.array_equal(a.split_indices, b.split_indices):
+                    raise AssertionError(f"phase {label}: refresh changed a "
+                                         "tree's structure")
+            if rl == 0 and not np.array_equal(pred, p0):
+                raise AssertionError(f"phase {label}: refresh_leaf=0 moved "
+                                     "the predictions")
+        elif not splits(bst) < splits(base):
+            raise AssertionError(f"phase {label}: prune at gamma {g} removed "
+                                 "no split")
+        log(f"phase {label}: {P17_ROUNDS} rounds of a {P17_ROUNDS}-round "
+            f"model on {X.shape[0]} x {X.shape[1]}, gamma {g:.6g}: "
+            f"{s:.3f} s ({s / P17_ROUNDS:.3f} s a round); splits "
+            f"{splits(base)} -> {splits(bst)}; max |pred change| "
+            f"{np.abs(pred - p0).max():.4g}; K4 {want['sigmoid']}, K1-K3 0")
+        out[label] = s
+    return out
+
+
+def phase_exact(xtt, hist_cuda, X, y):
+    """tree_method="exact" on phase 3's 28 features, 3 rounds, depth 6, on
+    the first P17_EXACT_ROWS rows: seconds a round split into the host
+    enumeration (and its pruning) and the device gradient; AUC > 0.9; K4
+    once for the base score and twice a round (gradient, evaluation),
+    K1-K3 never."""
+    import xgboost_tpu_torch.core as core
+
+    R, rounds = P17_EXACT_ROWS, 3
+    d = xtt.DMatrix(X[:R], label=y[:R])
+    host = {"s": 0.0}
+    grow, prune = core.grow_exact, core.prune_tree
+
+    def timed(fn):
+        def run(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                host["s"] += time.perf_counter() - t0
+        return run
+
+    params = dict(BASE, tree_method="exact", eval_metric="auc")
+    want = _sigmoid_launches(hist_cuda, rounds, evals=1)
+    core.grow_exact, core.prune_tree = timed(grow), timed(prune)
+    try:
+        hist_cuda.reset_launches()
+        res: dict = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bst = xtt.train(params, d, rounds, evals=[(d, "train")],
+                        evals_result=res, verbose_eval=False)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+    finally:
+        core.grow_exact, core.prune_tree = grow, prune
+    if hist_cuda.launches != want:
+        raise AssertionError(f"phase 17e: launches {hist_cuda.launches}, "
+                             f"want {want}")
+    auc = res["train"]["auc"][-1]
+    if not auc > 0.9:
+        raise AssertionError(f"phase 17e: AUC {auc} <= 0.9")
+    cache = bst._caches[id(d)]
+    grad_ms = cuda_ms(lambda: bst.objective.get_gradient(
+        cache.margin, cache.labels, cache.weights, 0), reps=10)
+    log(f"phase 17e exact: {R} x {X.shape[1]} (cut from {X.shape[0]} "
+        f"rows), {rounds} rounds, depth 6: {total:.3f} s, "
+        f"{total / rounds:.3f} s a round; host enumeration and pruning "
+        f"{host['s'] / rounds:.3f} s a round, device gradient "
+        f"{grad_ms:.4f} ms; train AUC {auc:.6f}; K4 "
+        f"{want['sigmoid']}, K1-K3 0")
+    return dict(total_s=total, host_s=host["s"], grad_ms=grad_ms, auc=auc)
+
+
+def phase_boosters_parity(xtt):
+    """Card vs CPU on 20,000 rows of phase 3's generator, depth 4: the
+    deterministic DART (both sample and normalize types, with one_drop and
+    skip_drop), approx, exact and refresh,prune models byte-identical;
+    f32 DART and approx the same trees up to a near tie; gblinear weights
+    within 1e-5 relative, 1e-6 absolute."""
+    Xs, ys = make_data(20_000, 28, seed=3)
+    det = dict(SMALL, deterministic_histogram=1)
+    for label, params in (
+            ("17f DART uniform/tree", dict(det, booster="dart",
+                                           rate_drop=0.3)),
+            ("17f DART weighted/forest one_drop skip_drop",
+             dict(det, booster="dart", rate_drop=0.2,
+                  sample_type="weighted", normalize_type="forest",
+                  one_drop=1, skip_drop=0.3)),
+            ("17f approx", dict(det, tree_method="approx")),
+            ("17f exact", dict(SMALL, tree_method="exact", gamma=0.5,
+                               subsample=0.8))):
+        _card_vs_cpu(xtt, params, Xs, ys, 5, 1e-5, label, identical=True)
+    base = xtt.train(det, xtt.DMatrix(Xs, label=ys, device="cpu"), 5,
+                     verbose_eval=False, device="cpu")
+    raw = bytes(base.save_raw("json"))
+    upd = dict(det, process_type="update", updater="refresh,prune",
+               gamma=2.0)
+    models = [_model_bytes(xtt.train(
+        upd, xtt.DMatrix(Xs, label=ys, device=dev), 5,
+        xgb_model=bytearray(raw), verbose_eval=False, device=dev))
+        for dev in ("cuda", "cpu")]
+    if models[0] != models[1]:
+        raise AssertionError("phase 17f: refresh,prune on the card is not "
+                             "the CPU's")
+    log("phase 17f parity: refresh,prune of one CPU model on each device, "
+        "model JSON byte-identical: True")
+    for label, params in (("17f DART f32", dict(SMALL, booster="dart",
+                                                rate_drop=0.3)),
+                          ("17f approx f32", dict(SMALL,
+                                                  tree_method="approx"))):
+        _card_vs_cpu_f32_tie(xtt, params, Xs, ys, 5, 1e-4, label)
+    for sel, upd_name in (("cyclic", "coord_descent"),
+                          ("shuffle", "shotgun"), ("greedy", "coord_descent")):
+        p = {"booster": "gblinear", "objective": "binary:logistic",
+             "updater": upd_name, "feature_selector": sel, "top_k": 8,
+             "eta": 0.5}
+        card, cpu = (xtt.train(p, xtt.DMatrix(Xs, label=ys, device=dev), 10,
+                               verbose_eval=False, device=dev)
+                     for dev in ("cuda", "cpu"))
+        for a, b in ((card.linear_weights, cpu.linear_weights),
+                     (card.linear_bias, cpu.linear_bias)):
+            if not np.allclose(a, b, rtol=1e-5, atol=1e-6):
+                raise AssertionError(f"phase 17f: gblinear {sel}: card and "
+                                     f"CPU weights differ by "
+                                     f"{np.abs(a - b).max()}")
+        err = np.abs(card.linear_weights - cpu.linear_weights).max()
+        log(f"phase 17f parity: gblinear {upd_name} {sel}, 10 rounds: "
+            f"weights within 1e-5 relative, 1e-6 absolute (max |diff| "
+            f"{err:.3g})")
+
+
 def _kernel_entry(name, source, cases, launches):
     # K1 and K2: the line sums the three int16 shapes it has summed since
     # the first slice, (0, 1, 1), (15, 16, 2) and (31, 16, 2), the six
@@ -3672,6 +4135,17 @@ def main() -> int:
     rank = timed("15", phase_ranking, xtt, hist_cuda)
     timed("15b", phase_ranking_parity, xtt)
     timed("16", phase_api_surface, xtt, hist_cuda, f32)
+    X, y = make_data(1_000_000, 28)
+    dtrain = xtt.DMatrix(X, label=y)
+    dtrain.ensure_ellpack(max_bin=256)
+    timed("17a", phase_dart, xtt, hist_cuda, dtrain, X, f32, det)
+    timed("17b", phase_approx, xtt, hist_cuda, dtrain, X, f32, det)
+    timed("17c", phase_gblinear, xtt, hist_cuda, X, y)
+    timed("17d", phase_update, xtt, hist_cuda, dtrain, X)
+    del dtrain
+    timed("17e", phase_exact, xtt, hist_cuda, X, y)
+    del X, y
+    timed("17f", phase_boosters_parity, xtt)
 
     kernels = [_kernel_entry(name, hist_cuda.SOURCES[name], cases, n)
                for name, cases, n in (("hist_f32", f32_cases, f32["launches"]),

@@ -184,13 +184,15 @@ def test_train_param_reads_the_configs_strings():
                                     {"tree_method": "hist"},
                                     {"tree_method": "auto"},
                                     {"booster": "gbtree"},
-                                    {"process_type": "default"}])
+                                    {"process_type": "default"},
+                                    {"booster": "dart"},
+                                    {"booster": "gblinear"},
+                                    {"tree_method": "approx"}])
 def test_unsupported_keys_compare_parsed_defaults(params):
     reject_unsupported(params)
 
 
-@pytest.mark.parametrize("params", [{"n_devices": "2"}, {"n_devices": True},
-                                    {"tree_method": "approx"}])
+@pytest.mark.parametrize("params", [{"n_devices": "2"}, {"n_devices": True}])
 def test_unsupported_values_still_raise(params):
     with pytest.raises(NotImplementedError):
         reject_unsupported(params)

@@ -168,22 +168,24 @@ def test_early_stopping_and_monitor():
     assert lines[0].startswith("[0]\ttrain-error:")
 
 
-@pytest.mark.parametrize("params", [
-    {"n_devices": 2}, {"process_type": "update"},
-    {"grow_policy": "lossguide", "max_leaves": 8,
-     "deterministic_histogram": 1},
-    {"num_target": 2, "multi_strategy": "multi_output_tree",
-     "deterministic_histogram": 1},
-    {"booster": "dart"}, {"tree_method": "exact"},
-    {"tree_method": "exact", "deterministic_histogram": 1},
-    {"objective": "multi:softprob", "num_class": 3,
-     "multi_strategy": "multi_output_tree",
-     "monotone_constraints": "(1,0,0,0,0,0)"},
-    {"objective": "rank:lambdamart"},
+@pytest.mark.parametrize("params,exc", [
+    ({"n_devices": 2}, NotImplementedError),
+    # no updater given: the reference's ValueError
+    ({"process_type": "update"}, ValueError),
+    ({"grow_policy": "lossguide", "max_leaves": 8,
+      "deterministic_histogram": 1}, NotImplementedError),
+    ({"num_target": 2, "multi_strategy": "multi_output_tree",
+      "deterministic_histogram": 1}, NotImplementedError),
+    ({"tree_method": "exact", "deterministic_histogram": 1},
+     NotImplementedError),
+    ({"objective": "multi:softprob", "num_class": 3,
+      "multi_strategy": "multi_output_tree",
+      "monotone_constraints": "(1,0,0,0,0,0)"}, NotImplementedError),
+    ({"objective": "rank:lambdamart"}, NotImplementedError),
 ])
-def test_unsupported_parameters_raise(params):
+def test_unsupported_parameters_raise(params, exc):
     X, z = _data(R=64)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(exc):
         xtt.train(params, _port_dm(X, label=z), 1, verbose_eval=False,
                   device="cpu")
 
@@ -216,6 +218,7 @@ def test_port_imports_neither_jax_nor_reference():
     sources.append(os.path.join(os.path.dirname(HERE), "chip_smoke.py"))
     # the card-only tests run where only PyTorch is installed
     sources.append(os.path.join(HERE, "test_torch_hist_cuda.py"))
+    sources.append(os.path.join(HERE, "test_torch_boosters_cuda.py"))
     assert len(sources) > 20
     assert any(p.endswith(os.path.join("ops", "quantise.py"))
                for p in sources)

@@ -1,5 +1,6 @@
-"""Booster: the trained model + training-step engine (port of the gbtree /
-hist subset of xgboost_tpu/core.py).
+"""Booster: the trained model + training-step engine (port of
+xgboost_tpu/core.py: gbtree, DART and gblinear; the hist, approx and exact
+tree methods; process_type="update").
 
 Call stack for one boosting iteration:
   train() -> Booster.update(dtrain, i[, fobj])
@@ -35,9 +36,35 @@ DMatrix's ``'c'`` feature types) take the categorical split scan in both
 growers; a frame's category values ride in the model as the
 ``cat_categories`` attribute, and a frame coded another way is recoded onto
 them at prediction, as the reference does.
+
+The other boosters and updaters (reference core.py:206-255):
+- ``booster="dart"`` (gbtree.cc Dart): before a round's trees, a random
+  set of earlier trees is dropped (``_select_dart_drops``, numpy draws on
+  the host); the gradient is taken once, on the margin without them
+  (their margin through the predict traversal on the booster's device),
+  and afterwards the new and the dropped trees are rescaled
+  (``_dart_commit``).  Each tree carries a weight (``tree_weights``),
+  applied to its leaf values where the trees are stacked for prediction.
+- ``tree_method="approx"`` (updater_approx.cc): every round the
+  hessians are copied to the host once, the host sketches the rows
+  weighted by them (numpy, as the reference's), and the card bins the
+  matrix against those cuts (``data/ellpack.py``); the round's trees grow
+  on those bins with K1 or K2 and K3, as on the hist path.
+- ``tree_method="exact"`` (tree/exact.py, host numpy as XGBoost's CPU-only
+  colmaker): the gradients come to the host once a parallel tree, the
+  tree is enumerated and pruned there and its leaves go back as the
+  margin's delta.  No sketch, no binned page, no grower.
+- ``process_type="update"`` with ``updater`` among refresh, prune, sync
+  (models/updaters.py, host numpy): round i's gradients, taken on the
+  device from the margin of the rounds before it as already updated,
+  come to the host once; the round's trees are refreshed and pruned
+  there.
+- ``booster="gblinear"`` (models/gblinear.py): the coordinate chain in
+  PyTorch operations on the device, the selectors' orders from the host.
 """
 from __future__ import annotations
 
+import copy
 import inspect
 import json
 import os
@@ -47,8 +74,11 @@ import numpy as np
 import torch
 
 from .data.dmatrix import DMatrix, categories_by_name, recode_dense
+from .data.ellpack import build_ellpack
 from .metric import create_metric
+from .models import gblinear
 from .models.tree import RegTree
+from .models.updaters import _route_masks, prune_tree, refresh_tree, sync_trees
 from .objective import ObjFunction, create_objective
 from .ops.adaptive import segment_quantile_leaf
 from .ops.predict import (predict_leaf_ids, predict_margin_delta,
@@ -57,6 +87,7 @@ from .ops.split import SplitParams
 from .params import (KNOWN_LEARNER_KEYS, TrainParam, canonicalize,
                      reject_unsupported, split_unknown, tree_keys)
 from .tree.bestfirst import BestFirstGrower
+from .tree.exact import grow_exact
 from .tree.grow import HistTreeGrower, leaf_margin_delta
 from .tree.grow_lockstep import LockstepHistGrower, leaf_margin_delta_k
 from .tree.grow_multi import MultiTargetTreeGrower, leaf_margin_delta_multi
@@ -75,20 +106,36 @@ class _Cache:
         self.dmat = dmat
         self.device = device
         self.ellpack = None
+        self.ready = False  # labels, weights and valid are on the device
         self.margin: Optional[torch.Tensor] = None  # (rows, K) f32
         self.n_trees_applied = 0
+        self.weights_version = 0  # the booster's tree-weight epoch here
+        self.raw_X: Optional[torch.Tensor] = None  # the matrix on device
+        self.host_X: Optional[np.ndarray] = None
+        self.linear_XT: Optional[torch.Tensor] = None  # gblinear (F, R)
 
     def ensure_train(self, max_bin: int) -> None:
         if self.ellpack is not None:
             return
         ell = self.dmat.ensure_ellpack(max_bin=max_bin)
-        dev = self.device
         self.ellpack = ell
-        self.bins = ell.bins.to(dev)
-        self.cuts_pad = ell.cuts_pad.to(dev)
+        self.bins = ell.bins.to(self.device)
+        self.cuts_pad = ell.cuts_pad.to(self.device)
         self.cuts_host = ell.cuts_pad.cpu().numpy()
-        self.n_bins = ell.n_bins.to(dev)
-        R_pad, R = ell.n_padded, ell.n_rows
+        self.n_bins = ell.n_bins.to(self.device)
+        self._stage(ell.n_padded, ell.n_rows)
+
+    def ensure_train_raw(self) -> None:
+        """Labels, weights and valid rows without a sketch or a binned
+        page, unpadded (reference core.py:64-78): exact, gblinear and
+        process_type="update" read the raw matrix alone."""
+        if not self.ready:
+            R = self.dmat.num_row()
+            self._stage(R, R)
+
+    def _stage(self, R_pad: int, R: int) -> None:
+        dev = self.device
+        self.n_padded, self.n_real = R_pad, R
         self.valid = torch.arange(R_pad, device=dev) < R
 
         def padded(a):  # (R,) or the (R, K) labels of K targets
@@ -105,6 +152,7 @@ class _Cache:
             extra = torch.zeros((R_pad - self.margin.shape[0],
                                  self.margin.shape[1]), device=dev)
             self.margin = torch.cat([self.margin, extra])
+        self.ready = True
 
     def bounds(self):
         """The survival bounds on the device, padded with ones as the
@@ -119,7 +167,7 @@ class _Cache:
                 hi = np.full_like(lo, np.inf)
 
             def padded(a):
-                out = torch.ones(self.ellpack.n_padded, dtype=torch.float32,
+                out = torch.ones(self.n_rows(), dtype=torch.float32,
                                  device=self.device)
                 out[: a.shape[0]] = torch.from_numpy(
                     np.asarray(a, np.float32)).to(self.device)
@@ -130,8 +178,7 @@ class _Cache:
         return self._bounds
 
     def n_rows(self) -> int:
-        return self.ellpack.n_padded if self.ellpack is not None \
-            else self.dmat.num_row()
+        return self.n_padded if self.ready else self.dmat.num_row()
 
     def base_margin_init(self, base_score: np.ndarray, K: int) -> torch.Tensor:
         R_pad = self.n_rows()
@@ -161,6 +208,15 @@ class Booster:
             device if device is not None else self.params.get("device"))
         self.trees: List[RegTree] = []
         self.tree_info: List[int] = []
+        # DART's weight of each tree (gbtree.cc weight_drop_), 1.0 elsewhere
+        self.tree_weights: List[float] = []
+        # gblinear's (F, K) weights and (K,) bias, and its rounds
+        self.linear_weights: Optional[np.ndarray] = None
+        self.linear_bias: Optional[np.ndarray] = None
+        self._linear_rounds = 0
+        # bumped whenever committed trees change (a DART rescale, an
+        # update pass): every cached margin then rebuilds from scratch
+        self._weights_version = 0
         self.attributes: Dict[str, str] = {}
         self.feature_names: Optional[List[str]] = None
         self.feature_types: Optional[List[str]] = None
@@ -189,6 +245,30 @@ class Booster:
             raise ValueError(f"Unknown parameters: {unknown}")
         reject_unsupported(p)
         self.tparam = TrainParam.from_dict(p)
+        # (reference core.py:206-255)
+        self.booster_kind = str(p.get("booster", "gbtree"))
+        if self.booster_kind not in ("gbtree", "dart", "gblinear"):
+            raise ValueError(f"unknown booster {self.booster_kind}")
+        self.tree_method = str(p.get("tree_method", "hist"))
+        if self.tree_method in ("auto", "gpu_hist"):
+            self.tree_method = "hist"
+        if self.tree_method not in ("hist", "approx", "exact"):
+            raise ValueError(f"unknown tree_method {self.tree_method!r}")
+        # process_type=update re-processes an existing model's trees with
+        # the non-growing updaters (gbtree.cc InitUpdater)
+        self.process_type = str(p.get("process_type", "default"))
+        if self.process_type not in ("default", "update"):
+            raise ValueError(f"unknown process_type {self.process_type!r}")
+        upd = p.get("updater")
+        self.updater_seq = ([u.strip() for u in str(upd).split(",")
+                             if u.strip()] if upd else None)
+        self.refresh_leaf = bool(self.tparam.refresh_leaf)
+        # DART (gbtree.cc Dart)
+        self.rate_drop = float(p.get("rate_drop", 0.0))
+        self.skip_drop = float(p.get("skip_drop", 0.0))
+        self.one_drop = str(p.get("one_drop", "0")).lower() in ("1", "true")
+        self.sample_type = str(p.get("sample_type", "uniform"))
+        self.normalize_type = str(p.get("normalize_type", "tree"))
         self.objective: ObjFunction = create_objective(
             str(p.get("objective", "reg:squarederror")), p)
         self.num_class = int(p.get("num_class", 0))
@@ -217,6 +297,15 @@ class Booster:
         # (reference: xgboost_tpu/core.py:1349-1432, one device)
         lossguide = tp.grow_policy == "lossguide"
         self._best_first = lossguide and tp.max_leaves > 1
+        # the adaptive leaf refit after each tree (reg:absoluteerror,
+        # reg:quantileerror; reference core.py:1565-1605)
+        self._adaptive = self.objective.adaptive_leaf()
+        self._lockstep = False
+        self._grower = self._lockstep_grower = self._multi_grower = None
+        if self.booster_kind == "gblinear" or self.tree_method == "exact":
+            # neither grows on histograms
+            self._configured = True
+            return
         if self._best_first:
             if self.deterministic_histogram:
                 raise NotImplementedError(
@@ -233,9 +322,6 @@ class Booster:
                 interaction_sets=tp.interaction_constraints,
                 max_leaves=tp.max_leaves,
                 quantised=self.deterministic_histogram)
-        # the adaptive leaf refit after each tree (reg:absoluteerror,
-        # reg:quantileerror; reference core.py:1565-1605)
-        self._adaptive = self.objective.adaptive_leaf()
         # the reference's opt-in class-batched grower (core.py:1510-1516):
         # the K class trees of a round in one level loop, numeric f32
         # histograms only; _boost_trees checks the rest of its gate
@@ -280,7 +366,7 @@ class Booster:
             self._caches.clear()
             # a trained model's base score is model state: continuation
             # never estimates it again
-            if not self.trees:
+            if not self.trees and self.linear_weights is None:
                 self._base_margin_value = None
 
     def _resolve_max_depth(self, lossguide: bool) -> int:
@@ -312,7 +398,7 @@ class Booster:
             if self._base_score_param is not None:
                 prob = torch.tensor(float(self._base_score_param))
                 bm = self.objective.prob_to_margin(prob)
-            elif not self.trees and cache.ellpack is not None:
+            elif not self.trees and cache.ready:
                 v = cache.valid
                 bm = self.objective.init_estimation(
                     cache.labels[v],
@@ -328,8 +414,24 @@ class Booster:
             cache.n_trees_applied = 0
 
     def _sync_margin(self, cache: _Cache) -> None:
-        """Catch the cached margin up with all committed trees."""
+        """Catch the cached margin up with all committed trees (reference
+        core.py:351-419): gblinear's margin anew after each round, and a
+        margin from before a DART rescale or an update pass from
+        scratch."""
         self._ensure_base_margin(cache)
+        if self.booster_kind == "gblinear":
+            rounds = self._linear_rounds
+            if self.linear_weights is None or \
+                    cache.n_trees_applied == rounds > 0:
+                return
+            cache.margin = self._linear_margin(cache)
+            cache.n_trees_applied = rounds
+            return
+        if cache.weights_version != self._weights_version:
+            cache.margin = cache.base_margin_init(self._base_margin_value,
+                                                  self.n_groups)
+            cache.n_trees_applied = 0
+            cache.weights_version = self._weights_version
         if cache.n_trees_applied < len(self.trees):
             new = slice(cache.n_trees_applied, len(self.trees))
             X = self._device_X(cache.dmat)
@@ -342,7 +444,11 @@ class Booster:
     def _train_cache(self, dtrain: DMatrix) -> _Cache:
         self._configure()
         cache = self._get_cache(dtrain)
-        cache.ensure_train(self.tparam.max_bin)
+        if (self.tree_method == "exact" or self.booster_kind == "gblinear"
+                or self.process_type == "update"):
+            cache.ensure_train_raw()
+        else:
+            cache.ensure_train(self.tparam.max_bin)
         if dtrain.cat_categories:
             cats = {int(k): list(v) for k, v in dtrain.cat_categories.items()}
             if self._cat_categories is None:
@@ -367,41 +473,79 @@ class Booster:
                     gp = np.array([0, dtrain.num_row()], np.int64)
                 self.objective.set_group_info(gp)
                 self.objective._group_owner = owner
-        self._sync_margin(cache)
         return cache
 
     def update(self, dtrain: DMatrix, iteration: int, fobj=None) -> None:
         """One boosting iteration (learner.cc:1108 UpdateOneIter).  ``fobj``:
         a custom objective, called as ``fobj(margin, dtrain) -> (grad,
-        hess)`` on the raw margins of the rows, (R,) or (R, K)."""
+        hess)`` on the raw margins of the rows, (R,) or (R, K); on a DART
+        round that drops trees, once, on the margin without them."""
         cache = self._train_cache(dtrain)
         bounds = cache.bounds()
         if bounds is not None and hasattr(self.objective, "set_bounds"):
             # before each gradient (reference core.py:452-456)
             self.objective.set_bounds(*bounds)
-        if fobj is not None:
-            margin = cache.margin[cache.valid].cpu().numpy()
-            grad, hess = fobj(margin[:, 0] if self.n_groups == 1 else margin,
-                              dtrain)
-            gpair = self._dense_gpair(cache, grad, hess)
+        if self.process_type == "update":
+            # the update flow keeps its own margin of the rounds already
+            # updated (reference core.py:489-499)
+            if fobj is not None:
+                raise NotImplementedError(
+                    "process_type='update' with a custom objective is not "
+                    "supported (refresh recomputes gradients internally)")
+            self._ensure_base_margin(cache)
+            self._update_existing_trees(cache, iteration)
+            return
+        self._sync_margin(cache)
+        drop_idx = self._select_dart_drops(iteration)
+        if drop_idx:
+            # the gradient of a drop round is taken on the margin without
+            # the dropped trees, in _boost_trees
+            gpair = None
+        elif fobj is not None:
+            gpair = self._fobj_gpair(cache, fobj, cache.margin, dtrain)
         else:
             gpair = self.objective.get_gradient(cache.margin, cache.labels,
                                                 cache.weights, iteration)
-        gpair = gpair * cache.valid[:, None, None]  # (R_pad, K, 2)
-        self._boost_trees(cache, gpair, iteration)
+        if gpair is not None:
+            gpair = gpair * cache.valid[:, None, None]  # (R_pad, K, 2)
+        if self.booster_kind == "gblinear":
+            self._boost_linear(cache, gpair)
+        else:
+            self._boost_trees(cache, gpair, iteration, fobj=fobj,
+                              drop_idx=drop_idx)
+
+    def _fobj_gpair(self, cache: _Cache, fobj, margin, dmat: DMatrix):
+        """A custom objective's gradient pairs on the rows' raw margins."""
+        m = margin[cache.valid].cpu().numpy()
+        grad, hess = fobj(m[:, 0] if self.n_groups == 1 else m, dmat)
+        return self._dense_gpair(cache, grad, hess)
 
     def boost(self, dtrain: DMatrix, grad, hess, iteration: int = 0) -> None:
         """One iteration from the caller's gradient pairs, (R,) or (R, K)
         each (reference: XGBoosterBoostOneIter, core.py:551)."""
+        self._configure()
+        if self.process_type == "update":
+            raise NotImplementedError(
+                "boost() with raw grad/hess cannot drive process_type="
+                "'update' (the refresh updater recomputes gradients per "
+                "round); use update() instead")
+        if self._select_dart_drops(iteration):
+            raise NotImplementedError(
+                "boost() with raw grad/hess cannot honour a DART dropout "
+                "round; use update(fobj=...) or set rate_drop=0")
         cache = self._train_cache(dtrain)
-        gpair = self._dense_gpair(cache, grad, hess)
-        self._boost_trees(cache, gpair * cache.valid[:, None, None],
-                          iteration)
+        self._sync_margin(cache)
+        gpair = self._dense_gpair(cache, grad, hess) * \
+            cache.valid[:, None, None]
+        if self.booster_kind == "gblinear":
+            self._boost_linear(cache, gpair)
+        else:
+            self._boost_trees(cache, gpair, iteration)
 
     def _dense_gpair(self, cache: _Cache, grad, hess) -> torch.Tensor:
         """Host gradient pairs of the rows -> (R_pad, K, 2) f32 on the
         device, zero on the padding rows (reference core.py:536)."""
-        R = cache.ellpack.n_rows
+        R = cache.n_real
         g = np.asarray(grad, np.float32).reshape(R, -1)
         h = np.asarray(hess, np.float32).reshape(R, -1)
         out = torch.zeros((cache.n_rows(), g.shape[1], 2),
@@ -443,14 +587,15 @@ class Booster:
             (seed * 1_000_003 + iteration * 131 + tag) % (2**63))
 
     def _feature_masks(self, iteration: int, group: int, n_features: int,
-                       feature_weights=None):
+                       feature_weights=None, host: bool = False):
         """ColumnSampler (reference: src/common/random.h ColumnSampler):
         each level samples exactly max(1, frac * n_avail) of the surviving
         features without replacement, by the k smallest exponential keys
         per row, divided by ``feature_weights`` where given (the weighted
         draw, Efraimidis-Spirakis).  The draws are numpy on the host, in
         the reference's order, so they agree with it bitwise.  None when
-        nothing is sampled."""
+        nothing is sampled.  ``host``: the masks as numpy (the exact
+        grower's), else tensors on the booster's device."""
         tp = self.tparam
         fw = None
         if feature_weights is not None:
@@ -500,31 +645,65 @@ class Booster:
             if tp.colsample_bynode < 1.0:
                 m = sample(np.broadcast_to(m, (n_nodes, n_features)).copy(),
                            tp.colsample_bynode)
-            return torch.from_numpy(np.atleast_2d(m)).to(self.device)
+            m = np.atleast_2d(m)
+            return m if host else torch.from_numpy(m).to(self.device)
 
         return per_level
 
-    def _boost_trees(self, cache: _Cache, gpair, iteration: int) -> None:
-        """Grow one round's trees (reference core.py:1516-1617, the
+    def _boost_trees(self, cache: _Cache, gpair, iteration: int, fobj=None,
+                     drop_idx=()) -> None:
+        """Grow one round's trees (reference core.py:1307-1618, the
         sequential branch): for each parallel tree p its column sampler
         and row sample, seeded by ``iteration * 131 + p`` and shared by the
         K class trees, which grow in class order on their own column of
-        the gradient pairs; tree k adds its leaves into margin column k."""
+        the gradient pairs; tree k adds its leaves into margin column k.
+        ``gpair`` is None on a DART round that drops ``drop_idx``: the
+        gradient is taken here, on the margin without them."""
+        if self.tree_method == "exact":
+            # raw host values: no sketch, no binned page, no grower
+            if self.deterministic_histogram:
+                raise NotImplementedError(
+                    "deterministic_histogram applies to histogram growers; "
+                    "tree_method='exact' has no histogram")
+            if self.tparam.max_depth <= 0 and self.tparam.max_leaves <= 0:
+                raise ValueError(
+                    "tree_method='exact' with max_depth=0 needs a positive "
+                    "max_leaves to bound the tree")
+            self._boost_trees_exact_loop(cache, gpair, iteration, fobj,
+                                         drop_idx)
+            return
         mono = self.tparam.monotone_constraints
         n_features = cache.bins.shape[1]
         if mono is not None and len(mono) != n_features:
             raise ValueError(
                 f"monotone_constraints has {len(mono)} entries but data has "
                 f"{n_features} features")
+        drop_margin = start = None
+        if drop_idx:
+            gpair, drop_margin = self._dart_gpair(cache, drop_idx, fobj,
+                                                  iteration)
+            # the round's trees add into cache.margin in place; the commit
+            # needs the margin they started from
+            start = cache.margin.clone()
         K = gpair.shape[1]
         cat_mask = cache.dmat.cat_mask()
         if self.multi_strategy == "multi_output_tree" and K > 1:
+            if self.tree_method == "approx":
+                raise NotImplementedError(
+                    f"tree_method={self.tree_method!r} with "
+                    "multi_output_tree is not supported yet")
             self._boost_multi_target(cache, gpair, iteration, cat_mask)
             return
+        bins, cuts_pad, n_bins, cuts_host = (cache.bins, cache.cuts_pad,
+                                             cache.n_bins, cache.cuts_host)
+        if self.tree_method == "approx":
+            bins, cuts_pad, n_bins, cuts_host = self._approx_page(cache,
+                                                                  gpair)
         # the reference's lockstep gate (core.py:1510-1516, :1522); where
         # it does not hold, the sequential loop is the reference's own
         # semantics, not a fallback of the device
         lockstep = self._lockstep and K > 1 and cat_mask is None
+        n_new = 0
         for p in range(self.num_parallel_tree):
             fmask_fn = self._feature_masks(iteration * 131 + p, p,
                                            n_features,
@@ -532,24 +711,23 @@ class Booster:
             gp = self._subsample_mask(gpair, iteration * 131 + p)
             if lockstep and fmask_fn is None:
                 lk = self._lockstep_grower
-                state = lk.grow(cache.bins, gp.contiguous(), cache.valid,
-                                cache.cuts_pad, cache.n_bins)
+                state = lk.grow(bins, gp.contiguous(), cache.valid, cuts_pad,
+                                n_bins)
                 cache.margin += leaf_margin_delta_k(state.pos,
                                                     state.leaf_val).T
                 for k in range(K):
-                    self.trees.append(RegTree.from_grown(
-                        lk.to_host_class(state, k)))
-                    self.tree_info.append(k)
+                    self._append_tree(RegTree.from_grown(
+                        lk.to_host_class(state, k)), k)
+                n_new += K
                 continue
             for k in range(K):
                 state = self._grower.grow(
-                    cache.bins, gp[:, k, :].contiguous(), cache.valid,
-                    cache.cuts_pad, cache.n_bins, feature_masks=fmask_fn,
-                    cat_mask=cat_mask)
+                    bins, gp[:, k, :].contiguous(), cache.valid, cuts_pad,
+                    n_bins, feature_masks=fmask_fn, cat_mask=cat_mask)
                 tree = None
                 if self._best_first:
-                    tree, leaf_val = self._grower.to_regtree(
-                        state, cache.cuts_host)
+                    tree, leaf_val = self._grower.to_regtree(state,
+                                                             cuts_host)
                 else:
                     leaf_val = state.leaf_val
                 if self._adaptive:
@@ -559,9 +737,221 @@ class Booster:
                 if tree is None:
                     tree = RegTree.from_grown(HistTreeGrower.to_host(state))
                 cache.margin[:, k] += leaf_margin_delta(state.pos, leaf_val)
-                self.trees.append(tree)
-                self.tree_info.append(k)
+                self._append_tree(tree, k)
+                n_new += 1
+        if drop_idx:
+            cache.margin = self._dart_commit(cache, start, n_new, drop_idx,
+                                             drop_margin)
         cache.n_trees_applied = len(self.trees)
+
+    def _append_tree(self, tree: RegTree, group: int) -> None:
+        self.trees.append(tree)
+        self.tree_info.append(group)
+        self.tree_weights.append(1.0)
+
+    def _approx_page(self, cache: _Cache, gpair):
+        """tree_method="approx" (reference core.py:1456-1497, grow_histmaker
+        of updater_approx.cc): the round's hessians summed over the output
+        groups, copied to the host once, weight the rows of a fresh host
+        sketch (numpy, the reference's bits), and the device bins the
+        matrix against those cuts.  The cut width stays ``max_bin``.
+        Returns the round's (bins, cuts_pad, n_bins, host cuts)."""
+        max_bin = self.tparam.max_bin
+        hess = gpair[..., 1].cpu().numpy()  # (R_pad, K)
+        hess_w = hess.sum(axis=1)[: cache.n_real]
+        # each column's sort is the matrix's, found once (a training
+        # frame's codes are the booster's: no recoding)
+        cuts = cache.dmat.weighted_sketch().cuts(
+            max_bin, hess_w.astype(np.float64))
+        page = build_ellpack(self._cache_X(cache), cuts)
+        if page.n_padded != cache.bins.shape[0]:
+            raise AssertionError("approx page padding mismatch")
+        cuts_host = cuts.padded(max_bin)
+        return (page.bins, torch.from_numpy(cuts_host).to(self.device),
+                torch.from_numpy(cuts.n_bins_array()).to(self.device),
+                cuts_host)
+
+    def _boost_trees_exact_loop(self, cache: _Cache, gpair, iteration: int,
+                                fobj, drop_idx) -> None:
+        """A tree_method="exact" round (reference core.py:953-987): the
+        host enumerator, with the DART, forest, column and row sampling
+        machinery of the hist path."""
+        drop_margin = start = None
+        if drop_idx:
+            gpair, drop_margin = self._dart_gpair(cache, drop_idx, fobj,
+                                                  iteration)
+            start = cache.margin.clone()
+        K = gpair.shape[1]
+        if self.multi_strategy == "multi_output_tree" and K > 1:
+            raise NotImplementedError(
+                "tree_method='exact' with multi_output_tree is not "
+                "supported yet")
+        n_new = 0
+        n_features = cache.dmat.num_col()
+        for p in range(self.num_parallel_tree):
+            fmask_fn = self._feature_masks(iteration * 131 + p, p,
+                                           n_features,
+                                           cache.dmat.feature_weights,
+                                           host=True)
+            gp = self._subsample_mask(gpair, iteration * 131 + p)
+            # the parallel tree's gradients to the host, once
+            gp_host = gp[: cache.n_real].cpu().numpy()
+            for k in range(K):
+                tree, delta = self._grow_exact_one(cache, gp_host, k,
+                                                   fmask_fn)
+                cache.margin[:, k] += torch.from_numpy(delta).to(self.device)
+                self._append_tree(tree, k)
+                n_new += 1
+        if drop_idx:
+            cache.margin = self._dart_commit(cache, start, n_new, drop_idx,
+                                             drop_margin)
+        cache.n_trees_applied = len(self.trees)
+
+    def _grow_exact_one(self, cache: _Cache, gp_host: np.ndarray, k: int,
+                        fmask_fn):
+        """One exact tree (reference core.py:989-1119, one process): the
+        host enumeration over raw values (updater_colmaker.cc ColMaker)
+        chained with the pruner, as the reference chains
+        "grow_colmaker,prune"; returns (RegTree, the margin's delta as
+        host f32 over the cache's rows)."""
+        tp = self.tparam
+        cat_mask = cache.dmat.cat_mask()
+        if cat_mask is not None and np.any(cat_mask):
+            raise NotImplementedError(
+                "tree_method='exact' does not support categorical features "
+                "(same as the reference updater)")
+        if tp.monotone_constraints is not None or tp.interaction_constraints:
+            raise NotImplementedError(
+                "constraints are not supported with tree_method='exact'; "
+                "use hist or approx")
+        if tp.grow_policy == "lossguide":
+            raise ValueError("tree_method='exact' only supports depthwise "
+                             "growth (driver.h lossguide needs hist/approx)")
+        if getattr(cache, "exact_order", None) is None:
+            # round-invariant, as the colmaker's SortedCSC
+            cache.exact_order = np.argsort(self._host_X(cache), axis=0,
+                                           kind="stable").astype(np.int32)
+        X = self._host_X(cache)
+        R = X.shape[0]
+        gh = np.asarray(gp_host[:, k, :], np.float64)
+        tree, pos = grow_exact(
+            X, gh[:, 0], gh[:, 1],
+            max_depth=int(tp.max_depth), max_leaves=int(tp.max_leaves),
+            lambda_=float(tp.lambda_), alpha=float(tp.alpha),
+            min_child_weight=float(tp.min_child_weight),
+            max_delta_step=float(tp.max_delta_step),
+            eta=float(tp.eta), feature_masks=fmask_fn,
+            col_order=cache.exact_order)
+        tree, n_pruned = prune_tree(tree, gamma=float(tp.gamma),
+                                    eta=float(tp.eta))
+        if n_pruned:
+            # node ids changed: route the rows through the pruned tree
+            masks = _route_masks(tree, X)
+            pos = np.zeros(R, np.int32)
+            for nid in np.nonzero(tree.left_children == -1)[0]:
+                pos[masks[nid]] = nid
+        if self._adaptive:
+            # ObjFunction::UpdateTreeLeaf: each leaf the weighted
+            # alpha-quantile of its rows' residuals against the running
+            # margin, on the host as the reference's exact path does
+            if getattr(cache, "exact_adaptive_meta", None) is None:
+                cache.exact_adaptive_meta = (
+                    cache.labels[:R].cpu().numpy(),
+                    cache.valid[:R].cpu().numpy().astype(bool),
+                    (cache.weights[:R].cpu().numpy()
+                     if cache.weights is not None else None))
+            labels, valid, w = cache.exact_adaptive_meta
+            residual = labels - cache.margin[:R, k].cpu().numpy()
+            alpha_q = float(self.objective.adaptive_alpha(k))
+            for nid in np.nonzero(tree.left_children == -1)[0]:
+                m = (pos == nid) & valid
+                if not np.any(m):
+                    continue
+                res = residual[m]
+                if w is None:
+                    q = np.quantile(res, alpha_q)
+                else:
+                    srt = np.argsort(res)
+                    cw = np.cumsum(w[m][srt])
+                    q = res[srt][np.searchsorted(cw, alpha_q * cw[-1])]
+                tree.split_conditions[nid] = np.float32(float(tp.eta) * q)
+        delta = np.zeros(cache.margin.shape[0], np.float32)
+        delta[:R] = tree.split_conditions[pos]
+        return tree, delta
+
+    # ----------------------------------------------------------------- DART
+    def _select_dart_drops(self, iteration: int) -> List[int]:
+        """The round's dropped trees (reference core.py:1281-1305,
+        gbtree.cc Dart::DropTrees): numpy draws, the same for a given
+        iteration; empty when dropout does not fire."""
+        if not (self.booster_kind == "dart" and self.trees
+                and self.rate_drop > 0.0):
+            return []
+        rng = self._rng(iteration, 97)
+        if rng.random() < self.skip_drop:
+            return []
+        n = len(self.trees)
+        if self.sample_type == "weighted":
+            wts = np.asarray(self.tree_weights, np.float64)
+            prob = wts / max(wts.sum(), 1e-16)
+            k_drop = int(rng.binomial(n, self.rate_drop))
+            if k_drop == 0 and self.one_drop:
+                k_drop = 1
+            if k_drop == 0:
+                return []
+            return list(rng.choice(n, size=min(k_drop, n), replace=False,
+                                   p=prob))
+        mask = rng.random(n) < self.rate_drop
+        drop_idx = list(np.nonzero(mask)[0])
+        if not drop_idx and self.one_drop:
+            drop_idx = [int(rng.integers(0, n))]
+        return drop_idx
+
+    def _dart_gpair(self, cache: _Cache, drop_idx, fobj, iteration: int):
+        """A drop round's gradient pairs, on the margin without the dropped
+        trees (reference core.py:1620-1647), and the dropped trees' margin;
+        a custom objective is called here, once."""
+        drop_margin = self._margin_for_trees(self._cache_X(cache), drop_idx)
+        pad = cache.margin.shape[0] - drop_margin.shape[0]
+        if pad:
+            drop_margin = torch.cat([drop_margin, drop_margin.new_zeros(
+                (pad, drop_margin.shape[1]))])
+        reduced = cache.margin - drop_margin
+        if fobj is not None:
+            gpair = self._fobj_gpair(cache, fobj, reduced, cache.dmat)
+        else:
+            gpair = self.objective.get_gradient(reduced, cache.labels,
+                                                cache.weights, iteration)
+        return gpair * cache.valid[:, None, None], drop_margin
+
+    def _dart_commit(self, cache: _Cache, start, n_new: int, drop_idx,
+                     drop_margin):
+        """The rescale after a drop round (reference core.py:1649-1676,
+        Dart::NormalizeTrees): with k dropped and lr = eta, "tree" scales
+        the new trees by 1/(k+lr) and the dropped by k/(k+lr), "forest"
+        both by 1/(1+lr).  Returns the round's margin: the start margin
+        less the dropped trees' lost share plus the new trees' scaled
+        contribution, their f32 difference from the start, in the
+        reference's order."""
+        k_d = len(drop_idx)
+        lr = float(self.tparam.eta)
+        if self.normalize_type == "forest":
+            new_w = 1.0 / (1.0 + lr)
+            factor = 1.0 / (1.0 + lr)
+        else:
+            new_w = 1.0 / (k_d + lr)
+            factor = k_d / (k_d + lr)
+        for t in range(len(self.trees) - n_new, len(self.trees)):
+            self.tree_weights[t] = new_w
+        for t in drop_idx:
+            self.tree_weights[t] *= factor
+        new_contrib = cache.margin - start
+        f32 = lambda v: torch.tensor(np.float32(v), device=start.device)  # noqa: E731
+        out = start - f32(1.0 - factor) * drop_margin + f32(new_w) * \
+            new_contrib
+        self._weights_version += 1
+        cache.weights_version = self._weights_version
+        return out
 
     def _refit_leaves(self, cache: _Cache, state, tree: Optional[RegTree],
                       k: int) -> torch.Tensor:
@@ -591,6 +981,10 @@ class Booster:
         """One vector-leaf tree a round per parallel tree (reference
         core.py:1121-1190): 2K-channel histograms, summed-gain splits,
         K-vector leaves, seeded as the scalar trees (iteration * 131 + p)."""
+        if self.booster_kind == "dart":
+            raise NotImplementedError(
+                "booster='dart' with multi_strategy='multi_output_tree' is "
+                "not supported")
         if self.deterministic_histogram:
             raise NotImplementedError(
                 "deterministic_histogram is not supported with "
@@ -615,10 +1009,171 @@ class Booster:
                 cache.n_bins, feature_masks=fmask_fn)
             cache.margin += leaf_margin_delta_multi(state.pos,
                                                     state.leaf_val)
-            self.trees.append(RegTree.from_grown_multi(
-                MultiTargetTreeGrower.to_host(state)))
-            self.tree_info.append(0)
+            self._append_tree(RegTree.from_grown_multi(
+                MultiTargetTreeGrower.to_host(state)), 0)
         cache.n_trees_applied = len(self.trees)
+
+    # ------------------------------------------------------------- gblinear
+    def _linear_XT(self, cache: _Cache) -> torch.Tensor:
+        """The zero-filled matrix transposed, (F, R) contiguous on the
+        device, made once a cache: a coordinate reads one row."""
+        if cache.linear_XT is None:
+            cache.linear_XT = torch.nan_to_num(
+                self._cache_X(cache), nan=0.0).T.contiguous()
+        return cache.linear_XT
+
+    def _linear_margin(self, cache: _Cache) -> torch.Tensor:
+        """The linear model's margin over the cache's rows, padded as the
+        cache is (reference core.py:586-600)."""
+        XT = self._linear_XT(cache)
+        dev = XT.device
+        base = torch.from_numpy(self._base_margin_value).to(dev)[None, :]
+        m = gblinear.linear_predict(
+            XT, torch.from_numpy(self.linear_weights).to(dev),
+            torch.from_numpy(self.linear_bias).to(dev)) + base
+        rows = (cache.margin.shape[0] if cache.margin is not None
+                else cache.n_rows())
+        if rows > m.shape[0]:
+            m = torch.cat([m, m.new_zeros((rows - m.shape[0], m.shape[1]))])
+        return m
+
+    def _boost_linear(self, cache: _Cache, gpair) -> None:
+        """A gblinear round (reference core.py:602-668, gblinear.cc
+        GBLinear::DoBoost): per output group, the bias step and the
+        coordinate chain in the selector's order, on the device; the
+        weights come back to the host once a round."""
+        F = cache.dmat.num_col()
+        K = gpair.shape[1]
+        if self.linear_weights is None:
+            self.linear_weights = np.zeros((F, K), np.float32)
+            self.linear_bias = np.zeros(K, np.float32)
+        updater = str(self.params.get("updater", "coord_descent"))
+        if updater not in ("coord_descent", "shotgun"):
+            raise ValueError(
+                f"unknown gblinear updater {updater!r}; expected "
+                "'coord_descent' or 'shotgun'")
+        # coordinate_common.h: shotgun shuffles its order every round,
+        # coord_descent walks the features cyclically
+        selector = str(self.params.get(
+            "feature_selector",
+            "shuffle" if updater == "shotgun" else "cyclic"))
+        if selector not in gblinear.SELECTORS:
+            raise ValueError(
+                f"unknown feature_selector {selector!r}; expected one of "
+                f"{gblinear.SELECTORS}")
+        top_k = int(self.params.get("top_k", 0) or 0)
+        order = None
+        if selector not in ("greedy", "thrifty"):
+            order = gblinear.selector_order(
+                selector, F, self._linear_rounds,
+                int(self.params.get("seed", 0)))
+        XT = self._linear_XT(cache)
+        dev = XT.device
+        W = torch.from_numpy(self.linear_weights).to(dev)
+        b = torch.from_numpy(self.linear_bias).to(dev)
+        R = cache.n_real
+        eta, lam, alpha = (float(self.tparam.eta), float(self.tparam.lambda_),
+                           float(self.tparam.alpha))
+        for k in range(K):
+            g, h = gpair[:R, k, 0], gpair[:R, k, 1]
+            if selector == "greedy":
+                wk, bk, _ = gblinear.linear_update_greedy(
+                    XT, g, h, W[:, k], b[k],
+                    steps=gblinear.effective_top_k(top_k, F), eta=eta,
+                    lambda_=lam, alpha=alpha)
+            else:
+                if selector == "thrifty":
+                    # ranked per group from the round's starting gradients
+                    # (host f64, as the reference ranks them)
+                    gh = gpair[:R, k, :].cpu().numpy()
+                    order = gblinear.thrifty_order(
+                        np.nan_to_num(self._host_X(cache), nan=0.0),
+                        gh[:, 0], gh[:, 1], self.linear_weights[:, k],
+                        top_k=top_k, alpha=alpha, lambda_=lam)
+                wk, bk = gblinear.linear_update(
+                    XT, g, h, W[:, k], b[k], order, eta=eta, lambda_=lam,
+                    alpha=alpha)
+            W[:, k] = wk
+            b[k] = bk
+        self.linear_weights = W.cpu().numpy()
+        self.linear_bias = b.cpu().numpy()
+        self._linear_rounds += 1
+        cache.margin = self._linear_margin(cache)
+        cache.n_trees_applied = self._linear_rounds
+
+    # -------------------------------------------------- process_type=update
+    def _update_existing_trees(self, cache: _Cache, iteration: int) -> None:
+        """process_type="update" (reference core.py:1191-1279, gbtree.cc
+        DoBoost with kUpdate): the updater sequence over round
+        ``iteration``'s existing trees.  The round's gradients come from
+        the margin of the rounds before it as already updated, taken on
+        the device and copied to the host once; refresh, prune and sync
+        rewrite the trees there."""
+        if not self.updater_seq:
+            raise ValueError(
+                "process_type='update' requires updater=..., e.g. "
+                "updater='refresh,prune'")
+        bad = set(self.updater_seq) - {"prune", "refresh", "sync"}
+        if bad:
+            raise ValueError(f"unsupported updater(s) for process_type="
+                             f"'update': {sorted(bad)}")
+        tpr = self.trees_per_round
+        start = iteration * tpr
+        if start >= len(self.trees):
+            raise ValueError(
+                f"process_type='update' round {iteration} exceeds the "
+                f"model's {len(self.trees) // tpr} boosted rounds")
+        X = self._cache_X(cache)
+
+        def margin_of(ids):  # the trees' margin, padded to the cache's rows
+            delta = self._margin_for_trees(X, ids)
+            pad = cache.n_rows() - delta.shape[0]
+            if pad:
+                delta = torch.cat([delta, delta.new_zeros(
+                    (pad, delta.shape[1]))])
+            return delta
+
+        if getattr(cache, "upd_margin_round", None) != iteration:
+            # the margin of the updated prefix, for a fresh cache at any
+            # starting round
+            margin = cache.base_margin_init(self._base_margin_value,
+                                            self.n_groups)
+            if start > 0:
+                margin = margin + margin_of(list(range(0, start)))
+            cache.upd_margin = margin
+        gpair = self.objective.get_gradient(
+            cache.upd_margin, cache.labels, cache.weights, iteration
+        ) * cache.valid[:, None, None]
+        gp = gpair.cpu().numpy()
+        valid = cache.valid.cpu().numpy()
+        Xh = self._host_X(cache)
+        end = min(start + tpr, len(self.trees))
+        for tid in range(start, end):
+            k = self.tree_info[tid]
+            tree = self.trees[tid]
+            for upd in self.updater_seq:
+                if upd == "refresh":
+                    tree = refresh_tree(
+                        tree, Xh, gp[valid, k, 0], gp[valid, k, 1],
+                        eta=float(self.tparam.eta),
+                        lambda_=float(self.tparam.lambda_),
+                        alpha=float(self.tparam.alpha),
+                        refresh_leaf=self.refresh_leaf)
+                elif upd == "prune":
+                    tree, _ = prune_tree(
+                        tree, gamma=float(self.tparam.gamma),
+                        eta=float(self.tparam.eta),
+                        max_depth=max(int(self.tparam.max_depth), 0))
+            self.trees[tid] = tree
+        if "sync" in self.updater_seq:
+            self.trees, self.tree_info, self.tree_weights = sync_trees(
+                self.trees, self.tree_info, self.tree_weights)
+        # the running margin takes this round's updated trees
+        cache.upd_margin = cache.upd_margin + margin_of(
+            list(range(start, end)))
+        cache.upd_margin_round = iteration + 1
+        # the trees changed: every cached margin rebuilds
+        self._weights_version += 1
 
     # ------------------------------------------------------------------ eval
     def eval_set(self, evals: Sequence[Tuple[DMatrix, str]],
@@ -700,8 +1255,34 @@ class Booster:
             return dmat.X.to(self.device)
         return torch.from_numpy(X).to(self.device)
 
-    def _stacked(self, tree_slice: slice):
-        trees = self.trees[tree_slice]
+    def _cache_X(self, cache: _Cache) -> torch.Tensor:
+        """A cache's matrix on the booster's device, made once."""
+        if cache.raw_X is None:
+            cache.raw_X = self._device_X(cache.dmat)
+        return cache.raw_X
+
+    def _host_X(self, cache: _Cache) -> np.ndarray:
+        """A cache's (R, F) f32 host matrix, recoded as ``_device_X``
+        recodes it, made once: the host steps' input (approx's sketch,
+        exact's enumeration, the updaters' routing)."""
+        if cache.host_X is None:
+            cache.host_X = recode_dense(cache.dmat.host_dense(),
+                                        self._cat_categories,
+                                        cache.dmat.cat_categories)
+        return cache.host_X
+
+    def _stacked(self, tree_slice: slice, tree_ids=None):
+        """The trees' padded node arrays stacked on the device, a DART
+        tree's leaf values times its weight (reference core.py:1774-1811:
+        ``value * np.float32(w)`` on the host where w != 1)."""
+        if tree_ids is not None:
+            trees = [self.trees[i] for i in tree_ids]
+            info = [self.tree_info[i] for i in tree_ids]
+            wts = [self.tree_weights[i] for i in tree_ids]
+        else:
+            trees = self.trees[tree_slice]
+            info = self.tree_info[tree_slice]
+            wts = self.tree_weights[tree_slice]
         width = max(t.n_nodes for t in trees)
         depth = max(t.max_depth for t in trees) + 1
         has_cat = any(t.has_categorical for t in trees)
@@ -709,8 +1290,11 @@ class Booster:
                 t.leaf_vector is not None for t in trees):
             raise ValueError("a model mixes vector-leaf and scalar trees")
         cols: Dict[str, list] = {}
-        for t in trees:
-            for k, v in t.padded_arrays(width).items():
+        for t, w in zip(trees, wts):
+            arrs = t.padded_arrays(width)
+            if w != 1.0:
+                arrs["value"] = arrs["value"] * np.float32(w)
+            for k, v in arrs.items():
                 cols.setdefault(k, []).append(v)
         if has_cat:
             n_cats = max(t.max_category for t in trees) + 1
@@ -719,10 +1303,16 @@ class Booster:
             del cols["is_cat"]
         stacked = {k: torch.from_numpy(np.stack(v)).to(self.device)
                    for k, v in cols.items()}
-        return stacked, self.tree_info[tree_slice], depth
+        return stacked, info, depth
 
-    def _margin_delta_for(self, X, tree_slice: slice, init=None):
-        s, groups, depth = self._stacked(tree_slice)
+    def _margin_for_trees(self, X, tree_ids: Sequence[int]):
+        """The margin of the trees ``tree_ids`` alone (reference
+        core.py:1813), from zero."""
+        return self._margin_delta_for(X, slice(0, 0), tree_ids=tree_ids)
+
+    def _margin_delta_for(self, X, tree_slice: slice, init=None,
+                          tree_ids=None):
+        s, groups, depth = self._stacked(tree_slice, tree_ids)
         if "value_vec" in s:  # vector leaves add to every output
             return predict_margin_delta_multi(
                 X, s["feat"], s["thr"], s["dleft"], s["left"], s["right"],
@@ -740,6 +1330,11 @@ class Booster:
         counts rounds; ``pred_leaf``: the (R, T) int32 leaf id of every
         row in every tree of the range."""
         self._configure()
+        if self.booster_kind == "gblinear":
+            if pred_leaf:
+                raise ValueError(
+                    "pred_leaf is not defined for the gblinear booster")
+            return self._predict_linear(data, output_margin, strict_shape)
         lo, hi = iteration_range
         hi = hi or self.num_boosted_rounds()
         tpr = self.trees_per_round
@@ -764,6 +1359,26 @@ class Booster:
             um = np.asarray(data.base_margin, np.float32).reshape(
                 data.num_row(), -1)
             margin = margin - base[None, :] + um
+        out = margin if output_margin else \
+            self.objective.pred_transform(torch.from_numpy(margin)).numpy()
+        if self.n_groups == 1 and not strict_shape:
+            out = out[:, 0]
+        return out
+
+    def _predict_linear(self, data: DMatrix, output_margin: bool,
+                        strict_shape: bool) -> np.ndarray:
+        """X @ W + b plus the base margin (reference core.py:1999-2020;
+        as there, a matrix's own base margin is not read)."""
+        base = np.broadcast_to(self.base_score.reshape(-1), (self.n_groups,))
+        if self.linear_weights is None:
+            margin = np.broadcast_to(
+                base, (data.num_row(), self.n_groups)).copy()
+        else:
+            XT = torch.nan_to_num(self._device_X(data), nan=0.0).T
+            margin = gblinear.linear_predict(
+                XT, torch.from_numpy(self.linear_weights).to(self.device),
+                torch.from_numpy(self.linear_bias).to(self.device)
+            ).cpu().numpy() + base[None, :]
         out = margin if output_margin else \
             self.objective.pred_transform(torch.from_numpy(margin)).numpy()
         if self.n_groups == 1 and not strict_shape:
@@ -795,6 +1410,9 @@ class Booster:
         return self.n_groups * self.num_parallel_tree
 
     def num_boosted_rounds(self) -> int:
+        self._configure()
+        if self.booster_kind == "gblinear":
+            return self._linear_rounds
         return len(self.trees) // self.trees_per_round
 
     def __getitem__(self, val: slice) -> "Booster":
@@ -806,25 +1424,43 @@ class Booster:
         if val.step not in (None, 1):
             raise ValueError("Booster slicing takes no step")
         self._configure()
+        if self.booster_kind == "gblinear":
+            raise ValueError("Slice is not supported by the gblinear booster")
         lo = val.start or 0
         hi = val.stop if val.stop is not None else self.num_boosted_rounds()
-        out = Booster(dict(self.params), device=self.device)
+        out = self._bare_copy()
         k = self.trees_per_round
-        out.trees = self.trees[lo * k: hi * k]
+        # the trees' own copies: an update pass rewrites trees in place
+        out.trees = copy.deepcopy(self.trees[lo * k: hi * k])
         out.tree_info = self.tree_info[lo * k: hi * k]
-        # the training frame's categories too: a slice recodes frames at
+        out.tree_weights = list(self.tree_weights[lo * k: hi * k])
+        return out
+
+    def _bare_copy(self) -> "Booster":
+        """A booster of the same parameters and model state but no trees,
+        on this booster's device, without the caches."""
+        out = Booster(dict(self.params), device=self.device)
+        # the training frame's categories too: a copy recodes frames at
         # prediction as its booster does
         for name in ("_base_margin_value", "_num_feature", "feature_names",
                      "feature_types", "best_iteration", "best_score",
-                     "_cat_categories"):
+                     "_cat_categories", "_linear_rounds"):
             setattr(out, name, getattr(self, name))
         out.attributes = dict(self.attributes)
         return out
 
     def copy(self) -> "Booster":
-        """A booster of the same trees and parameters, without the caches
-        (reference core.py:2502)."""
-        return self[0: self.num_boosted_rounds()]
+        """A booster of the same model and parameters, without the caches
+        (reference core.py:2502; a gblinear booster, which cannot be
+        sliced, copies its weights)."""
+        self._configure()
+        if self.booster_kind != "gblinear":
+            return self[0: self.num_boosted_rounds()]
+        out = self._bare_copy()
+        if self.linear_weights is not None:
+            out.linear_weights = self.linear_weights.copy()
+            out.linear_bias = self.linear_bias.copy()
+        return out
 
     def num_features(self) -> int:
         if self._num_feature:
@@ -941,9 +1577,23 @@ class Booster:
             return "[" + ",".join(f"{p:.9E}" for p in probs) + "]"
         return f"{probs[0]:.9E}"
 
-    def save_raw_dict(self) -> dict:
-        self._configure()
-        n_feat = self.num_features()
+    def _gbooster_dict(self, n_feat: int) -> dict:
+        """The model's ``gradient_booster`` section (reference
+        core.py:2112-2144): gbtree's trees; DART's the same under
+        ``gbtree`` beside ``weight_drop``; gblinear's feature-major
+        weights with the per-group bias last (gblinear.cc SaveModel)."""
+        if self.booster_kind == "gblinear":
+            W = self.linear_weights if self.linear_weights is not None \
+                else np.zeros((n_feat, self.n_groups), np.float32)
+            b = self.linear_bias if self.linear_bias is not None \
+                else np.zeros(self.n_groups, np.float32)
+            return {"model": {
+                "weights": [float(x) for x in
+                            np.concatenate([W.reshape(-1), b])],
+                "param": {"num_feature": str(n_feat),
+                          "num_output_group": str(self.n_groups),
+                          "num_boosted_rounds": str(self._linear_rounds)}},
+                "name": "gblinear"}
         model = {
             "gbtree_model_param": {
                 "num_trees": str(len(self.trees)),
@@ -952,6 +1602,15 @@ class Booster:
                       for i, t in enumerate(self.trees)],
             "tree_info": list(self.tree_info),
         }
+        if self.booster_kind == "dart":
+            return {"gbtree": {"model": model},
+                    "weight_drop": [float(w) for w in self.tree_weights],
+                    "name": "dart"}
+        return {"model": model, "name": "gbtree"}
+
+    def save_raw_dict(self) -> dict:
+        self._configure()
+        n_feat = self.num_features()
         objective = {"name": self.objective.name}
         if self.objective.name.startswith("multi:"):
             objective["softmax_multiclass_param"] = {
@@ -970,7 +1629,7 @@ class Booster:
                 "attributes": attrs,
                 "feature_names": self.feature_names or [],
                 "feature_types": self.feature_types or [],
-                "gradient_booster": {"model": model, "name": "gbtree"},
+                "gradient_booster": self._gbooster_dict(n_feat),
                 "learner_model_param": {
                     "base_score": self._base_score_str(),
                     "boost_from_average": "1",
@@ -1037,15 +1696,7 @@ class Booster:
         self._base_margin_value = np.broadcast_to(
             vals.astype(np.float32).reshape(-1), (self.n_groups,)).copy()
         self._num_feature = int(lmp.get("num_feature", "0")) or None
-        gb = gbooster["model"]
-        self.trees = [RegTree.from_json_dict(t) for t in gb["trees"]]
-        self.tree_info = [int(i) for i in gb["tree_info"]]
-        if any(t.leaf_vector is not None for t in self.trees):
-            self.params["multi_strategy"] = "multi_output_tree"
-            self._configured = False
-        npt = gb.get("gbtree_model_param", {}).get("num_parallel_tree", "1")
-        self.num_parallel_tree = int(npt or 1)
-        self.params.setdefault("num_parallel_tree", self.num_parallel_tree)
+        self._load_gbooster(gbooster)
         self.attributes = dict(learner.get("attributes", {}))
         self.attributes.pop("base_margin_exact", None)
         cc = self.attributes.pop("cat_categories", None)
@@ -1054,6 +1705,33 @@ class Booster:
                                 if cc else None)
         self.feature_names = learner.get("feature_names") or None
         self.feature_types = learner.get("feature_types") or None
+
+    def _load_gbooster(self, gbooster: dict) -> None:
+        """Read the ``gradient_booster`` section the way the reference does
+        (core.py:2233-2258)."""
+        name = gbooster.get("name", "gbtree")
+        if name == "gblinear":
+            flat = np.asarray(gbooster["model"]["weights"], np.float32)
+            K = max(self.n_groups, 1)
+            F = self._num_feature or (len(flat) // K - 1)
+            self.linear_weights = flat[: F * K].reshape(F, K)
+            self.linear_bias = flat[F * K: F * K + K]
+            self._linear_rounds = int(gbooster["model"].get("param", {}).get(
+                "num_boosted_rounds", "0") or 0)
+            self.trees, self.tree_info, self.tree_weights = [], [], []
+            return
+        gb = gbooster["gbtree"]["model"] if name == "dart" \
+            else gbooster["model"]
+        self.trees = [RegTree.from_json_dict(t) for t in gb["trees"]]
+        self.tree_info = [int(i) for i in gb["tree_info"]]
+        self.tree_weights = [float(w) for w in gbooster.get(
+            "weight_drop", [1.0] * len(self.trees))]
+        if any(t.leaf_vector is not None for t in self.trees):
+            self.params["multi_strategy"] = "multi_output_tree"
+            self._configured = False
+        npt = gb.get("gbtree_model_param", {}).get("num_parallel_tree", "1")
+        self.num_parallel_tree = int(npt or 1)
+        self.params.setdefault("num_parallel_tree", self.num_parallel_tree)
 
     # ------------------------------------------------------- configuration
     # The model files above carry the model; these carry the training
@@ -1097,7 +1775,7 @@ class Booster:
             elif default is not None:
                 section[key] = s(default)
 
-        learner_train = {"booster": "gbtree",
+        learner_train = {"booster": self.booster_kind,
                          "objective": self.objective.name}
         placed |= {"booster", "objective"}
         take(learner_train, "disable_default_eval_metric", 0)
@@ -1111,14 +1789,30 @@ class Booster:
         take(generic, "nthread", 0)
         take(generic, "validate_parameters", 0)
 
-        gbt = {"num_parallel_tree": s(self.num_parallel_tree)}
-        placed.add("num_parallel_tree")
-        take(gbt, "process_type", "default")
-        take(gbt, "tree_method", "hist")
-        take(gbt, "updater")
-        gb = {"name": "gbtree", "gbtree_train_param": gbt,
-              "updater": {"grow_quantile_histmaker": {
-                  "hist_train_param": hist_param}}}
+        # (reference core.py:2329-2351)
+        gb: dict = {"name": self.booster_kind}
+        if self.booster_kind == "gblinear":
+            lin: dict = {}
+            for k in ("updater", "feature_selector", "top_k", "eta"):
+                take(lin, k)
+            lin["lambda"] = hist_param.get("lambda", "0")
+            lin["alpha"] = hist_param.get("alpha", "0")
+            gb["gblinear_train_param"] = lin
+        else:
+            gbt = {"num_parallel_tree": s(self.num_parallel_tree)}
+            placed.add("num_parallel_tree")
+            take(gbt, "process_type", "default")
+            take(gbt, "tree_method", "hist")
+            take(gbt, "updater")
+            gb["gbtree_train_param"] = gbt
+            gb["updater"] = {"grow_quantile_histmaker": {
+                "hist_train_param": hist_param}}
+            if self.booster_kind == "dart":
+                dart: dict = {}
+                for k in ("rate_drop", "one_drop", "skip_drop",
+                          "sample_type", "normalize_type"):
+                    take(dart, k)
+                gb["dart_train_param"] = dart
 
         obj_sec: dict = {"name": self.objective.name}
         for k in ("scale_pos_weight", "num_class", "tweedie_variance_power",

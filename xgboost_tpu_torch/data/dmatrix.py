@@ -28,7 +28,7 @@ import torch
 
 from ..utils.device import resolve_device
 from .ellpack import EllpackPage, build_ellpack, build_ellpack_csr
-from .quantile import sketch_csr, sketch_dense
+from .quantile import WeightedSketch, sketch_csr, sketch_dense
 
 
 def _normalize_dense(arr: np.ndarray, missing: float,
@@ -216,6 +216,7 @@ class DMatrix:
             else np.asarray(feature_weights, np.float32))
         self._ellpack: Optional[EllpackPage] = None
         self._max_bin_built: Optional[int] = None
+        self._weighted_sketch: Optional[WeightedSketch] = None
 
     def _rows(self, arr: Any, name: str) -> np.ndarray:
         a = np.asarray(arr, dtype=np.float32)
@@ -331,6 +332,14 @@ class DMatrix:
         out.feature_names = self.feature_names
         out.feature_types = self.feature_types
         return out
+
+    def weighted_sketch(self) -> WeightedSketch:
+        """tree_method="approx"'s host sketch of this matrix, each
+        column's sort found once; the rounds weight it anew."""
+        if self._weighted_sketch is None:
+            self._weighted_sketch = WeightedSketch(self.host_dense(),
+                                                   self.cat_mask())
+        return self._weighted_sketch
 
     def ensure_ellpack(self, max_bin: int = 256,
                        row_align: int = 1024) -> EllpackPage:

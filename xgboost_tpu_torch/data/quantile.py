@@ -1,13 +1,16 @@
-"""Quantile sketch -> histogram bin boundaries (port of the dense and CSR,
-unweighted paths of xgboost_tpu/data/quantile.py, categorical features
-included: they get identity cuts, code c in bin c).
+"""Quantile sketch -> histogram bin boundaries (port of the dense and CSR
+paths of xgboost_tpu/data/quantile.py, categorical features included: they
+get identity cuts, code c in bin c).
 
 Two dense sketches, as in the reference: the exact host grid (numpy) for
 data on the CPU, and the accelerator sketch (a device sort of a row
 subsample) for data on the card.  Each agrees bitwise with its twin in the
 reference; the two differ from each other above about 10^5 rows.  CSR
 input takes the host sketch of its stored entries (``sketch_csr``) on
-either device.  Cut semantics match the reference (hist_util.cc):
+either device.  ``tree_method="approx"`` sketches anew every round with
+the rows weighted by their hessians (``WeightedSketch``, the reference's
+``sketch_dense(weights=)``): numpy on the host on either device, as the
+reference does, so the cuts are its bits.  Cut semantics match the reference (hist_util.cc):
  - bin b of feature f covers values v with cuts[b-1] <= v < cuts[b]
    (bin index = count of cuts <= v, i.e. searchsorted side='right');
  - the last cut is strictly greater than the feature max;
@@ -210,6 +213,78 @@ def _sketch_categorical(X, max_bin: int, use_device: Optional[bool],
     return _assemble_cuts(
         F, max_bin, cat_n_cats,
         lambda f: (base.feature_cuts(num_pos[f]), base.min_vals[num_pos[f]]))
+
+
+class WeightedSketch:
+    """The hessian-weighted host sketch of one matrix (reference
+    quantile.py:159-200, :258-315), for tree_method="approx", which
+    sketches the same rows under new weights every round: each column's
+    non-missing rows in the order of a stable sort of their values are
+    found once, so a round takes a gather, the f64 prefix sums of the
+    weights and a search per column.  The cuts are the reference's bits:
+    per column, the first value in that order whose prefix reaches
+    q * total (inverted CDF), or the unweighted inverted-CDF quantiles
+    where the weights sum to <= 0; categorical columns take identity
+    cuts, n_cats = their largest code + 1."""
+
+    def __init__(self, X: np.ndarray, cat_mask: Optional[np.ndarray] = None):
+        X = np.asarray(X, dtype=np.float32)
+        self.n_features = X.shape[1]
+        self.cat_mask = (None if cat_mask is None or not np.any(cat_mask)
+                         else np.asarray(cat_mask, bool))
+        num = (np.arange(self.n_features) if self.cat_mask is None
+               else np.nonzero(~self.cat_mask)[0])
+        self.num_idx = num
+        self.rows, self.vals = [], []  # per numeric column, sorted
+        for f in num:
+            col = X[:, f]
+            ok = np.nonzero(~np.isnan(col))[0]
+            order = ok[np.argsort(col[ok], kind="stable")]
+            self.rows.append(order.astype(np.int64))
+            self.vals.append(col[order])
+        self.cat_n_cats = {}
+        if self.cat_mask is not None:
+            for f in np.nonzero(self.cat_mask)[0]:
+                col = X[:, f]
+                col = col[~np.isnan(col)]
+                self.cat_n_cats[int(f)] = int(col.max()) + 1 if len(col) \
+                    else 1
+
+    def _grid(self, max_bin: int, w: np.ndarray):
+        F = len(self.num_idx)
+        n_cand = max(max_bin - 1, 1)
+        grid = np.full((F, n_cand), np.inf, dtype=np.float32)
+        nvalid = np.zeros(F, dtype=np.int64)
+        vmax = np.zeros(F, dtype=np.float32)
+        vmin = np.zeros(F, dtype=np.float32)
+        qs = np.arange(1, n_cand + 1, dtype=np.float64) / (n_cand + 1)
+        for i, (rows, sv) in enumerate(zip(self.rows, self.vals)):
+            nvalid[i] = len(sv)
+            if len(sv) == 0:
+                continue
+            vmax[i], vmin[i] = sv[-1], sv[0]
+            cdf = np.cumsum(w[rows].astype(np.float64))
+            tot = cdf[-1]
+            if tot <= 0:
+                grid[i] = np.quantile(sv, qs, method="inverted_cdf").astype(
+                    np.float32)
+            else:
+                idx = np.searchsorted(cdf, qs * tot, side="left")
+                grid[i] = sv[np.clip(idx, 0, len(sv) - 1)].astype(np.float32)
+        return grid, nvalid, vmax, vmin
+
+    def cuts(self, max_bin: int, weights: np.ndarray) -> HistogramCuts:
+        """The cuts under (R,) row weights."""
+        base = (cuts_from_quantile_grid(*self._grid(max_bin,
+                                                    np.asarray(weights)))
+                if len(self.num_idx) else None)
+        if self.cat_mask is None:
+            return base
+        num_pos = {int(f): i for i, f in enumerate(self.num_idx)}
+        return _assemble_cuts(
+            self.n_features, max_bin, self.cat_n_cats,
+            lambda f: (base.feature_cuts(num_pos[f]),
+                       base.min_vals[num_pos[f]]))
 
 
 def sketch_dense(X, max_bin: int, use_device: Optional[bool] = None,

@@ -52,9 +52,9 @@ class TrainParam:
     # categorical splits: one-hot below this many categories, the sorted
     # partition from it on (src/tree/param.h max_cat_to_onehot)
     max_cat_to_onehot: int = 4
-    # accepted as the reference accepts them; no code of the port reads
-    # them (refresh_leaf is the refresh updater's, process_type=update)
+    # accepted as the reference accepts it; no code of the port reads it
     max_cat_threshold: int = 64
+    # the refresh updater's (process_type="update"): rewrite the leaves too
     refresh_leaf: bool = True
 
     @staticmethod
@@ -152,25 +152,22 @@ def split_unknown(params: Dict[str, Any]) -> List[str]:
             if k not in known and not k.startswith("_")]
 
 
-def _is_default(key: str, v) -> bool:
-    """Whether ``v`` is the one value of ``key`` the port implements,
-    compared parsed: ``load_config`` gives every value as a string."""
-    if key == "n_devices":
-        return not isinstance(v, bool) and str(v).strip() == "1"
-    if key == "tree_method":  # the reference's aliases of hist
-        return str(v) in ("hist", "auto", "gpu_hist")
-    return str(v) == {"booster": "gbtree", "process_type": "default"}[key]
+def _is_default(v) -> bool:
+    """Whether ``v`` is the one value of an unsupported key the port
+    implements, 1, compared parsed: ``load_config`` gives every value as a
+    string."""
+    return not isinstance(v, bool) and str(v).strip() == "1"
 
 
 # parameters the port does not implement: at any value but their default
-# they raise NotImplementedError
-UNSUPPORTED = ("booster", "tree_method", "process_type", "n_devices")
+# they raise NotImplementedError (n_devices: one device a process)
+UNSUPPORTED = ("n_devices",)
 
 
 def reject_unsupported(params: Dict[str, Any]) -> None:
     p = canonicalize(params)
     for key in UNSUPPORTED:
-        if key in p and not _is_default(key, p[key]):
+        if key in p and not _is_default(p[key]):
             raise NotImplementedError(
                 f"parameter {key}={p[key]!r} is not supported by "
                 "xgboost_tpu_torch yet")

@@ -43,7 +43,8 @@ def train(
     dmat) -> (name, value)``, logged beside the built-in metrics.
     ``xgb_model``: a model file's path or bytes, or a ``Booster``, to
     continue: its rounds are counted first, so round i of the continuation
-    draws the seeds of round i of an uninterrupted run."""
+    draws the seeds of round i of an uninterrupted run.  Under
+    ``process_type="update"`` the rounds are the model's own, from 0."""
     callbacks = list(callbacks) if callbacks else []
     evals = list(evals) if evals else []
     if early_stopping_rounds is not None:
@@ -67,7 +68,12 @@ def train(
         bst = Booster(params, cache=[dtrain], device=device)
     bst = cbs.before_training(bst)
     start = bst.num_boosted_rounds()
-    for i in range(start, start + num_boost_round):
+    end = start + num_boost_round
+    if bst.process_type == "update":
+        # the rounds index the model's existing rounds, from the first
+        # (reference training.py:304-315)
+        start, end = 0, num_boost_round
+    for i in range(start, end):
         if cbs.before_iteration(bst, i, dtrain, evals):
             break
         bst.update(dtrain, i, fobj=obj)
