@@ -250,6 +250,22 @@ holds each CUDA kernel against its plain PyTorch version:
      approx, exact and refresh,prune of one model byte-identical, f32
      DART and approx the same trees up to a near tie, gblinear weights
      within 1e-5 relative, 1e-6 absolute
+  18. interpretation with the models of phases 3, 6, 7, 8, 17a and 17c:
+     (a) predict(pred_contribs=True) of phase 3's model over its 1M rows,
+     of phase 8's Covertype model over its 581,012 rows (7 groups), and of
+     the lossguide and DART models over 2^16 rows, each with K6
+     (csrc/treeshap.cu) launched once a group and nothing else, its rows
+     summing to the margin within rtol/atol 1e-3, K6 against its plain
+     version (interpret/device.py) on the card (over all rows unless that
+     would take over 20 s, then the first 2^18), K6's device time a launch
+     and a call and its bound; (b) pred_interactions=True of phase 3's
+     model over 2^16 rows the same way, its rows summing to
+     pred_contribs within rtol 3e-4, atol 5e-5; (c) Saabas over 1M rows
+     on the card, gblinear's contributions (phase 17c's model), and the
+     categorical host walk of phase 7's model over 2,000 rows (exact and
+     interactions), each summing to the margin; (d) the card against the
+     CPU on 20,000 rows: exact values within 1e-5 of the largest, Saabas
+     bitwise
 
 Phase 2 and 2b also give each case's device time a launch (torch.profiler),
 and phases 7, 8 and 9 the bound, the kernel and the index_add_ yardstick on
@@ -1381,6 +1397,7 @@ def phase_lossguide(xtt, hist_cuda, dtrain, n_rows, rounds: int = 10,
         f"{times[k]:.3f} s (runs {' '.join(f'{t:.3f}' for t in times)}) = "
         f"{expansions[k] / times[k]:.1f} expansions/s, "
         f"{n_rows * rounds / times[k] / 1e6:.3f} M row-rounds/s")
+    return bst
 
 
 def phase_lossguide_parity(xtt):
@@ -3781,7 +3798,7 @@ def phase_gblinear(xtt, hist_cuda, X, y):
                 f"{'not measured' if ms is None else f'{ms:.3f} ms'}; JSON "
                 f"and UBJ reload identically")
             out[label] = dict(train_s=train_s, loss=loss, const=const,
-                              ops=ops, device_ms=ms)
+                              ops=ops, device_ms=ms, bst=bst)
         del d
     # one group's coordinate chain, captured as a CUDA graph
     d = xtt.DMatrix(X, label=yr)
@@ -3981,6 +3998,283 @@ def phase_boosters_parity(xtt):
             f"weights within 1e-5 relative, 1e-6 absolute (max |diff| "
             f"{err:.3g})")
 
+# phase 18: interpretation.  K6 against its plain version on the card: the
+# f32 terms are the plain version's bit for bit, only the within-bucket sums
+# are taken in another order (index_add_'s atomics).  The plain version runs
+# over the whole call, 2^18 rows at a time, unless it would take 20 s; then
+# it stops after the first 2^18 rows, and K6 is timed on those rows too.
+P18_ROWS = 1 << 16  # the lossguide, DART and interaction calls
+P18_PLAIN_CHUNK = 1 << 18
+P18_PLAIN_BUDGET_S = 20.0
+P18_CARD_CPU_ROWS = 20_000
+SHAP_REL = 1e-5  # K6 vs plain: |diff| <= SHAP_REL max|plain| + SHAP_ABS
+SHAP_ABS = 1e-6
+
+
+def _shap_close(got, want, what):
+    tol = SHAP_REL * float(want.abs().max()) + SHAP_ABS
+    err = float((got - want).abs().max())
+    if not err <= tol:
+        raise AssertionError(f"phase {what}: K6 and its plain version "
+                             f"differ by {err:.3g} > {tol:.3g}")
+    return err, tol
+
+
+def _groups(bst):
+    """{output group: (trees, weights)} of a booster's scalar trees."""
+    out = {}
+    for t, g, w in zip(bst.trees, bst.tree_info, bst.tree_weights):
+        trees, wts = out.setdefault(g, ([], []))
+        trees.append(t)
+        wts.append(w)
+    return out
+
+
+def _k6_bound(tables, rows, interactions=False):
+    from xgboost_tpu_torch.ops import treeshap_cuda as tc
+
+    nbytes, ops = tc.work(tables, rows, interactions)
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_FLOPS * 1e3
+    return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else \
+        "operations", ops
+
+
+def _local_accuracy(got, margin, what, rtol=1e-3, atol=1e-3):
+    err = np.abs(got - margin).max()
+    if not np.allclose(got, margin, rtol=rtol, atol=atol):
+        raise AssertionError(f"phase {what}: contributions miss the margin "
+                             f"by {err:.3g} (rtol {rtol}, atol {atol})")
+    return err
+
+
+def _shap_call(xtt, hist_cuda, label, bst, X, interactions=False):
+    """The main path: ``predict(pred_contribs=True)`` (or
+    ``pred_interactions``) of X as a user calls it, the launch counts set
+    to 0 just before and read just after; its seconds, local accuracy
+    against the margin, and the K6 launches (one a group that has a
+    split)."""
+    from xgboost_tpu_torch.interpret.device import path_tables
+
+    d = xtt.DMatrix(X)
+    torch.cuda.synchronize()
+    hist_cuda.reset_launches()
+    t0 = time.perf_counter()
+    out = bst.predict(d, **({"pred_interactions": True} if interactions
+                            else {"pred_contribs": True}))
+    torch.cuda.synchronize()
+    call_s = time.perf_counter() - t0
+    launches = dict(hist_cuda.launches)
+    groups = _groups(bst)
+    F = X.shape[1]
+    n_split = sum(bool(path_tables(t, w, F).buckets)
+                  for t, w in groups.values())
+    want = {k: 0 for k in launches}
+    want["treeshap"] = n_split
+    if interactions:
+        want["treeshap_interactions"] = n_split
+    if launches != want or n_split == 0:
+        raise AssertionError(f"phase {label}: launches {launches}, want "
+                             f"{want}")
+    margin = bst.predict(d, output_margin=True)
+    summed = out.sum(-1) if not interactions else out.sum((-2, -1))
+    err = _local_accuracy(summed, margin, label)
+    return d, out, call_s, launches, err
+
+
+def _k6_against_plain(hist_cuda, label, bst, Xd, interactions=False):
+    """Per output group: K6 on all rows against the plain version (over
+    all rows, or the first 2^18 where all would take over 20 s; timed on
+    that run), and K6 alone a launch and a call on all rows (and on the
+    plain version's rows where those are fewer); the sums over the groups,
+    the bounds, and the largest error."""
+    from xgboost_tpu_torch.interpret import device as dv
+    from xgboost_tpu_torch.ops import treeshap_cuda as tc
+
+    R, F = Xd.shape
+    res = dict(launch_ms=0.0, call_ms=0.0, plain_ms=0.0, bound_ms=0.0,
+               ops=0.0, err=0.0, tol=0.0, buckets=0, paths=0, max_m=0,
+               plain_rows=R)
+    plain_fn = (dv.shap_interactions_plain if interactions
+                else dv.shap_values_plain)
+    parts = [tb for tb in (dv.path_tables(t, w, F)
+                           for t, w in _groups(bst).values()) if tb.buckets]
+    # the plain version, chunk by chunk, until the budget runs out
+    done, spent = 0, 0.0
+    while done < R:
+        hi = min(done + P18_PLAIN_CHUNK, R)
+        for tables in parts:
+            got = tc.treeshap_cuda(Xd[done:hi], tables, interactions)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            want = plain_fn(Xd[done:hi], tables)
+            torch.cuda.synchronize()
+            spent += time.perf_counter() - t0
+            err, tol = _shap_close(got, want, label)
+            res["err"], res["tol"] = max(res["err"], err), max(res["tol"],
+                                                               tol)
+            del got, want
+        done = hi
+        if done < R and spent * R / done > P18_PLAIN_BUDGET_S:
+            break
+    res["plain_rows"], res["plain_ms"] = done, spent * 1e3
+    reps = 3 if interactions else 5
+    for tables in parts:
+        pk = tables.packed(interactions, Xd.device)
+        res["launch_ms"] += cuda_ms(lambda: tc.launch(Xd, pk), reps=reps)
+        res["call_ms"] += cuda_ms(
+            lambda: tc.treeshap_cuda(Xd, tables, interactions), reps=reps)
+        bound, res["bound_by"], ops = _k6_bound(tables, R, interactions)
+        res["bound_ms"] += bound
+        res["ops"] += ops
+        res["buckets"] += len(pk.shapes)
+        res["paths"] += sum(s[2] for s in pk.shapes)
+        res["max_m"] = max(res["max_m"], pk.max_m)
+    res["small_ms"], res["small_bound_ms"] = res["launch_ms"], \
+        res["bound_ms"]
+    if done < R:  # K6 on the plain version's rows, for the kernels line
+        res["small_ms"] = sum(cuda_ms(lambda: tc.launch(
+            Xd[:done], t.packed(interactions, Xd.device)), reps=reps)
+            for t in parts)
+        res["small_bound_ms"] = sum(_k6_bound(t, done, interactions)[0]
+                                    for t in parts)
+    return res
+
+
+def _log_k6(label, what, R, call_s, launches, acc_err, r,
+            key="treeshap"):
+    plain = (f"plain {r['plain_ms']:.1f} ms (one run, all rows)"
+             if r["plain_rows"] == R else
+             f"plain {r['plain_ms']:.1f} ms on the first {r['plain_rows']} "
+             f"rows (all would take over {P18_PLAIN_BUDGET_S:.0f} s), K6 "
+             f"{r['small_ms']:.4f} ms on them, bound "
+             f"{r['small_bound_ms']:.4f} ms")
+    log(f"phase {label}: {what}, {R} rows: predict {call_s:.3f} s; K6 "
+        f"{key} launches {launches[key]}; {r['buckets']} buckets, "
+        f"{r['paths']} paths, m up to {r['max_m']}; K6 device "
+        f"{r['launch_ms']:.4f} ms a launch (summed over the groups), "
+        f"{r['call_ms']:.4f} ms a call (the wrapper's layout included); "
+        f"bound {r['bound_ms']:.4f} ms by {r['bound_by']} "
+        f"({r['ops']:.4g} f32 operations); local accuracy max |sum - "
+        f"margin| {acc_err:.3g}; against the plain version over "
+        f"{r['plain_rows']} rows: max |diff| {r['err']:.3g} (tolerance "
+        f"{r['tol']:.3g}); {plain}")
+
+
+def phase_shap(xtt, hist_cuda, f32, X, cover, Xc, lossguide, dart, gbl,
+               cat):
+    """Phase 18, interpretation on the card with the models earlier phases
+    trained: exact SHAP values (18a) of the HIGGS model over 1M rows, the
+    7-class Covertype model over its 581,012 rows, the lossguide and DART
+    models over 2^16 rows; interactions (18b); Saabas, gblinear and the
+    categorical host walk (18c); card against CPU (18d)."""
+    out = {}
+    # 18a
+    for label, what, bst, rows in (
+            ("18a HIGGS", "phase 3's f32 model, 10 x depth 6", f32["bst"], X),
+            ("18a Covertype", "phase 8's f32 model, 7 classes x 5 rounds x "
+             "depth 8", cover["hist_f32"]["bst"], Xc),
+            ("18a lossguide", "phase 6's model, 10 x 255 leaves", lossguide,
+             X[:P18_ROWS]),
+            ("18a DART", "phase 17a's uniform/tree f32 model",
+             dart[("uniform/tree", "f32")]["bst"], X[:P18_ROWS])):
+        d, _, call_s, launches, acc = _shap_call(xtt, hist_cuda, label, bst,
+                                                 rows)
+        r = _k6_against_plain(hist_cuda, label, bst, bst._device_X(d))
+        _log_k6(label, what, rows.shape[0], call_s, launches, acc, r)
+        r.update(call_s=call_s, launches=launches["treeshap"])
+        out[label] = r
+        del d
+    # 18b
+    bst = f32["bst"]
+    label = "18b HIGGS interactions"
+    d, inter, call_s, launches, acc = _shap_call(
+        xtt, hist_cuda, label, bst, X[:P18_ROWS], interactions=True)
+    contribs = bst.predict(d, pred_contribs=True)
+    if not np.allclose(inter.sum(-1), contribs, rtol=3e-4, atol=5e-5):
+        raise AssertionError(f"phase {label}: interactions do not sum to "
+                             "the SHAP values (rtol 3e-4, atol 5e-5)")
+    r = _k6_against_plain(hist_cuda, label, bst, bst._device_X(d),
+                          interactions=True)
+    _log_k6(label, "phase 3's model", P18_ROWS, call_s, launches, acc, r,
+            key="treeshap_interactions")
+    log(f"phase {label}: rows of the interactions sum to pred_contribs "
+        f"within rtol 3e-4, atol 5e-5 (max |diff| "
+        f"{np.abs(inter.sum(-1) - contribs).max():.3g})")
+    r.update(call_s=call_s, launches=launches["treeshap_interactions"])
+    out[label] = r
+    del d, inter, contribs
+    # 18c
+    d = xtt.DMatrix(X)
+    hist_cuda.reset_launches()
+    t0 = time.perf_counter()
+    saabas = bst.predict(d, pred_contribs=True, approx_contribs=True)
+    torch.cuda.synchronize()
+    saabas_s = time.perf_counter() - t0
+    if any(hist_cuda.launches.values()):
+        raise AssertionError(f"phase 18c: Saabas launched "
+                             f"{hist_cuda.launches}")
+    acc = _local_accuracy(saabas.sum(-1), bst.predict(d, output_margin=True),
+                          "18c Saabas")
+    log(f"phase 18c Saabas: {X.shape[0]} rows on the card {saabas_s:.3f} s; "
+        f"max |sum - margin| {acc:.3g}")
+    lin = gbl["17c binary:logistic coord_descent cyclic"]["bst"]
+    t0 = time.perf_counter()
+    lc = lin.predict(d, pred_contribs=True)
+    lin_s = time.perf_counter() - t0
+    acc = _local_accuracy(lc.sum(-1), lin.predict(d, output_margin=True),
+                          "18c gblinear", rtol=1e-5, atol=1e-5)
+    log(f"phase 18c gblinear: phase 17c's model, {X.shape[0]} rows "
+        f"{lin_s:.3f} s; max |sum - margin| {acc:.3g}")
+    del d, saabas, lc
+    Xk, _ = make_criteo(2000, seed=7001)
+    dk = xtt.DMatrix(Xk, feature_types=CRITEO_TYPES, enable_categorical=True)
+    cb = cat["hist_f32"]["bst"]
+    margin = cb.predict(dk, output_margin=True)
+    for kw, what in ((dict(pred_contribs=True), "exact"),
+                     (dict(pred_interactions=True), "interactions")):
+        hist_cuda.reset_launches()
+        t0 = time.perf_counter()
+        got = cb.predict(dk, **kw)
+        host_s = time.perf_counter() - t0
+        if any(hist_cuda.launches.values()):
+            raise AssertionError(f"phase 18c: the categorical host walk "
+                                 f"launched {hist_cuda.launches}")
+        acc = _local_accuracy(got.sum(-1) if what == "exact"
+                              else got.sum((-2, -1)), margin,
+                              f"18c Criteo {what}", rtol=1e-5, atol=1e-5)
+        log(f"phase 18c Criteo {what}: phase 7's categorical model, 2000 "
+            f"rows, host walk {host_s:.3f} s; max |sum - margin| {acc:.3g}")
+    # 18d
+    Xs = X[:P18_CARD_CPU_ROWS]
+    cpu = xtt.Booster(model_file=bytearray(bst.save_raw("json")),
+                      device="cpu")
+    for kw, what in ((dict(pred_contribs=True), "exact"),
+                     (dict(pred_contribs=True, approx_contribs=True),
+                      "Saabas")):
+        card = bst.predict(xtt.DMatrix(Xs), **kw)
+        host = cpu.predict(xtt.DMatrix(Xs, device="cpu"), **kw)
+        err = float(np.abs(card - host).max())
+        same = bool(np.array_equal(card, host))
+        tol = SHAP_REL * float(np.abs(host).max()) + SHAP_ABS
+        if (what == "Saabas" and not same) or err > tol:
+            raise AssertionError(f"phase 18d {what}: card and CPU differ by "
+                                 f"{err:.3g} (bitwise: {same})")
+        log(f"phase 18d {what}: {P18_CARD_CPU_ROWS} rows of phase 3's model, "
+            f"card against the CPU: max |diff| {err:.3g} (tolerance "
+            f"{'0' if what == 'Saabas' else f'{tol:.3g}'}), bitwise: {same}")
+    return out
+
+
+def _shap_entry(name, r):
+    """K6's line: its main path's call (or the first rows of it, where the
+    plain version ran on those only), with the launches of the call."""
+    return {"name": name, "route": "cuda",
+            "source": "xgboost_tpu_torch/csrc/treeshap.cu",
+            "replaces": REPLACES[name], "launches": r["launches"],
+            "max_abs_err": r["err"], "ms": r["small_ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["small_bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": None}
+
 
 def _kernel_entry(name, source, cases, launches):
     # K1 and K2: the line sums the three int16 shapes it has summed since
@@ -4077,7 +4371,10 @@ REPLACES = {"hist_f32": "xgboost_tpu/ops/hist_pallas.py:77",
             "split_scan_categorical": "xgboost_tpu/ops/split.py:269",
             # no Pallas kernel: the reference's native top-k LambdaMART
             # gradients
-            "lambdarank": "native/xtb_kernels.h:997"}
+            "lambdarank": "native/xtb_kernels.h:997",
+            # no Pallas kernel: the reference's XLA TreeSHAP programs
+            "treeshap": "xgboost_tpu/interpret/device.py:114",
+            "treeshap_interactions": "xgboost_tpu/interpret/device.py:210"}
 
 
 def main() -> int:
@@ -4112,7 +4409,8 @@ def main() -> int:
     timed("4", phase_predict, xtt, f32["bst"], X)
     timed("5", phase_parity, xtt)
     timed("5b", phase_parity_det, xtt, dtrain, X)
-    timed("6", phase_lossguide, xtt, hist_cuda, dtrain, X.shape[0])
+    lossguide = timed("6", phase_lossguide, xtt, hist_cuda, dtrain,
+                      X.shape[0])
     timed("6b", phase_lossguide_parity, xtt)
     cat = timed("7", phase_categorical, xtt, hist_cuda)
     timed("7b", phase_categorical_parity, xtt)
@@ -4123,7 +4421,7 @@ def main() -> int:
     timed("12b", phase_lockstep_parity, xtt, hist_cuda)
     timed("13", phase_vector_leaf, xtt, hist_cuda, dcover,
           cover["hist_f32"], Xc)
-    del Xc, yc, dcover
+    del yc, dcover
     timed("9", phase_forest, xtt, hist_cuda, dtrain, y)
     timed("10", phase_api, xtt, dtrain, X, y)
     timed("11", phase_csr, xtt, hist_cuda, X, y)
@@ -4138,13 +4436,15 @@ def main() -> int:
     X, y = make_data(1_000_000, 28)
     dtrain = xtt.DMatrix(X, label=y)
     dtrain.ensure_ellpack(max_bin=256)
-    timed("17a", phase_dart, xtt, hist_cuda, dtrain, X, f32, det)
+    dart = timed("17a", phase_dart, xtt, hist_cuda, dtrain, X, f32, det)
     timed("17b", phase_approx, xtt, hist_cuda, dtrain, X, f32, det)
-    timed("17c", phase_gblinear, xtt, hist_cuda, X, y)
+    gbl = timed("17c", phase_gblinear, xtt, hist_cuda, X, y)
     timed("17d", phase_update, xtt, hist_cuda, dtrain, X)
     del dtrain
     timed("17e", phase_exact, xtt, hist_cuda, X, y)
-    del X, y
+    shap = timed("18", phase_shap, xtt, hist_cuda, f32, X, cover, Xc,
+                 lossguide, dart, gbl, cat)
+    del X, y, Xc
     timed("17f", phase_boosters_parity, xtt)
 
     kernels = [_kernel_entry(name, hist_cuda.SOURCES[name], cases, n)
@@ -4163,6 +4463,9 @@ def main() -> int:
     kernels.append(_kernel_entry(
         "lambdarank", hist_cuda.SOURCES["lambdarank"], rank_cases,
         rank[("rank:ndcg", "topk")]["lambdarank_launches"]))
+    kernels.append(_shap_entry("treeshap", shap["18a HIGGS"]))
+    kernels.append(_shap_entry("treeshap_interactions",
+                               shap["18b HIGGS interactions"]))
     log(f"chip_smoke total {time.perf_counter() - t_start:.3f} s")
     log(smi)
     log(json.dumps({"kernels": kernels}))

@@ -1255,6 +1255,12 @@ class Booster:
             return dmat.X.to(self.device)
         return torch.from_numpy(X).to(self.device)
 
+    def _host_dense(self, dmat: DMatrix) -> np.ndarray:
+        """The (R, F) f32 host matrix, recoded as ``_device_X`` recodes
+        it (reference ``_host_dense_recoded``)."""
+        return recode_dense(dmat.host_dense(), self._cat_categories,
+                            dmat.cat_categories)
+
     def _cache_X(self, cache: _Cache) -> torch.Tensor:
         """A cache's matrix on the booster's device, made once."""
         if cache.raw_X is None:
@@ -1266,9 +1272,7 @@ class Booster:
         recodes it, made once: the host steps' input (approx's sketch,
         exact's enumeration, the updaters' routing)."""
         if cache.host_X is None:
-            cache.host_X = recode_dense(cache.dmat.host_dense(),
-                                        self._cat_categories,
-                                        cache.dmat.cat_categories)
+            cache.host_X = self._host_dense(cache.dmat)
         return cache.host_X
 
     def _stacked(self, tree_slice: slice, tree_ids=None):
@@ -1323,22 +1327,41 @@ class Booster:
             n_groups=self.n_groups, depth=depth)
 
     def predict(self, data: DMatrix, output_margin: bool = False,
-                pred_leaf: bool = False,
+                pred_leaf: bool = False, pred_contribs: bool = False,
+                approx_contribs: bool = False,
+                pred_interactions: bool = False,
+                validate_features: bool = True, training: bool = False,
                 iteration_range: Tuple[int, int] = (0, 0),
                 strict_shape: bool = False) -> np.ndarray:
         """(reference: core.py:2424 Booster.predict).  ``iteration_range``
         counts rounds; ``pred_leaf``: the (R, T) int32 leaf id of every
-        row in every tree of the range."""
+        row in every tree of the range; ``pred_contribs``: the (R, F+1) or
+        (R, K, F+1) f64 SHAP values (``approx_contribs``: Saabas'), bias
+        last; ``pred_interactions``: the (R, [K,] F+1, F+1) SHAP
+        interaction values (``interpret/``).  Neither adds the matrix's
+        base margin, as in the reference."""
         self._configure()
         if self.booster_kind == "gblinear":
             if pred_leaf:
                 raise ValueError(
                     "pred_leaf is not defined for the gblinear booster")
+            if pred_interactions:
+                raise ValueError(
+                    "pred_interactions is not supported for gblinear")
+            if pred_contribs:
+                return self._linear_contribs(data)
             return self._predict_linear(data, output_margin, strict_shape)
         lo, hi = iteration_range
         hi = hi or self.num_boosted_rounds()
         tpr = self.trees_per_round
         tree_slice = slice(lo * tpr, hi * tpr)
+        if pred_contribs or pred_interactions:
+            from .interpret import predict_contribs, predict_interactions
+
+            if pred_interactions:
+                return predict_interactions(self, data, tree_slice)
+            return predict_contribs(self, data, tree_slice,
+                                    approx=approx_contribs)
         if pred_leaf:
             if not self.trees[tree_slice]:
                 return np.zeros((data.num_row(), 0), np.int32)
@@ -1364,6 +1387,24 @@ class Booster:
         if self.n_groups == 1 and not strict_shape:
             out = out[:, 0]
         return out
+
+    def _linear_contribs(self, data: DMatrix) -> np.ndarray:
+        """gblinear's contributions (reference core.py:1983-1997,
+        gblinear.cc PredictContribution): phi_f = x_f w_f in f32 (missing
+        as 0), the bias column b + base_score, stored in f64."""
+        X = np.nan_to_num(self._host_dense(data), nan=0.0)
+        R, F = X.shape
+        K = self.n_groups
+        W = (self.linear_weights if self.linear_weights is not None
+             else np.zeros((F, K), np.float32))
+        b = (self.linear_bias if self.linear_bias is not None
+             else np.zeros(K, np.float32))
+        base = np.broadcast_to(self.base_score.reshape(-1), (K,))
+        out = np.zeros((R, K, F + 1), np.float64)
+        for k in range(K):
+            out[:, k, :F] = X * W[:, k][None, :]
+            out[:, k, F] = b[k] + base[k]
+        return out[:, 0, :] if K == 1 else out
 
     def _predict_linear(self, data: DMatrix, output_margin: bool,
                         strict_shape: bool) -> np.ndarray:

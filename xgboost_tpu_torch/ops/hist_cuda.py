@@ -32,8 +32,14 @@ per-level gradient histograms on the card.
   gradient pairs with glibc's expf/exp2f/log2f and the native sum orders,
   one launch a round, bundles of query groups sorted and held in shared
   memory; its wrapper is ops/lambdarank_cuda.py.
-K3, K4 and K5 are built with ``--fmad=false`` so that nvcc fuses no
-multiply-add the reference does not.
+- K6 ``treeshap`` (csrc/treeshap.cu; no Pallas kernel, it replaces the
+  reference's XLA programs interpret/device.py ``_bucket_phi`` and
+  ``_bucket_interactions``): exact TreeSHAP values and interaction terms
+  of an ensemble's path tables, one thread a row, every bucket in one
+  launch; two entries, counted as ``treeshap`` and
+  ``treeshap_interactions``; its wrapper is ops/treeshap_cuda.py.
+K3-K6 are built with ``--fmad=false`` so that nvcc fuses no multiply-add
+the reference does not.
 
 Each source is compiled with nvcc for sm_90a into its own shared library
 with a plain C interface at first use, into ``xgboost_tpu_torch/_build/``
@@ -88,16 +94,17 @@ SOURCES = {"hist_f32": "xgboost_tpu_torch/csrc/hist.cu",
            "hist_q": "xgboost_tpu_torch/csrc/hist_q.cu",
            "split_scan": "xgboost_tpu_torch/csrc/split_scan.cu",
            "sigmoid": "xgboost_tpu_torch/csrc/sigmoid.cu",
-           "lambdarank": "xgboost_tpu_torch/csrc/lambdarank.cu"}
+           "lambdarank": "xgboost_tpu_torch/csrc/lambdarank.cu",
+           "treeshap": "xgboost_tpu_torch/csrc/treeshap.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
-# K3, K4 and K5 must round as the reference does: no contracted
-# multiply-adds
+# K3-K6 must round as the reference does: no contracted multiply-adds
 EXTRA_FLAGS = {"split_scan": ["--fmad=false"], "sigmoid": ["--fmad=false"],
-               "lambdarank": ["--fmad=false"]}
+               "lambdarank": ["--fmad=false"], "treeshap": ["--fmad=false"]}
 
-# kernel launches per kernel since the last reset_launches()
-launches = {name: 0 for name in SOURCES}
+# kernel launches per kernel since the last reset_launches(); K6's
+# interaction entry is counted apart from its values entry
+launches = {name: 0 for name in [*SOURCES, "treeshap_interactions"]}
 
 _BIN_CODES = {torch.uint8: 0, torch.int16: 1, torch.int32: 2}
 # shared memory one block may use for its histogram; 227 KB is the H100's
@@ -131,6 +138,9 @@ _ENTRY = {
                    "xtb_lambdarank_plan": [_ci] * 4
                    + [ctypes.POINTER(_ci)] * 2,
                    "xtb_lambdarank_geometry": [ctypes.POINTER(_ci)] * 3},
+    "treeshap": {entry: [_vp] + [_ci] * 3 + [_vp] * 10 + [_ci] * 2
+                 + [_vp] * 4
+                 for entry in ("xtb_treeshap", "xtb_treeshap_interactions")},
 }
 _libs: dict = {}
 _lib_lock = threading.Lock()
