@@ -258,9 +258,12 @@ holds each CUDA kernel against its plain PyTorch version:
      summing to the margin within rtol/atol 1e-3, K6 against its plain
      version (interpret/device.py) on the card (over all rows unless that
      would take over 20 s, then the first 2^18), K6's device time a launch
-     and a call and its bound; (b) pred_interactions=True of phase 3's
-     model over 2^16 rows the same way, its rows summing to
-     pred_contribs within rtol 3e-4, atol 5e-5; (c) Saabas over 1M rows
+     and a call and its bound (its bytes at the HBM rate against its f32
+     and f64 operations at the unfused rates); for HIGGS and Covertype the
+     call's seconds split into X to the card, the path tables, K6, the f64
+     buffer's adds and the copy to the host; (b) pred_interactions=True of
+     phase 3's model over 2^16 rows the same way, split likewise, its rows
+     summing to pred_contribs within rtol 3e-4, atol 5e-5; (c) Saabas over 1M rows
      on the card, gblinear's contributions (phase 17c's model), and the
      categorical host walk of phase 7's model over 2,000 rows (exact and
      interactions), each summing to the margin; (d) the card against the
@@ -4009,6 +4012,12 @@ P18_PLAIN_BUDGET_S = 20.0
 P18_CARD_CPU_ROWS = 20_000
 SHAP_REL = 1e-5  # K6 vs plain: |diff| <= SHAP_REL max|plain| + SHAP_ABS
 SHAP_ABS = 1e-6
+# K6 is built with --fmad=false: an unfused f32 multiply or add retires at
+# one a lane a clock, 128 lanes x 132 SMs x ~1.98 GHz on an H100 SXM (half
+# of F32_FLOPS, which counts a fused multiply-add as two); an f64 add at
+# half of F64_FLOPS likewise
+F32_UNFUSED = 33.5e12
+F64_UNFUSED = 17e12
 
 
 def _shap_close(got, want, what):
@@ -4031,12 +4040,16 @@ def _groups(bst):
 
 
 def _k6_bound(tables, rows, interactions=False):
+    """K6's least time on this call's inputs: its bytes at the HBM rate
+    against its f32 and f64 operations at the unfused rates; (ms, what
+    bounds it, f32 operations)."""
     from xgboost_tpu_torch.ops import treeshap_cuda as tc
 
-    nbytes, ops = tc.work(tables, rows, interactions)
-    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_FLOPS * 1e3
+    nbytes, f32, f64 = tc.work(tables, rows, interactions)
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = (f32 / F32_UNFUSED + f64 / F64_UNFUSED) * 1e3
     return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else \
-        "operations", ops
+        "operations", f32
 
 
 def _local_accuracy(got, margin, what, rtol=1e-3, atol=1e-3):
@@ -4079,6 +4092,72 @@ def _shap_call(xtt, hist_cuda, label, bst, X, interactions=False):
     summed = out.sum(-1) if not interactions else out.sum((-2, -1))
     err = _local_accuracy(summed, margin, label)
     return d, out, call_s, launches, err
+
+
+def _call_split(xtt, bst, X, label, interactions=False):
+    """Where a ``predict(pred_contribs=True)`` (or ``pred_interactions``)
+    call's time goes: the package's steps of that call, one by one, each
+    ended by a synchronize: X to the card (a new DMatrix of the host rows
+    X, which copies them, and ``_device_X``), the path tables
+    and their packing, K6 (for the interactions also the values' launch
+    and the diagonal), the (R, K, ...) f64 buffer's adds, and the copy to
+    the host (with the base score's add); seconds each, printed on one
+    line."""
+    from xgboost_tpu_torch.interpret import device as dv
+    from xgboost_tpu_torch.ops import treeshap_cuda as tc
+
+    R, F, K = X.shape[0], X.shape[1], bst.n_groups
+    shape = (R, K, F + 1, F + 1) if interactions else (R, K, F + 1)
+    marks = []
+
+    def mark():
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+
+    mark()
+    Xd = bst._device_X(xtt.DMatrix(X))
+    mark()
+    tables = {g: dv.path_tables(t, w, F) for g, (t, w) in _groups(bst).items()}
+    for t in tables.values():
+        if t.buckets:
+            t.packed(False, Xd.device)
+            if interactions:
+                t.packed(True, Xd.device)
+    mark()
+    parts = {}
+    for g, t in tables.items():
+        if interactions:
+            out = tc.treeshap_cuda(Xd, t, True)
+            phi = tc.treeshap_cuda(Xd, t)
+            diag = torch.diagonal(out, dim1=1, dim2=2)
+            diag.copy_(phi - (out.sum(dim=2) - diag))
+            parts[g] = out
+        else:
+            parts[g] = tc.treeshap_cuda(Xd, t)
+    mark()
+    buf = torch.zeros(shape, dtype=torch.float64, device=Xd.device)
+    for g, part in parts.items():
+        buf[:, g] += part
+    del parts
+    mark()
+    host = buf.cpu().numpy()
+    base = np.asarray(bst.base_score, np.float64).reshape(-1)[:K]
+    if interactions:
+        host[:, :, F, F] += base[None, :]
+    else:
+        host[:, :, F] += base[None, :]
+    mark()
+    steps = dict(zip(("x_to_card", "tables", "k6", "buffer_adds",
+                      "to_host"), np.diff(marks)))
+    log(f"phase {label} split of a predict("
+        f"{'pred_interactions' if interactions else 'pred_contribs'}=True) "
+        f"call, {R} rows, each step ended by a synchronize: X to the card "
+        f"{steps['x_to_card']:.4f} s, path tables and packing "
+        f"{steps['tables']:.4f} s, K6 {steps['k6']:.4f} s, f64 buffer adds "
+        f"{steps['buffer_adds']:.4f} s, copy to the host "
+        f"{steps['to_host']:.4f} s (sum {sum(steps.values()):.4f} s)")
+    del buf, host
+    return steps
 
 
 def _k6_against_plain(hist_cuda, label, bst, Xd, interactions=False):
@@ -4154,7 +4233,7 @@ def _log_k6(label, what, R, call_s, launches, acc_err, r,
         f"{r['launch_ms']:.4f} ms a launch (summed over the groups), "
         f"{r['call_ms']:.4f} ms a call (the wrapper's layout included); "
         f"bound {r['bound_ms']:.4f} ms by {r['bound_by']} "
-        f"({r['ops']:.4g} f32 operations); local accuracy max |sum - "
+        f"({r['ops']:.4g} f32 operations, unfused); local accuracy max |sum - "
         f"margin| {acc_err:.3g}; against the plain version over "
         f"{r['plain_rows']} rows: max |diff| {r['err']:.3g} (tolerance "
         f"{r['tol']:.3g}); {plain}")
@@ -4182,6 +4261,8 @@ def phase_shap(xtt, hist_cuda, f32, X, cover, Xc, lossguide, dart, gbl,
         r = _k6_against_plain(hist_cuda, label, bst, bst._device_X(d))
         _log_k6(label, what, rows.shape[0], call_s, launches, acc, r)
         r.update(call_s=call_s, launches=launches["treeshap"])
+        if label in ("18a HIGGS", "18a Covertype"):
+            r["split"] = _call_split(xtt, bst, rows, label)
         out[label] = r
         del d
     # 18b
@@ -4197,6 +4278,8 @@ def phase_shap(xtt, hist_cuda, f32, X, cover, Xc, lossguide, dart, gbl,
                           interactions=True)
     _log_k6(label, "phase 3's model", P18_ROWS, call_s, launches, acc, r,
             key="treeshap_interactions")
+    r["split"] = _call_split(xtt, bst, X[:P18_ROWS], label,
+                             interactions=True)
     log(f"phase {label}: rows of the interactions sum to pred_contribs "
         f"within rtol 3e-4, atol 5e-5 (max |diff| "
         f"{np.abs(inter.sum(-1) - contribs).max():.3g})")

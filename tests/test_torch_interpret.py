@@ -367,6 +367,50 @@ def test_kernel_order_model_matches_plain(F, interactions):
     assert float((got - want).abs().max()) <= tol
     if not interactions:  # index_add_ on the CPU adds in index order
         assert torch.equal(got, want)
+    # no room in the table: every bucket's terms a row, the same bits
+    assert torch.equal(treeshap_cuda.treeshap_model(
+        X, tables, interactions, tab_bytes=0), got)
+
+
+@pytest.mark.parametrize("m,interactions",
+                         [(m, False) for m in (1, 2, 3, 5, 8, 9)]
+                         + [(m, True) for m in (2, 3, 5, 8, 9)])
+def test_prefix_shared_terms_are_the_plain_terms(m, interactions):
+    """``path_terms`` (K6's order: each element's coefficients from the
+    shared prefix of the elements before it) gives the plain version's
+    terms bit for bit, at every mask of one path: the plain version over
+    one path puts each term alone in its cell."""
+    rng = np.random.default_rng(m)
+    F = m + 2
+    feats = rng.permutation(F)[:m].astype(np.int32)
+    went_left = rng.random(m) < 0.5
+    masks = np.arange(1 << m)
+    bits = (masks[:, None] >> np.arange(m)) & 1 == 1  # the slots left
+    X = np.zeros((len(masks), F), np.float32)
+    # left (x < 0) or right (x >= 0) of the threshold 0, as the mask says
+    X[:, feats] = np.where(bits != went_left[None], -1.0, 1.0)
+    b = dict(node_feat=feats[None], node_thr=np.zeros((1, m), np.float32),
+             node_dleft=rng.random((1, m)) < 0.5, node_dir=went_left[None],
+             node_slot=np.arange(m, dtype=np.int32)[None],
+             z=rng.uniform(0.05, 0.95, (1, m)).astype(np.float32),
+             slot_feat=feats[None], v=rng.normal(size=1).astype(np.float32))
+    args = [torch.from_numpy(np.ascontiguousarray(b[k])) for k in
+            ("node_feat", "node_thr", "node_dleft", "node_dir", "node_slot",
+             "z", "slot_feat", "v")]
+    w = torch.from_numpy(dv.shapley_weights(m - 1 if interactions else m))
+    Xt = torch.from_numpy(X)
+    o = torch.from_numpy(~bits).float()
+    terms = treeshap_cuda.path_terms(o, args[5][0], args[7][0], w,
+                                     interactions)
+    if not interactions:
+        plain = dv.bucket_phi_plain(Xt, *args, w, m=m, n_feat=F)
+        for i in range(m):
+            assert torch.equal(plain[:, feats[i]], terms[:, i])
+        return
+    plain = dv.bucket_interactions_plain(Xt, *args, w, m=m, n_feat=F)
+    for q, (s, j) in enumerate(zip(*np.triu_indices(m, 1))):
+        assert torch.equal(plain[:, feats[s], feats[j]], terms[:, q])
+        assert torch.equal(plain[:, feats[j], feats[s]], terms[:, q])
 
 
 def test_tables_values_agree_with_the_host_walk():
@@ -390,23 +434,109 @@ def test_packed_tables_and_plan():
         meta = pk.meta.numpy()
         shapes = [(m, D) for m, D in tables.buckets if not inter or m >= 2]
         assert [tuple(r[2:4]) for r in meta] == shapes
+        n_tab = 0
         assert (meta[1:, 0] == meta[:-1, 1]).all()  # paths follow on
         assert meta[-1, 1] == len(pk.v)
         assert meta[-1, 8] == len(pk.cells)
-        assert len(pk.node_feat) == sum(
-            (r[1] - r[0]) * r[3] for r in meta)
+        assert len(pk.node) == sum((r[1] - r[0]) * r[3] for r in meta)
         assert pk.max_m == 12
-    assert treeshap_cuda.plan(28, False) == (128, 129 * (29 * 12 + 28 * 4))
-    assert treeshap_cuda.plan(256, False)[0] == 32
-    assert treeshap_cuda.plan(28, True) == (0, 0)  # the global tiles
-    nbytes, ops = treeshap_cuda.work(tables, 1000)
-    assert nbytes == 1000 * (4 * 28 + 8 * 29)
-    # a bucket of m = 1: per path one term of 2 (the weight) + 4 operations
+        F1 = 29
+        union = np.flatnonzero(pk.out_u.numpy() >= 0)
+        if inter:  # the union holds [a, b], a < b; [b, a] reads its sum
+            union = union[union // F1 < union % F1]
+        assert (pk.out_u.numpy()[union] == np.arange(pk.n_union)).all()
+        for r, ((m, D), b) in zip(meta, ((k, b) for k, b in
+                                          tables.buckets.items()
+                                          if not inter or k[0] >= 2)):
+            p0, p1, _, _, nb, _, _, c0, c1, pc0, tb = r
+            # the node records: feature, slot and flags, the threshold
+            word = pk.node[nb:nb + (p1 - p0) * D, 0].numpy()
+            assert (word >> 10 == b["node_feat"].reshape(-1)).all()
+            assert ((word >> 2) & 255 == b["node_slot"].reshape(-1)).all()
+            assert ((word >> 1) & 1 == b["node_dir"].reshape(-1)).all()
+            assert (word & 1 == b["node_dleft"].reshape(-1)).all()
+            assert (pk.node[nb:nb + (p1 - p0) * D, 1].numpy().view(np.float32)
+                    == b["node_thr"].reshape(-1)).all()
+            # each path's cells through its bucket's list and the union
+            sf = b["slot_feat"]
+            if inter:  # one cell a pair: [f_s, f_j] and [f_j, f_s] alike
+                s, j = np.triu_indices(m, 1)
+                want = (np.minimum(sf[:, s], sf[:, j]) * F1
+                        + np.maximum(sf[:, s], sf[:, j]))
+                assert (pk.out_u.numpy()[want % F1 * F1 + want // F1]
+                        == pk.out_u.numpy()[want]).all()
+            else:
+                want = sf
+            local = pk.pcell[pc0:pc0 + want.size].numpy()
+            assert local.max() < c1 - c0
+            got = union[pk.cells.numpy()[c0 + local]]
+            assert (got == want.reshape(-1)).all()
+            assert c1 - c0 == len(np.unique(want))
+            if m <= treeshap_cuda.SMALL_M:  # the tabulated terms a path
+                nt = m * (m - 1) // 2 if inter else m
+                assert tb == n_tab  # the tables follow on
+                n_tab += (p1 - p0) * nt << m
+            else:  # computed a row
+                assert tb == -1
+        # at 256 rows every small bucket is tabulated, at 255 none of m = 8
+        assert treeshap_cuda.tab_floats(pk, 256) == n_tab
+        assert [treeshap_cuda.tabulated(pk, i, 255) for i in range(len(meta))
+                ] == [0 <= r[10] and r[2] < 8 for r in meta]
+        # a budget of the first bucket's table alone: the rest a row
+        first = int(meta[1, 10])  # the first bucket's floats
+        small = treeshap_cuda.pack_tables(tables, inter, "cpu",
+                                          tab_bytes=4 * first)
+        assert small.tab_off == (0,) + (-1,) * (len(meta) - 1)
+        assert treeshap_cuda.tab_floats(small, 1 << 20) == first
+        assert pk.tile_max == max(meta[:, 8] - meta[:, 7])
+        assert pk.n_union == len(np.unique(pk.cells.numpy()))
+    # values: the union's f64 totals and X's rows and the bucket's sums in
+    # f32; two rows a thread would leave an SM 8 warps (two blocks of 256
+    # rows), so one: 128 rows a block
+    pk = treeshap_cuda.pack_tables(tables, False, "cpu")
+    assert (pk.tile_max, pk.n_union) == (28, 28)
+    assert treeshap_cuda.plan(pk) == (128, 1,
+                                      8 * 28 * 129 + 4 * 128 * (28 + 28))
+    assert treeshap_cuda.plan(pk, 2) == (256, 2,
+                                         8 * 28 * 257 + 4 * 256 * (28 + 28))
+    # interactions: 359 pairs in one bucket, 376 in the union: a 32-row
+    # block of one row a thread
+    ipk = treeshap_cuda.pack_tables(tables, True, "cpu")
+    assert (ipk.tile_max, ipk.n_union) == (359, 376)
+    assert treeshap_cuda.plan(ipk) == (32, 1, 8 * 376 * 33 + 4 * 32 * 387)
+    # two rows a thread where an SM holds 16 warps of such blocks, else one
+    assert treeshap_cuda.warps_per_sm(128, 47152) == 16
+    assert treeshap_cuda.warps_per_sm(128, 68712) == 12
+    assert treeshap_cuda.warps_per_sm(128, 218544) == 4
+    wide = dv.path_tables(*random_ensemble(2, 256), 256)
+    assert treeshap_cuda.plan(
+        treeshap_cuda.pack_tables(wide, False, "cpu"))[:2] == (32, 1)
+    # at F = 256 the interactions' pairs fit no block: the global tiles
+    assert treeshap_cuda.plan(
+        treeshap_cuda.pack_tables(wide, True, "cpu")) == (0, 1, 0)
+    nbytes, f32, f64 = treeshap_cuda.work(tables, 1000)
+    assert nbytes > 1000 * (4 * 28 + 8 * 29)  # and the packed tables once
+    vmeta = pk.meta.numpy()  # the values' flushes and the bias, in f64
+    assert f64 == 1000 * (int((vmeta[:, 8] - vmeta[:, 7]).sum()) + 1)
+    # a bucket of m = 1: per path 2 masks of 4 operations (the weight, the
+    # term), and each row's add
     one = dict(tables.buckets)
     tables.buckets = {k: b for k, b in one.items() if k[0] == 1}
     P = sum(len(b["v"]) for b in tables.buckets.values())
-    assert treeshap_cuda.work(tables, 1000)[1] == 1000 * P * 6
-    assert ops > 1000 * P * 6
+    assert treeshap_cuda.work(tables, 1000)[1] == P * 2 * 4 + 1000 * P
+    assert f32 > P * 2 * 4 + 1000 * P
+
+
+@pytest.mark.parametrize("m", [1, 2, 5, 8])
+def test_term_ops_count_the_shared_prefixes(m):
+    """``term_ops``: each element's polynomial over the m-1 others, with
+    the prefix of the elements before it built once (m = 5: 106 of the
+    plain order's 130 operations; m = 8: 469 of 616), then its weight sum
+    (2m - 1) and its term (3)."""
+    poly = {1: 0, 2: 4, 5: 106, 8: 469}[m]
+    assert treeshap_cuda.term_ops(m, False) == poly + m * (2 * m - 1 + 3)
+    plain = m * (2 * (m - 1) + 1.5 * (m - 1) * (m - 2))
+    assert poly <= plain and (m < 5 or poly < plain)
 
 
 def test_cpu_tensor_takes_the_plain_version():

@@ -1,14 +1,19 @@
 """K6 (csrc/treeshap.cu) on the card: exact TreeSHAP values and interaction
 terms held against their plain PyTorch versions (interpret/device.py
-bucket_phi_plain, bucket_interactions_plain) on the same card, on random
-trees whose paths hold m = 1 to 12 unique features, at F = 28 and 256,
-with NaN in the input; each block size K6 takes and its global-memory
-tiles; a refused launch raising; the launch counts; and
+bucket_phi_plain, bucket_interactions_plain) on the same card, and bit for
+bit against ``treeshap_model`` (the kernel's order in PyTorch, on the CPU),
+on random trees whose paths hold m = 1 to 12 unique features, at F = 28 and
+256, with NaN in the input; each block size and rows a thread K6 takes,
+with R one below, at and one above a multiple of the rows a block, and its
+global-memory tiles over many tiles; buckets left out of the table (its
+budget, or fewer rows than masks) computing their terms a row; a refused launch raising; the launch counts; and
 ``predict(pred_contribs=True)`` / ``pred_interactions=True`` on the card
-against the CPU.  Tolerance: each term is the plain version's bit for bit
-(both round every operation alone), only the f32 sums within a bucket are
-taken in another order (index_add_'s atomics), so the f64 totals agree
-within 1e-5 of the largest |value| plus 1e-6.
+against the CPU.  Tolerance against the plain version: each term is the
+plain version's bit for bit (both round every operation alone), only the
+f32 sums within a bucket are taken in another order (index_add_'s
+atomics), so the f64 totals agree within 1e-5 of the largest |value| plus
+1e-6; against ``treeshap_model`` none (the same operations in the same
+order).
 
 Every test needs a CUDA device and skips without one; run them on the card
 with ``python -m pytest -q -p no:cacheprovider
@@ -89,6 +94,12 @@ def _close(got, want):
     assert err <= tol, f"max |K6 - plain| {err:.3g} > {tol:.3g}"
 
 
+def _same_as_model(got, X, tables, interactions=False):
+    want = treeshap_cuda.treeshap_model(X.cpu(), tables, interactions)
+    assert torch.equal(got.cpu(), want), \
+        f"K6 and its order model differ by {(got.cpu() - want).abs().max()}"
+
+
 @needs_cuda
 @pytest.mark.parametrize("F", [28, 256])
 def test_values_match_plain(F):
@@ -96,18 +107,21 @@ def test_values_match_plain(F):
     tables = dv.path_tables(trees, w, F)
     assert {m for m, _ in tables.buckets} >= set(range(1, 13))
     X = torch.from_numpy(random_X(1, 700, F)).cuda()
-    _close(treeshap_cuda.treeshap_cuda(X, tables),
-           dv.shap_values_plain(X, tables))
+    got = treeshap_cuda.treeshap_cuda(X, tables)
+    _close(got, dv.shap_values_plain(X, tables))
+    _same_as_model(got, X, tables)
 
 
 @needs_cuda
 @pytest.mark.parametrize("F", [28, 256])
 def test_interactions_match_plain(F):
-    trees, w = random_ensemble(2, F, depths=(12, 5))
+    trees, w = random_ensemble(2, F)
     tables = dv.path_tables(trees, w, F)
+    assert {m for m, _ in tables.buckets} >= set(range(2, 13))
     X = torch.from_numpy(random_X(3, 150, F)).cuda()
-    _close(treeshap_cuda.treeshap_cuda(X, tables, interactions=True),
-           dv.shap_interactions_plain(X, tables))
+    got = treeshap_cuda.treeshap_cuda(X, tables, interactions=True)
+    _close(got, dv.shap_interactions_plain(X, tables))
+    _same_as_model(got, X, tables, True)
 
 
 @needs_cuda
@@ -123,15 +137,110 @@ def test_each_block_size_and_global_tiles(rows, interactions):
     want = (dv.shap_interactions_plain(X, tables) if interactions
             else dv.shap_values_plain(X, tables))
     _close(got, want)
+    _same_as_model(got, X, tables, interactions)
 
 
 @needs_cuda
-def test_same_bits_run_to_run():
+@pytest.mark.parametrize("rt", [1, 2])
+@pytest.mark.parametrize("edge", [-1, 0, 1])
+@pytest.mark.parametrize("interactions", [False, True])
+def test_tails_each_rows_per_thread(rt, edge, interactions):
+    """R one below, at and one above three blocks of 32 threads x rt rows:
+    the last tile's missing rows compute and write nothing."""
+    F = 12
+    trees, w = random_ensemble(11, F, depths=(9, 5))
+    tables = dv.path_tables(trees, w, F)
+    rows = 32 * rt
+    X = torch.from_numpy(random_X(12, 3 * rows + edge, F)).cuda()
+    got = treeshap_cuda.treeshap_cuda(X, tables, interactions,
+                                      rows_per_block=rows,
+                                      rows_per_thread=rt)
+    assert got.shape[0] == X.shape[0]
+    _same_as_model(got, X, tables, interactions)
+
+
+@needs_cuda
+def test_touched_list_past_shared_memory_takes_global_tiles():
+    """At F = 256 the interaction cells of this ensemble's buckets do not
+    fit a block of 32 rows: the plan takes the global tiles by itself."""
+    F = 256
+    trees, w = random_ensemble(2, F, depths=(9, 4))
+    tables = dv.path_tables(trees, w, F)
+    pk = tables.packed(True, torch.device("cuda"))
+    assert treeshap_cuda.plan(pk) == (0, 1, 0)
+    X = torch.from_numpy(random_X(13, 200, F)).cuda()
+    got = treeshap_cuda.treeshap_cuda(X, tables, interactions=True)
+    _close(got, dv.shap_interactions_plain(X, tables))
+    _same_as_model(got, X, tables, True)
+
+
+@needs_cuda
+@pytest.mark.parametrize("interactions", [False, True])
+def test_global_tiles_over_many_tiles_same_bits_each_run(interactions):
+    """The global tiles over about three tiles a block (a block reads its
+    other threads' totals for the output after a barrier): three runs,
+    each bit for bit ``treeshap_model``."""
+    F = 8
+    trees, w = random_ensemble(14, F, depths=(6, 4))
+    tables = dv.path_tables(trees, w, F)
+    X = torch.from_numpy(random_X(15, 300_001, F)).cuda()
+    want = treeshap_cuda.treeshap_model(X.cpu(), tables, interactions)
+    for _ in range(3):
+        got = treeshap_cuda.treeshap_cuda(X, tables, interactions,
+                                          rows_per_block=0)
+        assert torch.equal(got.cpu(), want)
+
+
+@needs_cuda
+@pytest.mark.parametrize("R", [100, 700])
+@pytest.mark.parametrize("interactions", [False, True])
+def test_buckets_without_room_in_the_table_compute_a_row(R, interactions):
+    """No room in the table, room for the first bucket alone, and (at 100
+    rows) buckets of 2^m > R: their terms computed a row, the same bits
+    as ``treeshap_model`` at the same budget, m = 1 to 12."""
+    F = 28
+    trees, w = random_ensemble(2, F)
+    tables = dv.path_tables(trees, w, F)
+    X = torch.from_numpy(random_X(16, R, F)).cuda()
+    full = treeshap_cuda.pack_tables(tables, interactions, "cpu")
+    for budget in (0, 4 * full.tab_off[1]):
+        pk = treeshap_cuda.pack_tables(tables, interactions, X.device,
+                                       tab_bytes=budget)
+        got = treeshap_cuda.launch(X, pk)
+        want = treeshap_cuda.treeshap_model(X.cpu(), tables, interactions,
+                                            tab_bytes=budget)
+        assert torch.equal(got.cpu(), want.reshape(R, -1))
+
+
+@needs_cuda
+@pytest.mark.parametrize("interactions", [False, True])
+def test_large_deep_ensemble_keeps_to_the_table_budget(interactions):
+    """300 full trees of depth 8 (77k paths) over 300 rows: every table
+    would take 350 MB (values) or 1.1 GB (interactions); the buckets past
+    ``TAB_BYTES`` compute their terms a row, within tolerance of the plain
+    version."""
+    F = 28
+    rng = np.random.default_rng(17)
+    trees = [random_tree(rng, 8, F, split_p=1.0) for _ in range(300)]
+    tables = dv.path_tables(trees, [1.0] * len(trees), F)
+    X = torch.from_numpy(random_X(18, 300, F)).cuda()
+    pk = tables.packed(interactions, X.device)
+    assert -1 in pk.tab_off
+    assert 4 * treeshap_cuda.tab_floats(pk, 300) <= treeshap_cuda.TAB_BYTES
+    got = treeshap_cuda.treeshap_cuda(X, tables, interactions)
+    _close(got, dv.shap_interactions_plain(X, tables) if interactions
+           else dv.shap_values_plain(X, tables))
+
+
+@needs_cuda
+@pytest.mark.parametrize("interactions", [False, True])
+def test_same_bits_run_to_run(interactions):
     trees, w = random_ensemble(6, 28)
     tables = dv.path_tables(trees, w, 28)
-    X = torch.from_numpy(random_X(7, 2000, 28)).cuda()
-    a = treeshap_cuda.treeshap_cuda(X, tables)
-    b = treeshap_cuda.treeshap_cuda(X, tables)
+    X = torch.from_numpy(random_X(7, 2000 if not interactions else 300,
+                                  28)).cuda()
+    a = treeshap_cuda.treeshap_cuda(X, tables, interactions)
+    b = treeshap_cuda.treeshap_cuda(X, tables, interactions)
     assert torch.equal(a, b)
 
 

@@ -35,8 +35,9 @@ per-level gradient histograms on the card.
 - K6 ``treeshap`` (csrc/treeshap.cu; no Pallas kernel, it replaces the
   reference's XLA programs interpret/device.py ``_bucket_phi`` and
   ``_bucket_interactions``): exact TreeSHAP values and interaction terms
-  of an ensemble's path tables, one thread a row, every bucket in one
-  launch; two entries, counted as ``treeshap`` and
+  of an ensemble's path tables, every bucket in one cooperative launch
+  (each path's terms tabulated once a mask of its one fractions, then
+  read by each row); two entries, counted as ``treeshap`` and
   ``treeshap_interactions``; its wrapper is ops/treeshap_cuda.py.
 K3-K6 are built with ``--fmad=false`` so that nvcc fuses no multiply-add
 the reference does not.
@@ -138,8 +139,8 @@ _ENTRY = {
                    "xtb_lambdarank_plan": [_ci] * 4
                    + [ctypes.POINTER(_ci)] * 2,
                    "xtb_lambdarank_geometry": [ctypes.POINTER(_ci)] * 3},
-    "treeshap": {entry: [_vp] + [_ci] * 3 + [_vp] * 10 + [_ci] * 2
-                 + [_vp] * 4
+    "treeshap": {entry: [_vp] + [_ci] * 3 + [_vp] * 8 + [_ci] * 4
+                 + [ctypes.c_double] + [_ci] * 2 + [_vp] * 7
                  for entry in ("xtb_treeshap", "xtb_treeshap_interactions")},
 }
 _libs: dict = {}
