@@ -239,11 +239,11 @@ holds each CUDA kernel against its plain PyTorch version:
      round (torch.profiler) and of one group's coordinate chain (a CUDA
      graph, no copy to the host), K1-K3 never, the final logloss and
      rmse below the constant model's, reloads predicting identically;
-     (d) process_type="update" over a 10-round model: refresh alone
+     (d) process_type="update" over a 5-round model: refresh alone
      (refresh_leaf 0) keeps every tree's structure and the predictions,
      refresh,prune with refresh_leaf 1 and 0 at the median gain of the
      splits above two leaves removes splits, K4 once a round; (e)
-     tree_method="exact" on the first 2^18 rows, 3 rounds: seconds a
+     tree_method="exact" on the first 2^17 rows, 3 rounds: seconds a
      round split into the host enumeration and the device gradient,
      AUC > 0.9; 17f: card vs CPU on 20,000 rows at depth 4: deterministic
      DART (both sample and normalize types, one_drop and skip_drop),
@@ -269,6 +269,29 @@ holds each CUDA kernel against its plain PyTorch version:
      interactions), each summing to the margin; (d) the card against the
      CPU on 20,000 rows: exact values within 1e-5 of the largest, Saabas
      bitwise
+  19. out of core: (a) the criteo_extmem_40m row of BENCH_LADDER.json
+     (scripts/bench_ladder.py:604-637): 64 pages of 655,360 Criteo-shaped
+     rows (page i from seed 7000 + i, made by eight threads) through a
+     DataIter into ExtMemQuantileDMatrix (max_bin 128: 1.64 GB of uint8
+     pages pinned on the host), binary:logistic, depth 8, eta 0.3, 5
+     rounds, the pages streamed to the card at every level: ingest seconds
+     (the streaming sketch, the bins), the train loop's seconds and M
+     row-rounds/s, page bytes streamed a round and the rate they reached
+     beside one 256 MiB pinned copy's, the host's staging, wait and
+     overlap seconds, the card's resident page bytes at most (at most
+     lookahead + 1 = 3 pages) and max_memory_allocated; K1 launched pages
+     x levels a round, K3 levels a round, K4 once a round and once for the
+     base score; AUC@stride8 within 0.005 of the same rows trained in
+     memory on the card; one round with _extmem_prefetch=0 beside one with
+     the window, in turns; a two-round profile; (b) deterministic_histogram
+     =1 on the first 24 pages (15,728,640 rows), 3 rounds, the same report
+     with K2, two runs byte-identical; (c) 4 pages in memory
+     (QuantileDMatrix) and out of core on its cuts: deterministic models
+     byte-identical, predictions within 1e-6, the f32 models the same or
+     apart at a near tie, a SparsePageDMatrix of the same batches as CSR
+     predicting within 1e-6 of the in-memory predictions; (d) 20,000 rows
+     in 4 pages under deterministic_histogram=1: the card's model JSON
+     byte-identical to the CPU's
 
 Phase 2 and 2b also give each case's device time a launch (torch.profiler),
 and phases 7, 8 and 9 the bound, the kernel and the index_add_ yardstick on
@@ -3577,10 +3600,12 @@ P17_DART = {"uniform/tree": dict(BASE, booster="dart", rate_drop=0.1),
                                     sample_type="weighted",
                                     normalize_type="forest")}
 P17_APPROX = dict(BASE, tree_method="approx")
-# the exact phase's rows: the largest power of two whose three rounds of
-# host enumeration stay within about 120 s (1,000,000 rows take about 4x
-# 2^18's time, which is about 60 s on the H100's host; PERF.md §6)
-P17_EXACT_ROWS = 1 << 18
+# the exact phase's rows: 2^18 took 68 s on the H100's host (PERF.md §6);
+# cut to 2^17 to make room for phase 19 within the script's time limit
+P17_EXACT_ROWS = 1 << 17
+# process_type="update" over a model of this many rounds (10 until phase 19
+# needed the time; a round took 2.1-2.2 s)
+P17D_ROUNDS = 5
 
 
 def _dart_drops(xtt, params, dtrain, rounds):
@@ -3829,12 +3854,12 @@ def phase_gblinear(xtt, hist_cuda, X, y):
 
 
 def phase_update(xtt, hist_cuda, dtrain, X):
-    """process_type="update" over a 10-round model of phase 3's data on
+    """process_type="update" over a 5-round model of phase 3's data on
     the card: refresh alone (refresh_leaf 0) keeps every tree's structure
     and the predictions; refresh,prune with refresh_leaf 1 and 0 at a
     positive gamma removes splits; K4 once a round (each round's
     gradient, on the card, copied to the host once), K1-K3 never."""
-    base = xtt.train(BASE, dtrain, P17_ROUNDS, verbose_eval=False)
+    base = xtt.train(BASE, dtrain, P17D_ROUNDS, verbose_eval=False)
     raw = bytes(base.save_raw("json"))
     dtest = xtt.DMatrix(X[:100_000])
     p0 = base.predict(dtest)
@@ -3854,18 +3879,18 @@ def phase_update(xtt, hist_cuda, dtrain, X):
         p = dict(BASE, process_type="update", updater=updater,
                  refresh_leaf=rl, gamma=g)
         want = {k: 0 for k in hist_cuda.launches}
-        want["sigmoid"] = P17_ROUNDS  # one gradient a round
+        want["sigmoid"] = P17D_ROUNDS  # one gradient a round
         hist_cuda.reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        bst = xtt.train(p, dtrain, P17_ROUNDS, verbose_eval=False,
+        bst = xtt.train(p, dtrain, P17D_ROUNDS, verbose_eval=False,
                         xgb_model=bytearray(raw))
         torch.cuda.synchronize()
         s = time.perf_counter() - t0
         if hist_cuda.launches != want:
             raise AssertionError(f"phase {label}: launches "
                                  f"{hist_cuda.launches}, want {want}")
-        if bst.num_boosted_rounds() != P17_ROUNDS:
+        if bst.num_boosted_rounds() != P17D_ROUNDS:
             raise AssertionError(f"phase {label}: {bst.num_boosted_rounds()} "
                                  "rounds after the update")
         pred = bst.predict(dtest)
@@ -3881,9 +3906,9 @@ def phase_update(xtt, hist_cuda, dtrain, X):
         elif not splits(bst) < splits(base):
             raise AssertionError(f"phase {label}: prune at gamma {g} removed "
                                  "no split")
-        log(f"phase {label}: {P17_ROUNDS} rounds of a {P17_ROUNDS}-round "
+        log(f"phase {label}: {P17D_ROUNDS} rounds of a {P17D_ROUNDS}-round "
             f"model on {X.shape[0]} x {X.shape[1]}, gamma {g:.6g}: "
-            f"{s:.3f} s ({s / P17_ROUNDS:.3f} s a round); splits "
+            f"{s:.3f} s ({s / P17D_ROUNDS:.3f} s a round); splits "
             f"{splits(base)} -> {splits(bst)}; max |pred change| "
             f"{np.abs(pred - p0).max():.4g}; K4 {want['sigmoid']}, K1-K3 0")
         out[label] = s
@@ -4348,6 +4373,305 @@ def phase_shap(xtt, hist_cuda, f32, X, cover, Xc, lossguide, dart, gbl,
     return out
 
 
+# ------------------------------------------------------------ out of core
+# the criteo_extmem_40m row of BENCH_LADDER.json (scripts/bench_ladder.py:
+# 604-637): 64 pages of 655,360 Criteo-shaped rows, max_bin 128 (uint8
+# pages), depth 8, eta 0.3, 5 rounds
+EXTMEM_PAGES = 64
+EXTMEM_PAGE_ROWS = 655_360
+EXTMEM_ROUNDS = 5
+EXTMEM = dict(CRITEO)
+EXTMEM_DET = dict(CRITEO_DET)
+EXTMEM_DET_PAGES = 24  # 15,728,640 rows, under K2's MAX_ROWS = 2**24
+EXTMEM_DET_ROUNDS = 3
+EXTMEM_LADDER_AUC = 0.684014  # BENCH_LADDER.json, the JAX package on a CPU
+EXTMEM_AUC_TOL = 0.005
+
+
+def make_extmem_pages(n_pages: int):
+    """The ladder's pages, page i from seed 7000 + i (make_criteo is its
+    generator), made by eight threads."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(8) as ex:
+        return list(ex.map(
+            lambda i: make_criteo(EXTMEM_PAGE_ROWS, seed=7000 + i),
+            range(n_pages)))
+
+
+def _page_iter(xtt, pages):
+    class Pages(xtt.DataIter):
+        def __init__(self):
+            super().__init__()
+            self.i = 0
+
+        def reset(self):
+            self.i = 0
+
+        def next(self, input_data):
+            if self.i >= len(pages):
+                return 0
+            X, y = pages[self.i]
+            input_data(data=X, label=y, feature_types=CRITEO_TYPES)
+            self.i += 1
+            return 1
+
+    return Pages()
+
+
+def _pinned_rate():
+    """GB/s of one 256 MiB copy from pinned host memory to the card."""
+    host = torch.empty(256 << 20, dtype=torch.uint8, pin_memory=True)
+    dev = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    ms = cuda_ms(lambda: dev.copy_(host, non_blocking=True), reps=10)
+    del host, dev
+    return (256 << 20) / ms / 1e6, ms
+
+
+def _extmem_ingest(xtt, pages, label):
+    t0 = time.perf_counter()
+    d = xtt.ExtMemQuantileDMatrix(_page_iter(xtt, pages), max_bin=128,
+                                  enable_categorical=True)
+    torch.cuda.synchronize()
+    ingest_s = time.perf_counter() - t0
+    if len(d._pages) != len(pages) or not all(
+            isinstance(p, torch.Tensor) and p.is_pinned()
+            and p.dtype == torch.uint8 for p in d._pages):
+        raise AssertionError(f"phase {label}: the pages are not {len(pages)}"
+                             " pinned uint8 host tensors")
+    log(f"phase {label} ingest: {len(pages)} pages x {EXTMEM_PAGE_ROWS} "
+        f"rows x 39, {d.page_bytes()} page bytes pinned on the host; "
+        f"{ingest_s:.3f} s (pass 1, the streaming sketch: "
+        f"{d.ingest_seconds['sketch']:.3f} s; pass 2, bins on the card and "
+        f"the pinned copy: {d.ingest_seconds['bin']:.3f} s)")
+    return d, ingest_s
+
+
+def _extmem_run(xtt, hist_cuda, d, params, rounds, kernel, label, yard):
+    """The main path: ``rounds`` rounds over the pages, the launch counts
+    and page counters set to 0 just before and read just after."""
+    from xgboost_tpu_torch.data import extmem
+
+    n_pages, depth = len(d._pages), params["max_depth"]
+    extmem.reset_counters()
+    hist_cuda.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    bst = xtt.train(params, d, rounds, verbose_eval=False)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = dict(hist_cuda.launches)
+    c = extmem.counters()
+    want = _sigmoid_launches(hist_cuda, rounds, evals=0)
+    want[kernel] = n_pages * depth * rounds
+    want["split_scan"] = depth * rounds
+    if launches != want:
+        raise AssertionError(f"phase {label}: launches {launches}, want "
+                             f"{want} (pages x levels = {n_pages} x {depth} "
+                             "a round)")
+    per_page = d._pages[0].numel()
+    page_bytes = d.page_bytes()
+    streamed = c["xtb_extmem_page_bytes_total"] / rounds
+    if streamed != (depth + 1) * page_bytes:
+        raise AssertionError(f"phase {label}: {streamed} page bytes a round,"
+                             f" want {depth + 1} passes of {page_bytes}")
+    hwm = c["device_page_bytes_hwm"]
+    # the histograms' least bytes a round: each launch reads its page's
+    # bins, pos and gradients (f32 pairs, or int8 limbs) once and writes
+    # its histogram (cells of two f32, or two channels of three int32
+    # limbs) once; the levels below the root build their left children
+    R_pad, F, B = d.n_padded_total, d.num_col(), d.cuts_pad.shape[1]
+    row_bytes, cell = (4 + 6, 24) if kernel == "hist_q" else (4 + 8, 8)
+    hist_bytes = sum(n_pages * (1 if lvl == 0 else 1 << (lvl - 1)) * F * B
+                     * cell for lvl in range(depth))
+    bound_bytes = depth * (page_bytes + R_pad * row_bytes) + hist_bytes
+    bound_ms = bound_bytes / HBM_BYTES_PER_S * 1e3
+    if hwm > 3 * per_page:
+        raise AssertionError(f"phase {label}: {hwm} page bytes resident on "
+                             f"the card, more than lookahead + 1 = 3 pages")
+    rate = streamed * rounds / train_s / 1e9
+    log(f"phase {label} train: {n_pages} pages ({n_pages * EXTMEM_PAGE_ROWS}"
+        f" rows), depth {depth}, {rounds} rounds; train loop {train_s:.3f} s "
+        f"= {n_pages * EXTMEM_PAGE_ROWS * rounds / train_s / 1e6:.3f} M "
+        f"row-rounds/s; page bytes streamed a round {streamed:.0f} "
+        f"({depth + 1} passes of {page_bytes}), {rate:.3f} GB/s over the "
+        f"loop against the pinned copy's {yard:.3f} GB/s, so the copies "
+        f"alone bound a round at {streamed / yard / 1e6:.3f} ms; host "
+        f"seconds staging pages {c['xtb_extmem_decode_seconds_total']:.3f},"
+        f" waiting {c['xtb_extmem_wait_seconds_total']:.3f}, overlapped "
+        f"{c['xtb_extmem_overlap_seconds_total']:.3f}; pages staged "
+        f"{c['xtb_extmem_pages_loaded_total']:.0f}; page bytes resident on "
+        f"the card at most {hwm} (3 pages of {per_page}); "
+        f"max_memory_allocated {torch.cuda.max_memory_allocated()}; "
+        f"{kernel} launches {launches[kernel]} ({n_pages} pages x {depth} "
+        f"levels x {rounds}), K3 {launches['split_scan']}, K4 "
+        f"{launches['sigmoid']}; the {kernel} launches of a round move at "
+        f"least {bound_bytes / 1e6:.1f} MB, {bound_ms:.4f} ms "
+        "at 3.35 TB/s")
+    return dict(bst=bst, train_s=train_s, launches=launches[kernel],
+                scan_launches=launches["split_scan"],
+                sigmoid_launches=launches["sigmoid"], streamed=streamed)
+
+
+def _extmem_serial(xtt, d, params, label):
+    """One round with the pages' copies and compute in series
+    (_extmem_prefetch=0, one device slot) beside one with the window of
+    two, in turns: on, off, off, on."""
+    times = {"1": [], "0": []}
+    for flag in ("1", "0", "0", "1"):
+        t0 = time.perf_counter()
+        xtt.train(dict(params, _extmem_prefetch=flag), d, 1,
+                  verbose_eval=False)
+        torch.cuda.synchronize()
+        times[flag].append(time.perf_counter() - t0)
+    on, off = statistics.mean(times["1"]), statistics.mean(times["0"])
+    log(f"phase {label} prefetch: one round {on:.3f} s with two pages in "
+        f"flight (runs {times['1'][0]:.3f} {times['1'][1]:.3f}), {off:.3f} s "
+        f"with copy and compute in series (runs {times['0'][0]:.3f} "
+        f"{times['0'][1]:.3f}); overlap saves {off - on:.3f} s a round")
+    return on, off
+
+
+def phase_extmem(xtt, hist_cuda, pages):
+    """19a: out-of-core training at the ladder's size."""
+    from xgboost_tpu_torch.metric import auc
+
+    yard, yard_ms = _pinned_rate()
+    log(f"phase 19a yardstick: one 256 MiB copy from pinned host memory "
+        f"{yard_ms:.4f} ms = {yard:.3f} GB/s")
+    d, ingest_s = _extmem_ingest(xtt, pages, "19a")
+    r = _extmem_run(xtt, hist_cuda, d, EXTMEM, EXTMEM_ROUNDS, "hist_f32",
+                    "19a", yard)
+    t0 = time.perf_counter()
+    pred = r["bst"].predict(d)
+    predict_s = time.perf_counter() - t0
+    if pred.shape != (d.num_row(),) or not np.all(np.isfinite(pred)):
+        raise AssertionError(f"phase 19a: predictions {pred.shape}")
+    got = auc(pred[::8], d.label[::8].astype(np.float64))
+    # the same rows in memory on the card (the in-core path the CPU tests
+    # hold against the reference), its AUC the gate
+    X = np.concatenate([p[0] for p in pages])
+    y = np.concatenate([p[1] for p in pages])
+    din = xtt.DMatrix(X, label=y, feature_types=CRITEO_TYPES)
+    del X
+    incore = xtt.train(EXTMEM, din, EXTMEM_ROUNDS, verbose_eval=False)
+    want = auc(incore.predict(din)[::8], y[::8].astype(np.float64))
+    del din, incore
+    log(f"phase 19a quality: predict over the pages {predict_s:.3f} s; "
+        f"AUC@stride8 {got:.6f}, in memory on the card {want:.6f} "
+        f"(|diff| {abs(got - want):.6f}, gate {EXTMEM_AUC_TOL}); "
+        f"BENCH_LADDER.json's {EXTMEM_LADDER_AUC} (|diff| "
+        f"{abs(got - EXTMEM_LADDER_AUC):.6f})")
+    if not abs(got - want) <= EXTMEM_AUC_TOL:
+        raise AssertionError(f"phase 19a: AUC {got} against {want} in "
+                             "memory")
+    r["on_s"], r["off_s"] = _extmem_serial(xtt, d, EXTMEM, "19a")
+    phase_profile(xtt, d, EXTMEM, "19a (out of core)")
+    r.update(auc=got, incore_auc=want, ingest_s=ingest_s, yard=yard)
+    d.release_device()
+    return r
+
+
+def phase_extmem_det(xtt, hist_cuda, pages, yard):
+    """19b: deterministic_histogram=1 on the first 24 pages."""
+    d, _ = _extmem_ingest(xtt, pages[:EXTMEM_DET_PAGES], "19b")
+    r = _extmem_run(xtt, hist_cuda, d, EXTMEM_DET, EXTMEM_DET_ROUNDS,
+                    "hist_q", "19b", yard)
+    again = xtt.train(EXTMEM_DET, d, EXTMEM_DET_ROUNDS, verbose_eval=False)
+    if _model_bytes(again) != _model_bytes(r["bst"]):
+        raise AssertionError("phase 19b: two deterministic runs wrote "
+                             "different models")
+    log("phase 19b: two deterministic runs byte-identical")
+    _extmem_serial(xtt, d, EXTMEM_DET, "19b")
+    phase_profile(xtt, d, EXTMEM_DET, "19b (out of core, deterministic)")
+    d.release_device()
+    return r
+
+
+def phase_extmem_parity(xtt, pages):
+    """19c: four pages in memory and out of core on the same cuts."""
+    import scipy.sparse as sp
+
+    four = pages[:4]
+    X = np.concatenate([p[0] for p in four])
+    y = np.concatenate([p[1] for p in four])
+    qd = xtt.QuantileDMatrix(X, label=y, max_bin=128,
+                             feature_types=CRITEO_TYPES,
+                             enable_categorical=True)
+    ext = xtt.ExtMemQuantileDMatrix(_page_iter(xtt, four), max_bin=128,
+                                    ref=qd)
+    a = xtt.train(EXTMEM_DET, qd, 3, verbose_eval=False)
+    b = xtt.train(EXTMEM_DET, ext, 3, verbose_eval=False)
+    if _model_bytes(a) != _model_bytes(b):
+        raise AssertionError("phase 19c: the deterministic model out of "
+                             "core is not the in-memory one")
+    diff = np.abs(b.predict(ext) - a.predict(qd)).max()
+    if diff > 1e-6:
+        raise AssertionError(f"phase 19c: predictions differ by {diff}")
+    fa = xtt.train(EXTMEM, qd, 3, verbose_eval=False)
+    fb = xtt.train(EXTMEM, ext, 3, verbose_eval=False)
+    first = _same_or_near_tie(
+        fb, fa, "19c", 1,
+        lambda: np.abs(fb.predict(ext) - fa.predict(qd)).max(), 1e-4,
+        "f32 out of core vs in memory", X)
+
+    class Csr(xtt.DataIter):
+        def __init__(self):
+            super().__init__()
+            self.i = 0
+
+        def reset(self):
+            self.i = 0
+
+        def next(self, input_data):
+            if self.i >= len(four):
+                return 0
+            Xp, yp = four[self.i]
+            # a stored zero is a value: CSR of the non-missing entries
+            rows, cols = np.nonzero(~np.isnan(Xp))
+            input_data(data=sp.csr_matrix((Xp[rows, cols], (rows, cols)),
+                                          shape=Xp.shape), label=yp,
+                       feature_types=CRITEO_TYPES)
+            self.i += 1
+            return 1
+
+    spm = xtt.SparsePageDMatrix(Csr(), max_bin=128, ref=qd)
+    sdiff = np.abs(a.predict(spm) - a.predict(qd)).max()
+    if sdiff > 1e-6:
+        raise AssertionError(f"phase 19c: raw-page predictions differ by "
+                             f"{sdiff}")
+    log(f"phase 19c parity: {X.shape[0]} rows in 4 pages on the cuts of the "
+        f"in-memory QuantileDMatrix; deterministic models byte-identical, "
+        f"predictions within {diff:.3g}; f32 "
+        + ("the same trees" if first is None else f"first apart at {first}")
+        + f"; SparsePageDMatrix raw-page predictions within {sdiff:.3g} of "
+        "the in-memory ones")
+    ext.release_device()
+
+
+def phase_extmem_cpu(xtt):
+    """19d: 20,000 rows in 4 pages, deterministic, card against CPU."""
+    X, y = make_criteo(20_000, seed=7100)
+    cut = [0, 4000, 9000, 15000, 20_000]
+    batches = [(X[a:b], y[a:b]) for a, b in zip(cut, cut[1:])]
+    card = xtt.ExtMemQuantileDMatrix(_page_iter(xtt, batches), max_bin=128,
+                                     enable_categorical=True)
+    cpu = xtt.ExtMemQuantileDMatrix(_page_iter(xtt, batches), max_bin=128,
+                                    enable_categorical=True, device="cpu",
+                                    compress=False)
+    got = xtt.train(EXTMEM_DET, card, 5, verbose_eval=False)
+    want = xtt.train(EXTMEM_DET, cpu, 5, verbose_eval=False, device="cpu")
+    if _model_bytes(got) != _model_bytes(want):
+        raise AssertionError("phase 19d: the card's model JSON is not the "
+                             "CPU's")
+    if not np.array_equal(got.predict(card), want.predict(cpu)):
+        raise AssertionError("phase 19d: predictions differ")
+    log("phase 19d parity: 20000 rows in 4 pages, depth 8, 5 rounds, "
+        "deterministic: the card's model JSON byte-identical to the CPU's, "
+        "predictions equal")
+    card.release_device()
+
+
 def _shap_entry(name, r):
     """K6's line: its main path's call (or the first rows of it, where the
     plain version ran on those only), with the launches of the call."""
@@ -4529,6 +4853,16 @@ def main() -> int:
                  lossguide, dart, gbl, cat)
     del X, y, Xc
     timed("17f", phase_boosters_parity, xtt)
+    t0 = time.perf_counter()
+    pages = make_extmem_pages(EXTMEM_PAGES)
+    log(f"phase 19 data: {EXTMEM_PAGES} pages of {EXTMEM_PAGE_ROWS} rows "
+        f"made in {time.perf_counter() - t0:.3f} s")
+    ext = timed("19a", phase_extmem, xtt, hist_cuda, pages)
+    ext_det = timed("19b", phase_extmem_det, xtt, hist_cuda, pages,
+                    ext["yard"])
+    timed("19c", phase_extmem_parity, xtt, pages)
+    del pages
+    timed("19d", phase_extmem_cpu, xtt)
 
     kernels = [_kernel_entry(name, hist_cuda.SOURCES[name], cases, n)
                for name, cases, n in (("hist_f32", f32_cases, f32["launches"]),

@@ -333,7 +333,8 @@ def test_training_on_card_launches_kernel_and_matches_cpu():
     # and one sigmoid for the base score, then one a round
     assert hist_cuda.launches == {"hist_f32": 4 * 3, "hist_q": 0,
                                   "split_scan": 4 * 3, "sigmoid": 1 + 4,
-                                  "hist_f32_multi": 0, "lambdarank": 0}
+                                  "hist_f32_multi": 0, "lambdarank": 0,
+                                  "treeshap": 0, "treeshap_interactions": 0}
     cpu = xtt.train(params, xtt.DMatrix(X, label=y, device="cpu"), 4,
                     verbose_eval=False, device="cpu")
     for a, b in zip(card.trees, cpu.trees):
@@ -381,7 +382,9 @@ def test_deterministic_training_launches_only_k2_and_repeats_bytes():
                         verbose_eval=False)
         assert hist_cuda.launches == {"hist_f32": 0, "hist_q": 3 * 6,
                                       "split_scan": 3 * 6, "sigmoid": 1 + 3,
-                                      "hist_f32_multi": 0, "lambdarank": 0}
+                                      "hist_f32_multi": 0, "lambdarank": 0,
+                                      "treeshap": 0,
+                                      "treeshap_interactions": 0}
         models.append(json.dumps(bst.save_raw_dict()))
     assert models[0] == models[1]
 
@@ -783,7 +786,8 @@ def test_multiclass_training_card_is_the_cpus(sampled):
                     verbose_eval=False)
     assert hist_cuda.launches == {"hist_f32": 0, "hist_q": 3 * 3 * 4,
                                   "split_scan": 3 * 3 * 4, "sigmoid": 0,
-                                  "hist_f32_multi": 0, "lambdarank": 0}
+                                  "hist_f32_multi": 0, "lambdarank": 0,
+                                  "treeshap": 0, "treeshap_interactions": 0}
     want = xtt.train(params, xtt.DMatrix(X, label=y, device="cpu", **dm), 3,
                      verbose_eval=False, device="cpu")
     assert json.dumps(got.save_raw_dict()) == json.dumps(want.save_raw_dict())
@@ -999,7 +1003,8 @@ def test_lockstep_and_vector_training_launch_the_class_axis():
                                       "split_scan": 0 if "multi_strategy"
                                       in extra else 3 * 3,
                                       "sigmoid": 0, "hist_f32_multi": 3 * 3,
-                                      "lambdarank": 0}
+                                      "lambdarank": 0, "treeshap": 0,
+                                      "treeshap_interactions": 0}
         want = xtt.train(params, xtt.DMatrix(X, label=y, device="cpu"), 3,
                          verbose_eval=False, device="cpu")
         for a, b in zip(got.trees, want.trees):

@@ -220,6 +220,7 @@ def test_port_imports_neither_jax_nor_reference():
     sources.append(os.path.join(HERE, "test_torch_hist_cuda.py"))
     sources.append(os.path.join(HERE, "test_torch_boosters_cuda.py"))
     sources.append(os.path.join(HERE, "test_torch_treeshap_cuda.py"))
+    sources.append(os.path.join(HERE, "test_torch_extmem_cuda.py"))
     assert len(sources) > 20
     assert any(p.endswith(os.path.join("ops", "quantise.py"))
                for p in sources)

@@ -8,8 +8,11 @@ kernel (csrc/hist.cu, or csrc/hist_q.cu under ``deterministic_histogram=1``),
 and so do the split scan (csrc/split_scan.cu), the logistic gradient
 (csrc/sigmoid.cu) and the top-k LambdaMART gradients (csrc/lambdarank.cu).
 
-The port covers dense and scipy sparse data with numeric and categorical
-features, query groups and survival bounds; ``hist`` trees grown depthwise
+The port covers dense and scipy sparse data, pandas frames and Arrow
+tables, with numeric and categorical features, query groups and survival
+bounds, in memory or out of core (``DataIter``, ``ExtMemQuantileDMatrix``,
+``SparsePageDMatrix``: pages kept on the host and streamed to the card at
+every tree level); ``hist`` trees grown depthwise
 or best-first with constraints, sampling and a leaf budget, multi-output
 and vector-leaf trees, ``num_parallel_tree`` forests; every regression,
 binary, count, survival, ranking and multiclass objective of the reference
@@ -26,12 +29,24 @@ from .callback import (EarlyStopping, EvaluationMonitor, LearningRateScheduler,
                        TrainingCallback, TrainingCheckPoint)
 from .config import config_context, get_config, set_config
 from .core import Booster
-from .data.dmatrix import DMatrix
+from .data.dmatrix import DMatrix, MetaInfo, QuantileDMatrix
+from .data.ellpack import EllpackPage
+from .data.extmem import (DataIter, ExtMemConfig, ExtMemQuantileDMatrix,
+                          SparsePageDMatrix)
+from .data.quantile import HistogramCuts
 from .training import cv, train
 
 __all__ = [
     "Booster",
     "DMatrix",
+    "QuantileDMatrix",
+    "DataIter",
+    "ExtMemQuantileDMatrix",
+    "SparsePageDMatrix",
+    "ExtMemConfig",
+    "HistogramCuts",
+    "EllpackPage",
+    "MetaInfo",
     "train",
     "cv",
     "config_context",

@@ -61,6 +61,15 @@ The other boosters and updaters (reference core.py:206-255):
   there.
 - ``booster="gblinear"`` (models/gblinear.py): the coordinate chain in
   PyTorch operations on the device, the selectors' orders from the host.
+
+Out of core (reference core.py:680-837): on an ExtMemQuantileDMatrix the
+trees grow on StreamingHistTreeGrower (tree/stream.py), which streams the
+host pages to the device at every level; the training state (margins,
+gradients, row positions) lives on the device over the page-padded rows.
+Prediction on the pages routes rows by the trees' split bins
+(``_predict_extmem``); a SparsePageDMatrix's raw pages take the raw
+traversal a page at a time.  As the reference, pages refuse exact, DART,
+gblinear, process_type="update" and the per-feature outputs of predict.
 """
 from __future__ import annotations
 
@@ -82,6 +91,7 @@ from .models.updaters import _route_masks, prune_tree, refresh_tree, sync_trees
 from .objective import ObjFunction, create_objective
 from .ops.adaptive import segment_quantile_leaf
 from .ops.predict import (predict_leaf_ids, predict_margin_delta,
+                          predict_margin_delta_binned,
                           predict_margin_delta_multi)
 from .ops.split import SplitParams
 from .params import (KNOWN_LEARNER_KEYS, TrainParam, canonicalize,
@@ -91,6 +101,7 @@ from .tree.exact import grow_exact
 from .tree.grow import HistTreeGrower, leaf_margin_delta
 from .tree.grow_lockstep import LockstepHistGrower, leaf_margin_delta_k
 from .tree.grow_multi import MultiTargetTreeGrower, leaf_margin_delta_multi
+from .tree.stream import StreamingHistTreeGrower
 from .utils.device import resolve_device
 from .utils.fp import sqrt_f32, sum_f32
 from .utils.random import bernoulli, prng_key, uniform
@@ -100,7 +111,9 @@ __all__ = ["Booster"]
 
 class _Cache:
     """Per-DMatrix state on the booster's device: the margin cache, and for
-    a training matrix the binned page with padded labels/weights/valid."""
+    a training matrix the binned page with padded labels/weights/valid.
+    For an external-memory matrix the rows are its page-padded rows and
+    the pages stay on the host."""
 
     def __init__(self, dmat: DMatrix, device: torch.device):
         self.dmat = dmat
@@ -114,7 +127,15 @@ class _Cache:
         self.host_X: Optional[np.ndarray] = None
         self.linear_XT: Optional[torch.Tensor] = None  # gblinear (F, R)
 
+    @property
+    def is_extmem(self) -> bool:
+        return hasattr(self.dmat, "_pages")
+
     def ensure_train(self, max_bin: int) -> None:
+        if self.is_extmem:
+            if not self.ready:
+                self._stage_extmem()
+            return
         if self.ellpack is not None:
             return
         ell = self.dmat.ensure_ellpack(max_bin=max_bin)
@@ -132,6 +153,27 @@ class _Cache:
         if not self.ready:
             R = self.dmat.num_row()
             self._stage(R, R)
+
+    def _stage_extmem(self) -> None:
+        """Valid rows, labels and weights in the pages' padded layout
+        (reference core.py:84-100), and the cuts, on the device."""
+        d, dev = self.dmat, self.device
+        R_pad = d.n_padded_total
+        self.n_padded, self.n_real = R_pad, d.num_row()
+        self.valid = torch.from_numpy(d.valid_mask()).to(dev)
+        lab = d.padded_labels()
+        self.labels = torch.from_numpy(
+            lab if lab is not None else np.zeros(R_pad, np.float32)).to(dev)
+        w = d.padded_weights()
+        self.weights = None if w is None else torch.from_numpy(w).to(dev)
+        self.cuts_pad = d.cuts_pad.to(dev)
+        self.cuts_host = d.cuts_pad.numpy()
+        self.n_bins = d.n_bins.to(dev)
+        if self.margin is not None and self.margin.shape[0] != R_pad:
+            extra = torch.zeros((R_pad - self.margin.shape[0],
+                                 self.margin.shape[1]), device=dev)
+            self.margin = torch.cat([self.margin, extra])
+        self.ready = True
 
     def _stage(self, R_pad: int, R: int) -> None:
         dev = self.device
@@ -185,7 +227,12 @@ class _Cache:
         out = torch.empty((R_pad, K), dtype=torch.float32, device=self.device)
         out[:] = torch.tensor(np.asarray(base_score, np.float32))
         user = self.dmat.base_margin
-        if user is not None:
+        if user is not None and self.is_extmem:
+            # the pages' layout, zero on the padding rows (reference
+            # core.py:142-147)
+            m = self.dmat.padded_base_margin().reshape(R_pad, -1)
+            out[:] = torch.from_numpy(np.ascontiguousarray(m))
+        elif user is not None:
             m = np.asarray(user, np.float32).reshape(len(user), -1)
             out[: len(user)] = torch.tensor(m)  # (R, 1) broadcasts over K
         return out
@@ -302,15 +349,16 @@ class Booster:
         self._adaptive = self.objective.adaptive_leaf()
         self._lockstep = False
         self._grower = self._lockstep_grower = self._multi_grower = None
+        self._stream_growers: Dict[tuple, StreamingHistTreeGrower] = {}
         if self.booster_kind == "gblinear" or self.tree_method == "exact":
             # neither grows on histograms
             self._configured = True
             return
-        if self._best_first:
-            if self.deterministic_histogram:
-                raise NotImplementedError(
-                    "deterministic_histogram is not supported with the "
-                    "best-first (lossguide + max_leaves) grower yet")
+        if self._best_first and self.deterministic_histogram:
+            # refused where an in-memory matrix would grow best-first (the
+            # streaming grower takes lossguide level by level)
+            self._grower = None
+        elif self._best_first:
             # depth bounded by the leaf budget alone when max_depth <= 0
             self._grower = BestFirstGrower(
                 max(tp.max_depth, 0), self._split_params,
@@ -418,6 +466,8 @@ class Booster:
         core.py:351-419): gblinear's margin anew after each round, and a
         margin from before a DART rescale or an update pass from
         scratch."""
+        if cache.is_extmem:
+            cache.ensure_train(self.tparam.max_bin)
         self._ensure_base_margin(cache)
         if self.booster_kind == "gblinear":
             rounds = self._linear_rounds
@@ -432,7 +482,13 @@ class Booster:
                                                   self.n_groups)
             cache.n_trees_applied = 0
             cache.weights_version = self._weights_version
-        if cache.n_trees_applied < len(self.trees):
+        if cache.n_trees_applied < len(self.trees) and cache.is_extmem:
+            new = slice(cache.n_trees_applied, len(self.trees))
+            # the page-padded delta, added as the reference adds it
+            cache.margin = cache.margin + self._predict_extmem(cache.dmat,
+                                                               new)
+            cache.n_trees_applied = len(self.trees)
+        elif cache.n_trees_applied < len(self.trees):
             new = slice(cache.n_trees_applied, len(self.trees))
             X = self._device_X(cache.dmat)
             R = X.shape[0]
@@ -444,7 +500,10 @@ class Booster:
     def _train_cache(self, dtrain: DMatrix) -> _Cache:
         self._configure()
         cache = self._get_cache(dtrain)
-        if (self.tree_method == "exact" or self.booster_kind == "gblinear"
+        if cache.is_extmem:
+            self._check_extmem_training()
+            cache.ensure_train(self.tparam.max_bin)
+        elif (self.tree_method == "exact" or self.booster_kind == "gblinear"
                 or self.process_type == "update"):
             cache.ensure_train_raw()
         else:
@@ -474,6 +533,23 @@ class Booster:
                 self.objective.set_group_info(gp)
                 self.objective._group_owner = owner
         return cache
+
+    def _check_extmem_training(self) -> None:
+        """Refuse what the pages cannot train, as the reference does:
+        gblinear and process_type="update" read the raw matrix (reference
+        core.py:586, :1191: host_dense raises).  The ranking objectives'
+        query groups are not carried by pages: the reference takes the
+        page padding into its one group, so the port refuses them."""
+        if self.booster_kind == "gblinear" or self.process_type == "update":
+            raise NotImplementedError(
+                "ExtMemQuantileDMatrix does not materialize raw data; "
+                "booster='gblinear' and process_type='update' need an "
+                "in-memory DMatrix")
+        if hasattr(self.objective, "set_group_info"):
+            raise NotImplementedError(
+                "ranking objectives need query groups, which "
+                "ExtMemQuantileDMatrix pages do not carry; use an "
+                "in-memory DMatrix")
 
     def update(self, dtrain: DMatrix, iteration: int, fobj=None) -> None:
         """One boosting iteration (learner.cc:1108 UpdateOneIter).  ``fobj``:
@@ -550,7 +626,9 @@ class Booster:
         h = np.asarray(hess, np.float32).reshape(R, -1)
         out = torch.zeros((cache.n_rows(), g.shape[1], 2),
                           dtype=torch.float32, device=self.device)
-        out[:R] = torch.from_numpy(np.stack([g, h], axis=-1)).to(self.device)
+        # the valid rows: the first R, or the pages' rows out of core
+        out[cache.valid] = torch.from_numpy(np.stack([g, h], axis=-1)).to(
+            self.device)
         return out
 
     def _subsample_mask(self, gpair, iteration: int):
@@ -659,6 +737,21 @@ class Booster:
         the gradient pairs; tree k adds its leaves into margin column k.
         ``gpair`` is None on a DART round that drops ``drop_idx``: the
         gradient is taken here, on the margin without them."""
+        if cache.is_extmem:
+            # (reference core.py:1313-1326)
+            if self.tree_method == "exact":
+                raise NotImplementedError(
+                    "tree_method='exact' needs raw in-memory values; it is "
+                    "not supported with ExtMemQuantileDMatrix")
+            if self.booster_kind == "dart":
+                raise ValueError("booster='dart' is not supported with "
+                                 "ExtMemQuantileDMatrix yet")
+            self._boost_trees_extmem(cache, gpair, iteration)
+            return
+        if self._best_first and self.deterministic_histogram:
+            raise NotImplementedError(
+                "deterministic_histogram is not supported with the "
+                "best-first (lossguide + max_leaves) grower yet")
         if self.tree_method == "exact":
             # raw host values: no sketch, no binned page, no grower
             if self.deterministic_histogram:
@@ -743,6 +836,118 @@ class Booster:
             cache.margin = self._dart_commit(cache, start, n_new, drop_idx,
                                              drop_margin)
         cache.n_trees_applied = len(self.trees)
+
+    def _stream_grower(self) -> StreamingHistTreeGrower:
+        """The streaming grower of the current parameters (reference
+        core.py:695-715): ``_extmem_prefetch`` 0 puts page copies and
+        compute in series; ``_extmem_page_skip`` 0 keeps sampled-out pages
+        in every level pass."""
+        tp = self.tparam
+        lossguide = tp.grow_policy == "lossguide"
+
+        def on(key):
+            return str(self.params.get(key, "1")).lower() in ("1", "true")
+
+        prefetch = None if on("_extmem_prefetch") else 0
+        page_skip = (tp.subsample < 1.0
+                     and tp.sampling_method == "gradient_based"
+                     and on("_extmem_page_skip"))
+        key = (prefetch, page_skip)
+        if key not in self._stream_growers:
+            self._stream_growers[key] = StreamingHistTreeGrower(
+                self._resolve_max_depth(lossguide), self._split_params,
+                interaction_sets=tp.interaction_constraints,
+                max_leaves=tp.max_leaves, lossguide=lossguide,
+                quantised=self.deterministic_histogram, prefetch=prefetch,
+                page_skip=page_skip)
+        return self._stream_growers[key]
+
+    def _boost_trees_extmem(self, cache: _Cache, gpair,
+                            iteration: int) -> None:
+        """A round over the pages (reference core.py:680-739): for each
+        parallel tree its column sampler and row sample, for each output
+        group a tree from the streaming grower, its leaves added to the
+        margin.  As the reference, the trees are scalar (multi_strategy
+        and _lockstep are not read) and adaptive objectives keep the
+        grower's leaves."""
+        d = cache.dmat
+        mono = self.tparam.monotone_constraints
+        if mono is not None and len(mono) != d.num_col():
+            raise ValueError(
+                f"monotone_constraints has {len(mono)} entries but data has "
+                f"{d.num_col()} features")
+        grower = self._stream_grower()
+        cat_mask = d.cat_mask()
+        for p in range(self.num_parallel_tree):
+            fmask_fn = self._feature_masks(iteration * 131 + p, p,
+                                           d.num_col(), d.feature_weights)
+            gp = self._subsample_mask(gpair, iteration * 131 + p)
+            for k in range(gpair.shape[1]):
+                state = grower.grow(d, gp[:, k, :].contiguous(), cache.valid,
+                                    cache.cuts_pad, cache.n_bins,
+                                    feature_masks=fmask_fn,
+                                    cat_mask=cat_mask)
+                cache.margin[:, k] += leaf_margin_delta(state.pos,
+                                                        state.leaf_val)
+                tree = RegTree.from_grown(HistTreeGrower.to_host(state))
+                tree.cuts_token = d._cuts.token
+                self._append_tree(tree, k)
+        cache.n_trees_applied = len(self.trees)
+
+    def _predict_extmem(self, data, tree_slice: slice) -> torch.Tensor:
+        """The trees' margin over an external-memory matrix's pages,
+        (R_pad, K) on the booster's device in the pages' padded layout
+        (reference core.py:760): each page streamed to the device and its
+        rows routed by the trees' split bins."""
+        from .data.extmem import prefetch_lookahead
+
+        self._ensure_split_bins(tree_slice, data._cuts)
+        s, groups, depth = self._stacked(tree_slice)
+        n_bin = data.cuts_pad.shape[1]
+        offs = data.page_offsets()
+        out = torch.empty((offs[-1], self.n_groups), dtype=torch.float32,
+                          device=self.device)
+        sched = data.scheduler(data._pages, self.device, prefetch_lookahead())
+        try:
+            for j in range(len(data._pages)):
+                bins = sched.get(j)
+                out[offs[j]: offs[j + 1]] = predict_margin_delta_binned(
+                    bins, s["feat"], s["sbin"], s["dleft"], s["left"],
+                    s["right"], s["value"], groups, None, s.get("is_cat"),
+                    s.get("catm"), n_groups=self.n_groups, depth=depth,
+                    n_bin=n_bin)
+                sched.release(j)
+        finally:
+            sched.close()
+        return out
+
+    def _ensure_split_bins(self, tree_slice: slice, cuts) -> None:
+        """Split bins for trees that lack them or index other cuts (a
+        loaded model, or one trained on another matrix; reference
+        core.py:800): a threshold is a cut, cuts[f][sbin], so its bin is an
+        exact search of the matrix's cuts."""
+        for t in self.trees[tree_slice]:
+            if t.split_bins is not None and t.cuts_token == cuts.token:
+                continue
+            sbin = np.zeros(t.n_nodes, np.int32)
+            for nid in range(t.n_nodes):
+                if t.left_children[nid] == -1:
+                    continue
+                if t.split_type is not None and t.split_type[nid] == 1:
+                    continue  # a categorical split routes by its set
+                seg = cuts.feature_cuts(int(t.split_indices[nid]))
+                b = int(np.searchsorted(seg, t.split_conditions[nid],
+                                        side="left"))
+                if b >= len(seg) or seg[b] != t.split_conditions[nid]:
+                    raise ValueError(
+                        "cannot map split threshold onto this matrix's bin "
+                        "cuts; was the model trained with different cuts, "
+                        "or with tree_method='exact' (raw-value "
+                        "thresholds)? Use an in-memory DMatrix for "
+                        "prediction.")
+                sbin[nid] = b
+            t.split_bins = sbin
+            t.cuts_token = cuts.token
 
     def _append_tree(self, tree: RegTree, group: int) -> None:
         self.trees.append(tree)
@@ -1189,7 +1394,8 @@ class Booster:
         for dmat, name in evals:
             cache = self._get_cache(dmat)
             self._sync_margin(cache)
-            margin = cache.margin[: dmat.num_row()]
+            margin = (cache.margin[cache.valid] if cache.is_extmem
+                      else cache.margin[: dmat.num_row()])
             preds = self.objective.pred_transform(margin).cpu().numpy()
             if self.n_groups == 1:
                 preds = preds[:, 0]
@@ -1355,6 +1561,10 @@ class Booster:
         hi = hi or self.num_boosted_rounds()
         tpr = self.trees_per_round
         tree_slice = slice(lo * tpr, hi * tpr)
+        if hasattr(data, "_pages"):
+            return self._predict_pages(data, tree_slice, output_margin,
+                                       pred_leaf or pred_contribs
+                                       or pred_interactions, strict_shape)
         if pred_contribs or pred_interactions:
             from .interpret import predict_contribs, predict_interactions
 
@@ -1387,6 +1597,40 @@ class Booster:
         if self.n_groups == 1 and not strict_shape:
             out = out[:, 0]
         return out
+
+    def _predict_pages(self, data, tree_slice: slice, output_margin: bool,
+                       per_feature: bool, strict_shape: bool) -> np.ndarray:
+        """predict on an external-memory matrix (reference core.py:
+        1908-1940): the binned pages' margins, or a SparsePageDMatrix's
+        raw pages a page at a time with the trees' float thresholds."""
+        if per_feature:
+            raise ValueError(
+                "pred_leaf/pred_contribs are not supported for "
+                "ExtMemQuantileDMatrix; predict on an in-memory DMatrix")
+        # the margins stay on the device through the transform
+        dev = self.device
+        base = torch.from_numpy(np.array(np.broadcast_to(
+            self.base_score.reshape(-1), (self.n_groups,)),
+            np.float32)).to(dev)
+        if self.trees[tree_slice]:
+            if getattr(data, "has_raw_pages", False):
+                margin = torch.cat([
+                    self._margin_delta_for(torch.from_numpy(pg).to(dev),
+                                           tree_slice)
+                    for pg in data.raw_dense_pages()]) + base[None, :]
+            else:
+                valid = torch.from_numpy(data.valid_mask()).to(dev)
+                margin = self._predict_extmem(data, tree_slice)[valid] + \
+                    base[None, :]
+        else:
+            margin = base[None, :].expand(data.num_row(), -1).clone()
+        if data.base_margin is not None:
+            um = torch.from_numpy(np.asarray(data.base_margin, np.float32)
+                                  .reshape(data.num_row(), -1)).to(dev)
+            margin = margin - base[None, :] + um
+        out = (margin if output_margin
+               else self.objective.pred_transform(margin)).cpu().numpy()
+        return out[:, 0] if self.n_groups == 1 and not strict_shape else out
 
     def _linear_contribs(self, data: DMatrix) -> np.ndarray:
         """gblinear's contributions (reference core.py:1983-1997,

@@ -17,18 +17,52 @@ Categorical features (feature type ``'c'``) hold integer category codes:
 from numpy with ``feature_types``, or from a pandas frame's ``category``
 columns, whose category values are kept (``cat_categories``) so that a
 frame coded another way is recoded at prediction.  The frame is read
-through its own methods: this module never imports pandas.
+through its own methods: this module never imports pandas.  A pyarrow
+Table or RecordBatch (``data/arrow.py``) and a polars frame come in the
+same way: nulls become NaN, dictionary and categorical columns their codes.
+
+``QuantileDMatrix`` bins at construction; ``ref=`` takes another matrix's
+cuts, so that validation rows land in the training bins.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from ..utils.device import resolve_device
+from .arrow import arrow_to_columnar, is_arrow
 from .ellpack import EllpackPage, build_ellpack, build_ellpack_csr
-from .quantile import WeightedSketch, sketch_csr, sketch_dense
+from .quantile import HistogramCuts, WeightedSketch, sketch_csr, sketch_dense
+
+
+@dataclasses.dataclass
+class MetaInfo:
+    """Labels and the other per-row and per-feature metadata (reference
+    dmatrix.py:24, data.h:65-116)."""
+
+    num_row: int = 0
+    num_col: int = 0
+    label: Optional[np.ndarray] = None
+    weight: Optional[np.ndarray] = None
+    base_margin: Optional[np.ndarray] = None
+    group_ptr: Optional[np.ndarray] = None
+    label_lower_bound: Optional[np.ndarray] = None
+    label_upper_bound: Optional[np.ndarray] = None
+    feature_names: Optional[List[str]] = None
+    feature_types: Optional[List[str]] = None
+    feature_weights: Optional[np.ndarray] = None
+
+    def validate(self) -> None:
+        for name in ("label", "weight", "base_margin"):
+            arr = getattr(self, name)
+            if arr is not None and arr.shape[0] != self.num_row:
+                raise ValueError(f"{name} has {arr.shape[0]} rows, "
+                                 f"expected {self.num_row}")
+        if self.group_ptr is not None and self.group_ptr[-1] != self.num_row:
+            raise ValueError("group sizes must sum to num_row")
 
 
 def _normalize_dense(arr: np.ndarray, missing: float,
@@ -118,6 +152,31 @@ def _from_frame(df):
     return arr, names, types, cats
 
 
+def _from_polars(df):
+    """A polars frame -> (f32 matrix, names, types, {feature -> category
+    values}) as ``_from_frame`` (reference dmatrix.py:166-189):
+    Categorical and Enum columns become their physical codes, type
+    ``'c'``; every other column is cast to f32, type ``'q'``; nulls NaN."""
+    import polars as pl
+
+    names = [str(c) for c in df.columns]
+    types: List[str] = []
+    cols = []
+    cats: Dict[int, list] = {}
+    for fi, c in enumerate(df.columns):
+        s = df[c]
+        if s.dtype in (pl.Categorical, pl.Enum):
+            cats[fi] = [str(v) for v in s.cat.get_categories().to_list()]
+            cols.append(s.to_physical().cast(pl.Float32).to_numpy().copy())
+            types.append("c")
+        else:
+            cols.append(s.cast(pl.Float32).to_numpy().copy())
+            types.append("q")
+    arr = (np.stack(cols, axis=1) if cols
+           else np.zeros((len(df), 0), np.float32))
+    return arr, names, types, cats
+
+
 class DMatrix:
     """In-memory data matrix, dense or sparse (reference: data.h:549).
 
@@ -171,8 +230,15 @@ class DMatrix:
                          np.asarray(csr.data, dtype=np.float32))
             self._shape = tuple(csr.shape)
         else:
-            if hasattr(data, "iloc") and hasattr(data, "columns"):  # pandas
-                data, auto_names, auto_types, cats = _from_frame(data)
+            frame = None
+            if is_arrow(data):
+                frame = arrow_to_columnar(data)
+            elif type(data).__module__.split(".")[0] == "polars":
+                frame = _from_polars(data)
+            elif hasattr(data, "iloc") and hasattr(data, "columns"):
+                frame = _from_frame(data)  # pandas
+            if frame is not None:
+                data, auto_names, auto_types, cats = frame
                 feature_names = feature_names or auto_names
                 feature_types = feature_types or auto_types
                 self.cat_categories = cats or None
@@ -283,6 +349,19 @@ class DMatrix:
     def get_weight(self) -> Optional[np.ndarray]:
         return self.weight
 
+    @property
+    def info(self) -> MetaInfo:
+        """The matrix's metadata as the reference's ``MetaInfo``."""
+        return MetaInfo(
+            num_row=self.num_row(), num_col=self.num_col(), label=self.label,
+            weight=self.weight, base_margin=self.base_margin,
+            group_ptr=self.group_ptr,
+            label_lower_bound=self.label_lower_bound,
+            label_upper_bound=self.label_upper_bound,
+            feature_names=self.feature_names,
+            feature_types=self.feature_types,
+            feature_weights=self.feature_weights)
+
     def get_categories(self) -> Optional[Dict[str, list]]:
         """The frame's category values per categorical feature, keyed by
         feature name (or index), None for numeric or numpy input."""
@@ -341,20 +420,39 @@ class DMatrix:
                                                    self.cat_mask())
         return self._weighted_sketch
 
-    def ensure_ellpack(self, max_bin: int = 256,
-                       row_align: int = 1024) -> EllpackPage:
-        """Sketch and bin once per ``max_bin``."""
+    def ensure_ellpack(self, max_bin: int = 256, row_align: int = 1024,
+                       ref: Optional["DMatrix"] = None) -> EllpackPage:
+        """Sketch and bin once per ``max_bin``.  ``ref``: a matrix whose
+        page is built lends its cuts (GetCutsFromRef, reference
+        dmatrix.py:464-465), so that these rows land in its bins."""
         if self._ellpack is None or self._max_bin_built != max_bin:
+            cuts: Optional[HistogramCuts] = None
+            if ref is not None and ref._ellpack is not None:
+                cuts = ref._ellpack.cuts
             if self._csr is None:
-                cuts = sketch_dense(self.X, max_bin, cat_mask=self.cat_mask())
+                if cuts is None:
+                    cuts = sketch_dense(self.X, max_bin,
+                                        cat_mask=self.cat_mask())
                 self._ellpack = build_ellpack(self.X, cuts,
                                               row_align=row_align)
             else:
                 F = self.num_col()
-                cuts = sketch_csr(*self._csr, F, max_bin,
-                                  cat_mask=self.cat_mask())
+                if cuts is None:
+                    cuts = sketch_csr(*self._csr, F, max_bin,
+                                      cat_mask=self.cat_mask())
                 self._ellpack = build_ellpack_csr(
                     *self._csr, F, cuts, row_align=row_align,
                     device=self.device)
             self._max_bin_built = max_bin
         return self._ellpack
+
+
+class QuantileDMatrix(DMatrix):
+    """A DMatrix binned at construction (reference dmatrix.py:532,
+    iterative_dmatrix.h:34); ``ref=`` bins it on another matrix's cuts."""
+
+    def __init__(self, data: Any, label: Any = None, *, max_bin: int = 256,
+                 ref: Optional[DMatrix] = None, **kwargs: Any) -> None:
+        super().__init__(data, label, **kwargs)
+        self.max_bin = max_bin
+        self.ensure_ellpack(max_bin=max_bin, ref=ref)

@@ -10,7 +10,10 @@ input takes the host sketch of its stored entries (``sketch_csr``) on
 either device.  ``tree_method="approx"`` sketches anew every round with
 the rows weighted by their hessians (``WeightedSketch``, the reference's
 ``sketch_dense(weights=)``): numpy on the host on either device, as the
-reference does, so the cuts are its bits.  Cut semantics match the reference (hist_util.cc):
+reference does, so the cuts are its bits.  Out-of-core matrices sketch a
+page at a time (``StreamingSketch``): each page's fixed-size grid, merged
+by ``merge_quantile_grids``, a pure function of the pages' summaries.
+Cut semantics match the reference (hist_util.cc):
  - bin b of feature f covers values v with cuts[b-1] <= v < cuts[b]
    (bin index = count of cuts <= v, i.e. searchsorted side='right');
  - the last cut is strictly greater than the feature max;
@@ -19,10 +22,18 @@ reference does, so the cuts are its bits.  Cut semantics match the reference (hi
 from __future__ import annotations
 
 import dataclasses
+import secrets
 from typing import List, Optional
 
 import numpy as np
 import torch
+
+
+def _fresh_cuts_token() -> int:
+    """A random 63-bit identity: tokens survive pickling, so a counter
+    local to a process could match an unpickled model's trees against
+    unrelated cuts."""
+    return secrets.randbits(63)
 
 
 @dataclasses.dataclass
@@ -32,11 +43,15 @@ class HistogramCuts:
     ``cut_ptrs``  : (F+1,) int32  — CSR offsets into ``cut_values``.
     ``cut_values``: (total_bins,) f32 — ascending per-feature upper bounds.
     ``min_vals``  : (F,) f32 — strictly below each feature's min.
+    ``token``     : identity of these cuts; trees grown on them record it,
+                    so binned prediction can check that their split bins
+                    index these cuts.
     """
 
     cut_ptrs: np.ndarray
     cut_values: np.ndarray
     min_vals: np.ndarray
+    token: int = dataclasses.field(default_factory=_fresh_cuts_token)
 
     @property
     def n_features(self) -> int:
@@ -97,30 +112,57 @@ def cuts_from_quantile_grid(grid: np.ndarray, n_valid: np.ndarray,
     )
 
 
-def _host_grid(X: np.ndarray, max_bin: int):
+def _host_grid(X: np.ndarray, max_bin: int,
+               w: Optional[np.ndarray] = None):
     """Per-feature inverted-CDF quantile candidate grid (F, max_bin-1) and
-    (nvalid, vmax, vmin): one whole-matrix sort (NaNs sort last) and a rank
-    gather."""
+    (nvalid, vmax, vmin, mass): the fixed-size summary of one matrix or
+    page (reference quantile.py:258).  Unweighted: one whole-matrix sort
+    (NaNs sort last) and a rank gather, mass = nvalid.  Weighted by ``w``
+    (R,): per column, the first value in stable sort order whose f64
+    prefix of weights reaches q * total (the unweighted quantiles where
+    the weights sum to <= 0), mass = the column's total weight."""
     R, F = X.shape
     n_cand = max(max_bin - 1, 1)
     grid = np.full((F, n_cand), np.inf, dtype=np.float32)
     nvalid = np.zeros(F, dtype=np.int64)
     vmax = np.zeros(F, dtype=np.float32)
     vmin = np.zeros(F, dtype=np.float32)
-    if R == 0:
-        return grid, nvalid, vmax, vmin
     qs = np.arange(1, n_cand + 1, dtype=np.float64) / (n_cand + 1)
-    sortd = np.sort(X, axis=0)
-    nvalid[:] = np.sum(~np.isnan(X), axis=0)
-    pos = np.clip(np.ceil(qs[None, :] * nvalid[:, None]).astype(np.int64) - 1,
-                  0, np.maximum(nvalid[:, None] - 1, 0))
-    got = np.take_along_axis(sortd.T, pos, axis=1).astype(np.float32)
-    has = nvalid > 0
-    grid[has] = got[has]
-    vmax[has] = np.take_along_axis(
-        sortd.T, np.maximum(nvalid[:, None] - 1, 0), axis=1)[has, 0]
-    vmin[has] = sortd[0][has]
-    return grid, nvalid, vmax, vmin
+    if w is None:
+        if R == 0:
+            return grid, nvalid, vmax, vmin, nvalid.astype(np.float64)
+        sortd = np.sort(X, axis=0)
+        nvalid[:] = np.sum(~np.isnan(X), axis=0)
+        pos = np.clip(np.ceil(qs[None, :] * nvalid[:, None]).astype(np.int64)
+                      - 1, 0, np.maximum(nvalid[:, None] - 1, 0))
+        got = np.take_along_axis(sortd.T, pos, axis=1).astype(np.float32)
+        has = nvalid > 0
+        grid[has] = got[has]
+        vmax[has] = np.take_along_axis(
+            sortd.T, np.maximum(nvalid[:, None] - 1, 0), axis=1)[has, 0]
+        vmin[has] = sortd[0][has]
+        return grid, nvalid, vmax, vmin, nvalid.astype(np.float64)
+    for f in range(F):
+        col = X[:, f]
+        mask = ~np.isnan(col)
+        vals = col[mask]
+        nvalid[f] = len(vals)
+        if len(vals) == 0:
+            continue
+        vmax[f] = vals.max()
+        vmin[f] = vals.min()
+        order = np.argsort(vals, kind="stable")
+        sv, sw = vals[order], w[mask].astype(np.float64)[order]
+        cdf = np.cumsum(sw)
+        if cdf[-1] <= 0:
+            grid[f] = np.quantile(vals, qs, method="inverted_cdf").astype(
+                np.float32)
+        else:
+            idx = np.searchsorted(cdf, qs * cdf[-1], side="left")
+            grid[f] = sv[np.clip(idx, 0, len(sv) - 1)].astype(np.float32)
+    wq = np.asarray(w, np.float64)
+    mass = np.array([wq[~np.isnan(X[:, f])].sum() for f in range(F)])
+    return grid, nvalid, vmax, vmin, mass
 
 
 def _device_grid(X: torch.Tensor, max_bin: int):
@@ -308,43 +350,61 @@ def sketch_dense(X, max_bin: int, use_device: Optional[bool] = None,
     if isinstance(X, torch.Tensor):
         X = X.cpu().numpy()
     return cuts_from_quantile_grid(
-        *_host_grid(np.asarray(X, dtype=np.float32), max_bin))
+        *_host_grid(np.asarray(X, dtype=np.float32), max_bin)[:4])
 
 
 def _csr_grid(indptr, indices, values, n_features: int, max_bin: int,
-              cat_mask: Optional[np.ndarray]):
+              cat_mask: Optional[np.ndarray],
+              weights: Optional[np.ndarray] = None):
     """Per-feature quantile grid and stats of the stored entries of a CSR
     matrix, the CSR twin of ``_host_grid`` (reference quantile.py:524):
-    (grid, nvalid, vmax, vmin, cat_max).  Categorical columns stay out of
-    the numeric grid (nvalid 0) and report their largest code (-1 where
-    they store none)."""
+    (grid, nvalid, vmax, vmin, mass, cat_max).  Categorical columns stay
+    out of the numeric grid (nvalid 0) and report their largest code (-1
+    where they store none).  ``weights`` (R,): a weight a row."""
+    R = len(indptr) - 1
     n_cand = max(max_bin - 1, 1)
     grid = np.full((n_features, n_cand), np.inf, dtype=np.float32)
     nvalid = np.zeros(n_features, dtype=np.int64)
     vmax = np.zeros(n_features, dtype=np.float32)
     vmin = np.zeros(n_features, dtype=np.float32)
+    mass = np.zeros(n_features, dtype=np.float64)
     cat_max = np.full(n_features, -1.0, np.float32)
     qs = np.arange(1, n_cand + 1, dtype=np.float64) / (n_cand + 1)
     # the entries bucketed by column
     order = np.argsort(indices, kind="stable")
     val_sorted = values[order]
     starts = np.searchsorted(indices[order], np.arange(n_features + 1))
+    if weights is not None:
+        row_of = np.repeat(np.arange(R), np.diff(indptr))[order]
     is_cat = (np.zeros(n_features, bool) if cat_mask is None
               else np.asarray(cat_mask, bool))
     for f in range(n_features):
         seg = val_sorted[starts[f]: starts[f + 1]].astype(np.float32)
-        vals = seg[~np.isnan(seg)]
+        keep = ~np.isnan(seg)
+        vals = seg[keep]
         if is_cat[f]:
             # implicit zeros are missing: category 0 must be stored
             if len(vals):
                 cat_max[f] = vals.max()
             continue
         nvalid[f] = len(vals)
-        if len(vals):
-            vmax[f], vmin[f] = vals.max(), vals.min()
+        if not len(vals):
+            continue
+        vmax[f], vmin[f] = vals.max(), vals.min()
+        if weights is None:
+            mass[f] = len(vals)
             grid[f] = np.quantile(vals, qs, method="inverted_cdf").astype(
                 np.float32)
-    return grid, nvalid, vmax, vmin, cat_max
+        else:
+            wf = weights[row_of[starts[f]: starts[f + 1]]][keep].astype(
+                np.float64)
+            o = np.argsort(vals, kind="stable")
+            sv, sw = vals[o], wf[o]
+            cdf = np.cumsum(sw)
+            mass[f] = cdf[-1]
+            idx = np.searchsorted(cdf, qs * cdf[-1], side="left")
+            grid[f] = sv[np.clip(idx, 0, len(sv) - 1)].astype(np.float32)
+    return grid, nvalid, vmax, vmin, mass, cat_max
 
 
 def sketch_csr(indptr, indices, values, n_features: int, max_bin: int,
@@ -353,7 +413,7 @@ def sketch_csr(indptr, indices, values, n_features: int, max_bin: int,
     implicit zero is missing, as in the reference's sparse DMatrix
     (reference quantile.py:573 sketch_csr; src/common/hist_util.cc
     SketchOnDMatrix walks the stored entries)."""
-    grid, nvalid, vmax, vmin, cat_max = _csr_grid(
+    grid, nvalid, vmax, vmin, _, cat_max = _csr_grid(
         indptr, indices, values, n_features, max_bin, cat_mask)
     base = cuts_from_quantile_grid(grid, nvalid, vmax, vmin)
     if cat_mask is None or not np.any(cat_mask):
@@ -363,3 +423,192 @@ def sketch_csr(indptr, indices, values, n_features: int, max_bin: int,
     return _assemble_cuts(
         n_features, max_bin, cat_n_cats,
         lambda f: (base.feature_cuts(f), base.min_vals[f]))
+
+
+def merge_quantile_grids(grids: np.ndarray, nvalids: np.ndarray,
+                         vmaxs: np.ndarray, vmins: np.ndarray, max_bin: int,
+                         masses: Optional[np.ndarray] = None
+                         ) -> HistogramCuts:
+    """Merge W summaries' quantile grids into shared cuts (reference
+    quantile.py:317, the role of src/common/quantile.cc:397-442
+    SketchContainer::AllReduce): summary k's finite candidates of feature
+    f each carry an equal share of its mass ``masses[k, f]`` (nvalid when
+    None); the cuts are the inverted-CDF quantiles of the weighted union,
+    candidates sorted by value, so the result depends on the multiset of
+    summaries alone.  grids (W, F, Q); nvalids, masses, vmaxs, vmins
+    (W, F)."""
+    W, F, Q = grids.shape
+    if masses is None:
+        masses = nvalids.astype(np.float64)
+    n_cand = max(max_bin - 1, 1)
+    qs = np.arange(1, n_cand + 1, dtype=np.float64) / (n_cand + 1)
+    grid = np.full((F, n_cand), np.inf, dtype=np.float32)
+    nvalid = nvalids.sum(axis=0).astype(np.int64)
+    vmax = np.zeros(F, dtype=np.float32)
+    vmin = np.zeros(F, dtype=np.float32)
+    for f in range(F):
+        has = nvalids[:, f] > 0
+        if not has.any():
+            continue
+        vmax[f] = vmaxs[has, f].max()
+        vmin[f] = vmins[has, f].min()
+        cand_list, w_list = [], []
+        for k in np.nonzero(has)[0]:
+            c = grids[k, f]
+            c = c[np.isfinite(c)]
+            if len(c) == 0:
+                continue
+            cand_list.append(c.astype(np.float64))
+            w_list.append(np.full(len(c), masses[k, f] / len(c), np.float64))
+        cand = np.concatenate(cand_list)
+        wts = np.concatenate(w_list)
+        order = np.argsort(cand, kind="stable")
+        sv, sw = cand[order], wts[order]
+        cdf = np.cumsum(sw)
+        idx = np.searchsorted(cdf, qs * cdf[-1], side="left")
+        grid[f] = sv[np.clip(idx, 0, len(sv) - 1)].astype(np.float32)
+    return cuts_from_quantile_grid(grid, nvalid, vmax, vmin)
+
+
+def _pack_contrib(grid: np.ndarray, nvalid: np.ndarray, vmax: np.ndarray,
+                  vmin: np.ndarray, mass: np.ndarray) -> np.ndarray:
+    """One page's summary as a single (F, Q+4) f64 block (grid, nvalid,
+    vmax, vmin, mass): f32 values and int64 counts round-trip exactly
+    through f64."""
+    F, Q = grid.shape
+    out = np.empty((F, Q + 4), np.float64)
+    out[:, :Q] = grid
+    out[:, Q] = nvalid
+    out[:, Q + 1] = vmax
+    out[:, Q + 2] = vmin
+    out[:, Q + 3] = mass
+    return out
+
+
+class StreamingSketch:
+    """Page-at-a-time quantile sketch (reference quantile.py:382): every
+    pushed page contributes one fixed-size summary, exactly what
+    ``_host_grid`` (or ``_csr_grid``) gives for that page, and
+    ``finalize`` merges them through ``merge_quantile_grids``, so the cuts
+    never need the whole matrix in memory.  The merge is a pure function of
+    the multiset of page summaries: the cuts are the same bits in any push
+    order.  Categorical columns stay out of the numeric grids; their
+    identity cuts come from the largest code over all pages."""
+
+    def __init__(self, n_features: int, max_bin: int,
+                 cat_mask: Optional[np.ndarray] = None) -> None:
+        self.n_features = int(n_features)
+        self.max_bin = int(max_bin)
+        cm = None
+        if cat_mask is not None and np.any(cat_mask):
+            cm = np.asarray(cat_mask, bool)
+            if len(cm) != self.n_features:
+                raise ValueError("cat_mask length != n_features")
+        self.cat_mask = cm
+        self._contribs: List[np.ndarray] = []
+        self._cat_max = np.full(self.n_features, -1.0, np.float32)
+
+    @property
+    def n_cand(self) -> int:
+        return max(self.max_bin - 1, 1)
+
+    @property
+    def n_pages(self) -> int:
+        return len(self._contribs)
+
+    def push(self, X, weights: Optional[np.ndarray] = None,
+             executor=None) -> None:
+        """Fold one dense (R, F) page (NaN = missing) into the sketch.
+        ``executor`` (a concurrent.futures executor): the page's numeric
+        summary is computed there, on a copy of its numeric columns, and
+        collected in push order by ``finalize``."""
+        Xh = np.asarray(X, dtype=np.float32)
+        if Xh.shape[1] != self.n_features:
+            raise ValueError(
+                f"page has {Xh.shape[1]} features, sketch expects "
+                f"{self.n_features}")
+        w = None if weights is None else np.array(weights)
+        cat = self.cat_mask
+        if cat is None:
+            num_idx = np.arange(self.n_features)
+            Xn = Xh.copy() if executor is not None else Xh
+        else:
+            for f in np.nonzero(cat)[0]:
+                col = Xh[:, f]
+                col = col[~np.isnan(col)]
+                if len(col):
+                    self._cat_max[f] = max(self._cat_max[f], col.max())
+            num_idx = np.nonzero(~cat)[0]
+            Xn = Xh[:, num_idx]  # a copy
+        if executor is None:
+            self._contribs.append(self._summary(Xn, num_idx, w))
+        else:
+            self._contribs.append(executor.submit(self._summary, Xn,
+                                                  num_idx, w))
+
+    def _summary(self, Xn, num_idx, w) -> np.ndarray:
+        """The packed summary of a page's numeric columns ``num_idx``;
+        the other rows are the empty-feature sentinel the merge skips."""
+        if len(num_idx) == self.n_features:
+            return _pack_contrib(*_host_grid(Xn, self.max_bin, w))
+        F, Q = self.n_features, self.n_cand
+        grid = np.full((F, Q), np.inf, np.float32)
+        nvalid = np.zeros(F, np.int64)
+        vmax = np.zeros(F, np.float32)
+        vmin = np.zeros(F, np.float32)
+        mass = np.zeros(F, np.float64)
+        if len(num_idx):
+            g, nv, vx, vn, ms = _host_grid(Xn, self.max_bin, w)
+            grid[num_idx] = g
+            nvalid[num_idx] = nv
+            vmax[num_idx] = vx
+            vmin[num_idx] = vn
+            mass[num_idx] = ms
+        return _pack_contrib(grid, nvalid, vmax, vmin, mass)
+
+    def wait(self, limit: int) -> None:
+        """Block until at most ``limit`` summaries are still computing."""
+        busy = [c for c in self._contribs
+                if not isinstance(c, np.ndarray) and not c.done()]
+        for c in busy[: max(len(busy) - limit, 0)]:
+            c.result()
+
+    def push_csr(self, indptr, indices, values,
+                 weights: Optional[np.ndarray] = None) -> None:
+        """Fold one CSR page (implicit zeros missing, as ``sketch_csr``)
+        without making it dense."""
+        grid, nvalid, vmax, vmin, mass, cat_max = _csr_grid(
+            np.asarray(indptr), np.asarray(indices), np.asarray(values),
+            self.n_features, self.max_bin, self.cat_mask,
+            None if weights is None else np.asarray(weights))
+        np.maximum(self._cat_max, cat_max, out=self._cat_max)
+        self._contribs.append(_pack_contrib(grid, nvalid, vmax, vmin, mass))
+
+    def finalize(self, distributed: bool = False) -> HistogramCuts:
+        """Merge every page's summary into shared cuts.  ``distributed``
+        (a gather of every process's summaries) is not ported: the port
+        trains in one process (ROADMAP Queue 1 item 9)."""
+        if distributed:
+            raise NotImplementedError(
+                "StreamingSketch.finalize(distributed=True) is not "
+                "supported by xgboost_tpu_torch yet: it trains in one "
+                "process")
+        if not self._contribs:
+            raise ValueError("StreamingSketch.finalize: no pages pushed")
+        Q = self.n_cand
+        local = np.stack([c if isinstance(c, np.ndarray) else c.result()
+                          for c in self._contribs])
+        base = merge_quantile_grids(
+            local[:, :, :Q].astype(np.float32),
+            local[:, :, Q].astype(np.int64),
+            local[:, :, Q + 1].astype(np.float32),
+            local[:, :, Q + 2].astype(np.float32),
+            self.max_bin, masses=local[:, :, Q + 3])
+        if self.cat_mask is None:
+            return base
+        cat_n_cats = {int(f): (int(self._cat_max[f]) + 1
+                               if self._cat_max[f] >= 0 else 1)
+                      for f in np.nonzero(self.cat_mask)[0]}
+        return _assemble_cuts(
+            self.n_features, self.max_bin, cat_n_cats,
+            lambda f: (base.feature_cuts(f), base.min_vals[f]))

@@ -42,6 +42,11 @@ class RegTree:
     # vector leaves: (n, K) leaf values and node weights; None when scalar
     leaf_vector: Optional[np.ndarray] = None
     base_weight_vec: Optional[np.ndarray] = None
+    # (n,) int32 split bins, for prediction over binned pages; not saved
+    split_bins: Optional[np.ndarray] = None
+    # token of the HistogramCuts the split bins index (not saved): binned
+    # prediction checks it against the pages' cuts
+    cuts_token: Optional[int] = None
 
     @property
     def n_nodes(self) -> int:
@@ -107,6 +112,7 @@ class RegTree:
             sum_hessian=np.zeros(n, np.float32),
             split_type=np.zeros(n, np.int32),
             categories={},
+            split_bins=np.zeros(n, np.int32),
         )
         has_cat = getattr(gt, "is_cat", None) is not None
         for h in order:
@@ -121,6 +127,7 @@ class RegTree:
                 t.parents[id_of[2 * h + 2]] = i
                 t.split_indices[i] = gt.feat[h]
                 t.split_conditions[i] = gt.thr[h]
+                t.split_bins[i] = gt.sbin[h]
                 t.loss_changes[i] = gt.gain[h]
                 if has_cat and gt.is_cat[h]:
                     t.split_type[i] = 1
@@ -189,6 +196,9 @@ class RegTree:
         out = dict(
             feat=pad(np.where(leaf, -1, self.split_indices).astype(np.int32), -1),
             thr=pad(np.where(leaf, np.float32(0), self.split_conditions)),
+            sbin=pad(self.split_bins.astype(np.int32)
+                     if self.split_bins is not None
+                     else np.zeros(n, np.int32)),
             dleft=pad(self.default_left.astype(np.bool_)),
             left=pad(self.left_children, -1),
             right=pad(self.right_children, -1),

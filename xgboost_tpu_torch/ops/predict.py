@@ -86,3 +86,40 @@ def predict_leaf_ids(X, feat, thr, dleft, left, right, is_cat=None,
     PredictLeaf)."""
     return _traverse(X, feat.long(), thr, dleft, left.long(), right.long(),
                      depth, is_cat, catm).to(torch.int32)
+
+
+def predict_margin_delta_binned(bins, feat, sbin, dleft, left, right, value,
+                                groups, init=None, is_cat=None, catm=None, *,
+                                n_groups: int, depth: int, n_bin: int):
+    """Sum leaf values into (R, n_groups) margins over a binned page
+    (reference ops/predict.py:264, the external-memory predict path).
+
+    Rows are routed by the trees' stored split bins (``RegTree.split_bins``),
+    which reproduces the training partition exactly: bin <= sbin goes
+    left, the sentinel ``n_bin`` (missing) takes the default direction, a
+    categorical node sends the bins of its set right.  ``init``: optional
+    starting margin, accumulated into in tree order."""
+    R, F = bins.shape
+    T = feat.shape[0]
+    dev = bins.device
+    feat, left, right = feat.long(), left.long(), right.long()
+    sbin = sbin.long()
+    tree = torch.arange(T, device=dev)[None, :]
+    nid = torch.zeros((R, T), dtype=torch.long, device=dev)
+    for _ in range(depth):
+        fi = feat[tree, nid]  # (R, T)
+        b = bins.gather(1, fi.clamp(0, F - 1)).long()
+        gol = b <= sbin[tree, nid]
+        if is_cat is not None:
+            Bc = catm.shape[2]
+            member = catm[tree, nid, b.clamp(0, Bc - 1)] & (b < Bc)
+            gol = torch.where(is_cat[tree, nid], ~member, gol)
+        gol = torch.where(b >= n_bin, dleft[tree, nid], gol)
+        nxt = torch.where(gol, left[tree, nid], right[tree, nid])
+        nid = torch.where(fi < 0, nid, nxt)
+    margin = (torch.zeros((R, n_groups), dtype=torch.float32, device=dev)
+              if init is None else init.to(torch.float32).clone())
+    leaf = value.gather(1, nid.T).T  # (R, T)
+    for t, g in enumerate(groups):
+        margin[:, g] += leaf[:, t]
+    return margin

@@ -1,5 +1,6 @@
 """train() and cv() (port of xgboost_tpu/training.py without the
-elastic, resume and external-memory branches of train; reference
+elastic, resume and multi-process external-memory (ExtMemConfig) branches
+of train; reference
 python-package/xgboost/training.py:53, :435).  train continues a model
 (``xgb_model``), takes a custom objective (``obj``) and a custom metric
 (``custom_metric``); cv builds the reference's folds (plain, stratified or
@@ -45,6 +46,13 @@ def train(
     continue: its rounds are counted first, so round i of the continuation
     draws the seeds of round i of an uninterrupted run.  Under
     ``process_type="update"`` the rounds are the model's own, from 0."""
+    from .data.extmem import ExtMemConfig
+
+    if isinstance(dtrain, ExtMemConfig):
+        raise NotImplementedError(
+            "ExtMemConfig (multi-process out-of-core training) is not "
+            "supported by xgboost_tpu_torch yet: it trains in one process; "
+            "pass an ExtMemQuantileDMatrix")
     callbacks = list(callbacks) if callbacks else []
     evals = list(evals) if evals else []
     if early_stopping_rounds is not None:

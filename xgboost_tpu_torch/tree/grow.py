@@ -191,6 +191,87 @@ def _update_positions(bins, pos, best: BestSplit, can_split, node0: int,
     return torch.where(in_lvl & can_split[lc], child, pos)
 
 
+def decide_level(state: TreeState, hist, cuts_pad, n_bins,
+                 feature_mask=None, set_matrix=None, rho=None,
+                 cat_mask=None, *, depth: int, params: SplitParams,
+                 last_level: bool, budget: bool = False,
+                 lossguide: bool = False, fused_dequantise: bool = True):
+    """Decide the nodes at ``depth`` from their histogram ``hist``: the
+    best split under the feature mask, interaction sets and monotone
+    bounds, the ``max_leaves`` budget, and the level's records written
+    into ``state`` in place; the rows are not routed (``level_step`` and
+    the streaming grower route them).  Returns ``(best, can_split)``, both
+    None on the last level, where every surviving node becomes a leaf.
+
+    ``hist`` is the level's f32 histogram, or its int32 limbs with
+    ``rho`` (C,) under deterministic_histogram.  ``budget`` spends
+    ``state.splits_left`` in node order, or in order of gain with
+    ``lossguide`` (the reference's level-wise lossguide,
+    tree/stream.py:_decide_level).  ``fused_dequantise``: with categorical
+    features the split scan takes the dequantisation's factors, as the
+    reference's compiled in-core level fuses them into its one-hot sums;
+    False takes the dequantised histogram, as its streaming grower does."""
+    node0 = (1 << depth) - 1
+    N = 1 << depth
+    B = cuts_pad.shape[1]
+    sl = slice(node0, node0 + N)
+    totals_lvl = state.totals[sl]
+    alive_lvl = state.alive[sl]
+    lower_lvl = state.lower[sl]
+    upper_lvl = state.upper[sl]
+    w = calc_weight(totals_lvl[:, 0], totals_lvl[:, 1], params, lower_lvl,
+                    upper_lvl)
+
+    if last_level:  # every surviving node becomes a leaf
+        state.is_leaf[sl] = alive_lvl
+        state.leaf_val[sl] = torch.where(alive_lvl, params.eta * w, 0.0)
+        state.base_weight[sl] = w
+        state.sum_hess[sl] = totals_lvl[:, 1]
+        return None, None
+
+    hist_eval, dq = hist, None
+    if rho is not None:
+        comb, scale = dequantise_parts(hist, rho)
+        hist_eval = comb * scale
+        if cat_mask is not None and fused_dequantise:
+            dq = (comb, scale)
+
+    fmask, compat_lvl, member = feature_mask, None, None
+    if set_matrix is not None:
+        # interaction constraints: a node may split on the union of the
+        # sets still compatible with its path (constraints.cc
+        # FeatureInteractionConstraint)
+        compat_lvl = state.setcompat[sl]
+        allowed = (compat_lvl[:, :, None] & set_matrix[None, :, :]).any(dim=1)
+        fmask = allowed if fmask is None else allowed & fmask
+    # the node bounds are read by the monotone scan only
+    bounds = (torch.stack([lower_lvl, upper_lvl], dim=1)
+              if is_monotone(params) else None)
+    best = evaluate_splits(hist_eval, totals_lvl, n_bins, params, fmask,
+                           bounds, cat_mask, dq)
+    can_split = alive_lvl & (best.gain > max(params.gamma, _EPS))
+
+    new_budget = None
+    if budget:  # max_leaves, spent in node order (or by gain) in a level
+        idx = torch.arange(node0, node0 + N, device=w.device)
+        splits_left = state.splits_left[0]
+        prio = torch.where(can_split,
+                           best.gain if lossguide else -idx.to(torch.float32),
+                           -torch.inf)
+        ranks = torch.argsort(torch.argsort(-prio, stable=True), stable=True)
+        can_split = can_split & (ranks < splits_left)
+        new_budget = splits_left - can_split.sum().to(torch.int32)
+
+    new_leaf = alive_lvl & ~can_split
+    thr_lvl = cuts_pad[best.feature, best.bin.clamp(max=B - 1)]
+    if set_matrix is not None:
+        member = set_matrix.T[best.feature.clamp(0, set_matrix.shape[1] - 1)]
+    _record_level(state, best, sl, can_split, new_leaf, w, thr_lvl,
+                  totals_lvl, compat_lvl, member, new_budget, lower_lvl,
+                  upper_lvl, params)
+    return best, can_split
+
+
 def level_step(state: TreeState, bins, gpair, cuts_pad, n_bins,
                feature_mask=None, set_matrix=None, hist_prev=None, rho=None,
                cat_mask=None,
@@ -215,70 +296,24 @@ def level_step(state: TreeState, bins, gpair, cuts_pad, n_bins,
     node0 = (1 << depth) - 1
     N = 1 << depth
     B = cuts_pad.shape[1]
-    sl = slice(node0, node0 + N)
-    totals_lvl = state.totals[sl]
-    alive_lvl = state.alive[sl]
-    lower_lvl = state.lower[sl]
-    upper_lvl = state.upper[sl]
-    w = calc_weight(totals_lvl[:, 0], totals_lvl[:, 1], params, lower_lvl,
-                    upper_lvl)
-
-    if last_level:  # every surviving node becomes a leaf
-        state.is_leaf[sl] = alive_lvl
-        state.leaf_val[sl] = torch.where(alive_lvl, params.eta * w, 0.0)
-        state.base_weight[sl] = w
-        state.sum_hess[sl] = totals_lvl[:, 1]
-        return state, None
-
-    build = build_histogram_q if quantised else build_histogram
-    if subtract:
-        left = build(bins, gpair, state.pos, node0=node0, n_nodes=N // 2,
-                     n_bin=B, stride=2)
-        hist = combine_sibling_hists(left, hist_prev, alive_lvl)
-    else:
-        hist = build(bins, gpair, state.pos, node0=node0, n_nodes=N, n_bin=B)
-    hist_eval, dq = hist, None
-    if quantised:
-        comb, scale = dequantise_parts(hist, rho)
-        hist_eval = comb * scale
-        if cat_mask is not None:
-            # the reference's compiled level fuses this product into the
-            # categorical scan's one-hot sums: the scan takes its factors
-            dq = (comb, scale)
-
-    fmask, compat_lvl, member = feature_mask, None, None
-    if set_matrix is not None:
-        # interaction constraints: a node may split on the union of the
-        # sets still compatible with its path (constraints.cc
-        # FeatureInteractionConstraint)
-        compat_lvl = state.setcompat[sl]
-        allowed = (compat_lvl[:, :, None] & set_matrix[None, :, :]).any(dim=1)
-        fmask = allowed if fmask is None else allowed & fmask
-    # the node bounds are read by the monotone scan only
-    bounds = (torch.stack([lower_lvl, upper_lvl], dim=1)
-              if is_monotone(params) else None)
-    best = evaluate_splits(hist_eval, totals_lvl, n_bins, params, fmask,
-                           bounds, cat_mask, dq)
-    can_split = alive_lvl & (best.gain > max(params.gamma, _EPS))
-
-    new_budget = None
-    if budget:  # max_leaves, spent in node order under depthwise
-        idx = torch.arange(node0, node0 + N, device=w.device)
-        splits_left = state.splits_left[0]
-        prio = torch.where(can_split, -idx.to(torch.float32), -torch.inf)
-        ranks = torch.argsort(torch.argsort(-prio, stable=True), stable=True)
-        can_split = can_split & (ranks < splits_left)
-        new_budget = splits_left - can_split.sum().to(torch.int32)
-
-    new_leaf = alive_lvl & ~can_split
-    thr_lvl = cuts_pad[best.feature, best.bin.clamp(max=B - 1)]
-    if set_matrix is not None:
-        member = set_matrix.T[best.feature.clamp(0, set_matrix.shape[1] - 1)]
-    _record_level(state, best, sl, can_split, new_leaf, w, thr_lvl,
-                  totals_lvl, compat_lvl, member, new_budget, lower_lvl,
-                  upper_lvl, params)
-    state.pos = _update_positions(bins, state.pos, best, can_split, node0, N,
-                                  B, cat_mask is not None)
+    hist = None
+    if not last_level:
+        build = build_histogram_q if quantised else build_histogram
+        if subtract:
+            left = build(bins, gpair, state.pos, node0=node0,
+                         n_nodes=N // 2, n_bin=B, stride=2)
+            hist = combine_sibling_hists(left, hist_prev,
+                                         state.alive[node0: node0 + N])
+        else:
+            hist = build(bins, gpair, state.pos, node0=node0, n_nodes=N,
+                         n_bin=B)
+    best, can_split = decide_level(
+        state, hist, cuts_pad, n_bins, feature_mask, set_matrix,
+        rho if quantised else None, cat_mask, depth=depth, params=params,
+        last_level=last_level, budget=budget)
+    if not last_level:
+        state.pos = _update_positions(bins, state.pos, best, can_split,
+                                      node0, N, B, cat_mask is not None)
     return state, hist
 
 
