@@ -344,6 +344,14 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+def timed(label, fn, *args):
+    """``fn(*args)``, its wall seconds logged as phase ``label``'s."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    log(f"phase {label} took {time.perf_counter() - t0:.3f} s")
+    return out
+
+
 def cuda_ms(fn, reps: int = 20) -> float:
     """Median of per-call CUDA-event times, after warm-up."""
     for _ in range(3):
@@ -1479,58 +1487,68 @@ def make_criteo(n: int, seed: int = 7000):
     return X, y
 
 
-def _round_hist_bound(xtt, hist_cuda, dtrain, params, kernel, label,
-                      reps: int = 20):
-    """The bound of one round's histograms on this data: one round trained
-    with each launch's rows counted (the launch function wrapped), each
-    level's least bytes as phase 2 counts them (pos of every row, bins and
-    gradients of the level's rows, the histogram written once; for K1's
-    class axis as phase 2f counts them: K pos arrays, or one when shared,
-    the bins of the rows in any class's level once, the gradients of the
-    (row, class) pairs in the level, the K histograms written once) at
-    3.35 TB/s, summed over the launches; then, on each launch's own
-    inputs, the kernel again (CUDA events, host launch included) and the
-    index_add_ yardstick (over the K classes at once for the class axis),
-    each the median of ``reps``, summed.  Returns (bound ms, index_add_
-    ms, kernel ms) a round."""
+def _launch_bytes(kernel, bins, vals, pos, *, node0, n_nodes, n_bin,
+                  stride=1, **extra):
+    """The least bytes one histogram launch moves, as phase 2 counts them:
+    pos of every row, bins and gradients of the level's rows (the rows in
+    the nodes it builds), the histogram written once; for K1's class axis
+    as phase 2f counts them: K pos arrays, or one when shared, the bins of
+    the rows in any class's level once, the gradients of the (row, class)
+    pairs in the level, the K histograms written once."""
+    R, F = bins.shape
+    local = pos.long() - node0
+    inl = (local >= 0) & (local % stride == 0) & (local // stride < n_nodes)
+    if kernel == "hist_f32_multi":
+        K = vals.shape[1]
+        n_any = int((inl if inl.dim() == 1 else inl.any(dim=0)).sum())
+        n_pairs = int(inl.sum()) * (K if inl.dim() == 1 else 1)
+        return (4 * pos.numel() + n_any * F * bins.element_size()
+                + n_pairs * 8 + K * n_nodes * F * n_bin * 8)
+    n_in = int(inl.sum())
+    row_bytes = vals[0].numel() * vals.element_size()
+    cell_bytes = 8 if kernel == "hist_f32" else 4 * vals[0].numel()
+    return (4 * R + n_in * (F * bins.element_size() + row_bytes)
+            + n_nodes * F * n_bin * cell_bytes)
+
+
+def _counted_round(xtt, hist_cuda, dtrain, params, kernel, keep=None):
+    """One round trained with each launch of ``kernel`` counted (the
+    launch function wrapped): the least bytes of each launch, and, into
+    ``keep`` where given, each launch's inputs."""
     name = {"hist_f32": "run_f32", "hist_q": "run_q",
             "hist_f32_multi": "run_f32_multi"}[kernel]
     launch = getattr(hist_cuda, name)
-    levels, inputs = [], []
+    sizes = []
 
-    def counted(bins, vals, pos, plan, *, node0, n_nodes, n_bin, stride=1,
-                **extra):
-        R, F = bins.shape
-        local = pos.long() - node0
-        inl = (local >= 0) & (local % stride == 0) & (local // stride
-                                                      < n_nodes)
-        if kernel == "hist_f32_multi":
-            K = vals.shape[1]
-            n_any = int((inl if inl.dim() == 1 else inl.any(dim=0)).sum())
-            n_pairs = int(inl.sum()) * (K if inl.dim() == 1 else 1)
-            levels.append((4 * pos.numel() + n_any * F * bins.element_size()
-                           + n_pairs * 8 + K * n_nodes * F * n_bin * 8)
-                          / HBM_BYTES_PER_S)
-        else:
-            n_in = int(inl.sum())
-            row_bytes = vals[0].numel() * vals.element_size()
-            cell_bytes = 8 if kernel == "hist_f32" else 4 * vals[0].numel()
-            levels.append((4 * R + n_in * (F * bins.element_size()
-                                           + row_bytes)
-                           + n_nodes * F * n_bin * cell_bytes)
-                          / HBM_BYTES_PER_S)
-        inputs.append((bins, vals.clone(), pos.clone(), plan,
-                       dict(node0=node0, n_nodes=n_nodes, n_bin=n_bin,
-                            stride=stride, **extra)))
-        return launch(bins, vals, pos, plan, node0=node0, n_nodes=n_nodes,
-                      n_bin=n_bin, stride=stride, **extra)
+    def counted(bins, vals, pos, plan, **kw):
+        kw.setdefault("stride", 1)
+        sizes.append(_launch_bytes(kernel, bins, vals, pos, **kw))
+        if keep is not None:
+            keep.append((bins, vals.clone(), pos.clone(), plan, kw))
+        return launch(bins, vals, pos, plan, **kw)
 
     setattr(hist_cuda, name, counted)
     try:
         xtt.train(params, dtrain, 1, verbose_eval=False)
     finally:
         setattr(hist_cuda, name, launch)
-    bound_ms = sum(levels) * 1e3
+    return sizes
+
+
+def _round_hist_bound(xtt, hist_cuda, dtrain, params, kernel, label,
+                      reps: int = 20):
+    """The bound of one round's histograms on this data: one round trained
+    with each launch's least bytes counted (_launch_bytes) at 3.35 TB/s,
+    summed over the launches; then, on each launch's own inputs, the
+    kernel again (CUDA events, host launch included) and the index_add_
+    yardstick (over the K classes at once for the class axis), each the
+    median of ``reps``, summed.  Returns (bound ms, index_add_ ms, kernel
+    ms) a round."""
+    launch = getattr(hist_cuda, {"hist_f32": "run_f32", "hist_q": "run_q",
+                                 "hist_f32_multi": "run_f32_multi"}[kernel])
+    inputs = []
+    sizes = _counted_round(xtt, hist_cuda, dtrain, params, kernel, inputs)
+    bound_ms = sum(sizes) / HBM_BYTES_PER_S * 1e3
     library_ms = kernel_ms = 0.0
     for bins, vals, pos, plan, kw in inputs:
         # the index_add_ yardstick and the kernel on each launch's inputs
@@ -1543,11 +1561,11 @@ def _round_hist_bound(xtt, hist_cuda, dtrain, params, kernel, label,
                                         reps=reps)
         kernel_ms += cuda_ms(lambda: launch(bins, vals, pos, plan, **kw),
                              reps)
-    log(f"phase {label} bound: one round's {len(levels)} histograms of "
-        f"{kernel} on this data move at least "
-        f"{bound_ms * 1e-3 * HBM_BYTES_PER_S / 1e6:.1f} MB, {bound_ms:.4f} ms "
-        f"at 3.35 TB/s; on the same inputs, launch by launch: the kernel "
-        f"{kernel_ms:.4f} ms, index_add_ {library_ms:.4f} ms a round")
+    log(f"phase {label} bound: one round's {len(sizes)} histograms of "
+        f"{kernel} on this data move at least {sum(sizes) / 1e6:.1f} MB, "
+        f"{bound_ms:.4f} ms at 3.35 TB/s; on the same inputs, launch by "
+        f"launch: the kernel {kernel_ms:.4f} ms, index_add_ "
+        f"{library_ms:.4f} ms a round")
     return bound_ms, library_ms, kernel_ms
 
 
@@ -4385,6 +4403,10 @@ EXTMEM_DET = dict(CRITEO_DET)
 EXTMEM_DET_PAGES = 24  # 15,728,640 rows, under K2's MAX_ROWS = 2**24
 EXTMEM_DET_ROUNDS = 3
 EXTMEM_LADDER_AUC = 0.684014  # BENCH_LADDER.json, the JAX package on a CPU
+# the JAX package's ladder row at its first 8 pages, on a CPU
+# (scripts/extmem_reference_auc.py 8)
+EXTMEM_REF_PAGES = 8
+EXTMEM_REF_AUC = 0.945248
 EXTMEM_AUC_TOL = 0.005
 
 
@@ -4462,6 +4484,7 @@ def _extmem_run(xtt, hist_cuda, d, params, rounds, kernel, label, yard):
     train_s = time.perf_counter() - t0
     launches = dict(hist_cuda.launches)
     c = extmem.counters()
+    peak = torch.cuda.max_memory_allocated()
     want = _sigmoid_launches(hist_cuda, rounds, evals=0)
     want[kernel] = n_pages * depth * rounds
     want["split_scan"] = depth * rounds
@@ -4476,15 +4499,13 @@ def _extmem_run(xtt, hist_cuda, d, params, rounds, kernel, label, yard):
         raise AssertionError(f"phase {label}: {streamed} page bytes a round,"
                              f" want {depth + 1} passes of {page_bytes}")
     hwm = c["device_page_bytes_hwm"]
-    # the histograms' least bytes a round: each launch reads its page's
-    # bins, pos and gradients (f32 pairs, or int8 limbs) once and writes
-    # its histogram (cells of two f32, or two channels of three int32
-    # limbs) once; the levels below the root build their left children
-    R_pad, F, B = d.n_padded_total, d.num_col(), d.cuts_pad.shape[1]
-    row_bytes, cell = (4 + 6, 24) if kernel == "hist_q" else (4 + 8, 8)
-    hist_bytes = sum(n_pages * (1 if lvl == 0 else 1 << (lvl - 1)) * F * B
-                     * cell for lvl in range(depth))
-    bound_bytes = depth * (page_bytes + R_pad * row_bytes) + hist_bytes
+    # the histograms' least bytes a round, launch by launch as phase 2
+    # counts them: one more round with each launch's rows counted
+    sizes = _counted_round(xtt, hist_cuda, d, params, kernel)
+    if len(sizes) != n_pages * depth:
+        raise AssertionError(f"phase {label}: {len(sizes)} counted launches "
+                             f"in a round, want {n_pages * depth}")
+    bound_bytes = sum(sizes)
     bound_ms = bound_bytes / HBM_BYTES_PER_S * 1e3
     if hwm > 3 * per_page:
         raise AssertionError(f"phase {label}: {hwm} page bytes resident on "
@@ -4502,7 +4523,7 @@ def _extmem_run(xtt, hist_cuda, d, params, rounds, kernel, label, yard):
         f"{c['xtb_extmem_overlap_seconds_total']:.3f}; pages staged "
         f"{c['xtb_extmem_pages_loaded_total']:.0f}; page bytes resident on "
         f"the card at most {hwm} (3 pages of {per_page}); "
-        f"max_memory_allocated {torch.cuda.max_memory_allocated()}; "
+        f"max_memory_allocated {peak}; "
         f"{kernel} launches {launches[kernel]} ({n_pages} pages x {depth} "
         f"levels x {rounds}), K3 {launches['split_scan']}, K4 "
         f"{launches['sigmoid']}; the {kernel} launches of a round move at "
@@ -4513,23 +4534,108 @@ def _extmem_run(xtt, hist_cuda, d, params, rounds, kernel, label, yard):
                 sigmoid_launches=launches["sigmoid"], streamed=streamed)
 
 
-def _extmem_serial(xtt, d, params, label):
-    """One round with the pages' copies and compute in series
-    (_extmem_prefetch=0, one device slot) beside one with the window of
-    two, in turns: on, off, off, on."""
+def _round_seconds(xtt, d, params, rounds):
+    """The wall seconds of each round of one ``train()``, the card
+    synchronized at each round's start and end."""
+    marks = []
+
+    class Clock(xtt.TrainingCallback):
+        def before_iteration(self, model, epoch, evals_log):
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+            return False
+
+        def after_iteration(self, model, epoch, evals_log):
+            torch.cuda.synchronize()
+            marks[-1] = time.perf_counter() - marks[-1]
+            return False
+
+    xtt.train(params, d, rounds, verbose_eval=False, callbacks=[Clock()])
+    return marks
+
+
+def _union(ivs):
+    out = []
+    for a, b in sorted(ivs):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def _covered(u, v):
+    """The length of the intersection of two unions of intervals."""
+    i = j = 0
+    tot = 0.0
+    while i < len(u) and j < len(v):
+        tot += max(0.0, min(u[i][1], v[j][1]) - max(u[i][0], v[j][0]))
+        if u[i][1] < v[j][1]:
+            i += 1
+        else:
+            j += 1
+    return tot
+
+
+def _copy_overlap(xtt, d, params, rounds: int = 2):
+    """The card's time copying pages host to device over ``rounds`` rounds
+    (torch.profiler's device activity, read from its raw events), its time
+    in kernels, and how much of the copy time a kernel ran beside, all
+    ms."""
+    from torch.profiler import DeviceType, ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        xtt.train(params, d, rounds, verbose_eval=False)
+        torch.cuda.synchronize()
+    copies, kernels = [], []
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA:
+            continue
+        iv = (e.start_ns(), e.start_ns() + e.duration_ns())
+        if "HtoD" in e.name():
+            copies.append(iv)
+        elif "Memcpy" not in e.name() and "Memset" not in e.name():
+            kernels.append(iv)
+    if not copies or not kernels:
+        return None
+    cu, ku = _union(copies), _union(kernels)
+    span = lambda u: sum(b - a for a, b in u) / 1e6  # noqa: E731
+    return span(cu), span(ku), _covered(cu, ku) / 1e6
+
+
+def _extmem_overlap(xtt, d, params, label, rounds: int = 3):
+    """Copy and compute with two pages in flight beside the same in series
+    (_extmem_prefetch=0, one device slot): the wall seconds of rounds 2 and
+    later of a ``rounds``-round ``train()``, in turns on, off, off, on; then
+    on the profiler's device timeline, the share of the page copies' time a
+    kernel ran beside, for each."""
     times = {"1": [], "0": []}
     for flag in ("1", "0", "0", "1"):
-        t0 = time.perf_counter()
-        xtt.train(dict(params, _extmem_prefetch=flag), d, 1,
-                  verbose_eval=False)
-        torch.cuda.synchronize()
-        times[flag].append(time.perf_counter() - t0)
+        times[flag] += _round_seconds(
+            xtt, d, dict(params, _extmem_prefetch=flag), rounds)[1:]
     on, off = statistics.mean(times["1"]), statistics.mean(times["0"])
-    log(f"phase {label} prefetch: one round {on:.3f} s with two pages in "
-        f"flight (runs {times['1'][0]:.3f} {times['1'][1]:.3f}), {off:.3f} s "
-        f"with copy and compute in series (runs {times['0'][0]:.3f} "
-        f"{times['0'][1]:.3f}); overlap saves {off - on:.3f} s a round")
-    return on, off
+    share = {}
+    for flag in ("1", "0"):
+        ov = _copy_overlap(xtt, d, dict(params, _extmem_prefetch=flag))
+        share[flag] = None if ov is None else ov[2] / ov[0]
+        log(f"phase {label} overlap, _extmem_prefetch={flag}: "
+            + ("the profiler saw no copy or no kernel (not measured)"
+               if ov is None else
+               f"2 rounds on the card: copies {ov[0]:.3f} ms, kernels "
+               f"{ov[1]:.3f} ms, copy time beside a kernel {ov[2]:.3f} ms "
+               f"= {share[flag]:.4f} of the copies"))
+    log(f"phase {label} prefetch: a round (rounds 2-{rounds} of "
+        f"{rounds}-round runs, in turns) {on:.4f} s with two pages in flight "
+        f"({' '.join(f'{t:.4f}' for t in times['1'])}), {off:.4f} s with "
+        f"copy and compute in series "
+        f"({' '.join(f'{t:.4f}' for t in times['0'])}); the window saves "
+        f"{off - on:.4f} s a round")
+    if share["1"] is not None and share["0"] is not None \
+            and not share["1"] > share["0"]:
+        raise AssertionError(f"phase {label}: the copies overlap kernels no "
+                             f"more with the window ({share['1']}) than in "
+                             f"series ({share['0']})")
+    return on, off, share
 
 
 def phase_extmem(xtt, hist_cuda, pages):
@@ -4548,8 +4654,7 @@ def phase_extmem(xtt, hist_cuda, pages):
     if pred.shape != (d.num_row(),) or not np.all(np.isfinite(pred)):
         raise AssertionError(f"phase 19a: predictions {pred.shape}")
     got = auc(pred[::8], d.label[::8].astype(np.float64))
-    # the same rows in memory on the card (the in-core path the CPU tests
-    # hold against the reference), its AUC the gate
+    # the same rows in memory on the card
     X = np.concatenate([p[0] for p in pages])
     y = np.concatenate([p[1] for p in pages])
     din = xtt.DMatrix(X, label=y, feature_types=CRITEO_TYPES)
@@ -4557,15 +4662,30 @@ def phase_extmem(xtt, hist_cuda, pages):
     incore = xtt.train(EXTMEM, din, EXTMEM_ROUNDS, verbose_eval=False)
     want = auc(incore.predict(din)[::8], y[::8].astype(np.float64))
     del din, incore
+    # the reference on the same pages: its ladder row at the first pages
+    d8 = xtt.ExtMemQuantileDMatrix(_page_iter(xtt, pages[:EXTMEM_REF_PAGES]),
+                                   max_bin=128, enable_categorical=True)
+    b8 = xtt.train(EXTMEM, d8, EXTMEM_ROUNDS, verbose_eval=False)
+    got8 = auc(b8.predict(d8)[::8], d8.label[::8].astype(np.float64))
+    d8.release_device()
+    del d8, b8
     log(f"phase 19a quality: predict over the pages {predict_s:.3f} s; "
         f"AUC@stride8 {got:.6f}, in memory on the card {want:.6f} "
-        f"(|diff| {abs(got - want):.6f}, gate {EXTMEM_AUC_TOL}); "
-        f"BENCH_LADDER.json's {EXTMEM_LADDER_AUC} (|diff| "
-        f"{abs(got - EXTMEM_LADDER_AUC):.6f})")
+        f"(|diff| {abs(got - want):.6f}, gate {EXTMEM_AUC_TOL}); on the "
+        f"first {EXTMEM_REF_PAGES} pages {got8:.6f}, the reference's ladder "
+        f"row there {EXTMEM_REF_AUC} (|diff| "
+        f"{abs(got8 - EXTMEM_REF_AUC):.6f}, gate {EXTMEM_AUC_TOL}); "
+        f"BENCH_LADDER.json's 64-page {EXTMEM_LADDER_AUC} (|diff| "
+        f"{abs(got - EXTMEM_LADDER_AUC):.6f}, not a gate: ROADMAP Queue 3)")
     if not abs(got - want) <= EXTMEM_AUC_TOL:
         raise AssertionError(f"phase 19a: AUC {got} against {want} in "
                              "memory")
-    r["on_s"], r["off_s"] = _extmem_serial(xtt, d, EXTMEM, "19a")
+    if not abs(got8 - EXTMEM_REF_AUC) <= EXTMEM_AUC_TOL:
+        raise AssertionError(f"phase 19a: AUC {got8} on {EXTMEM_REF_PAGES} "
+                             f"pages against the reference's "
+                             f"{EXTMEM_REF_AUC}")
+    r["on_s"], r["off_s"], r["overlap"] = _extmem_overlap(xtt, d, EXTMEM,
+                                                          "19a")
     phase_profile(xtt, d, EXTMEM, "19a (out of core)")
     r.update(auc=got, incore_auc=want, ingest_s=ingest_s, yard=yard)
     d.release_device()
@@ -4573,8 +4693,8 @@ def phase_extmem(xtt, hist_cuda, pages):
 
 
 def phase_extmem_det(xtt, hist_cuda, pages, yard):
-    """19b: deterministic_histogram=1 on the first 24 pages."""
-    d, _ = _extmem_ingest(xtt, pages[:EXTMEM_DET_PAGES], "19b")
+    """19b: deterministic_histogram=1 on the pages given (the first 24)."""
+    d, _ = _extmem_ingest(xtt, pages, "19b")
     r = _extmem_run(xtt, hist_cuda, d, EXTMEM_DET, EXTMEM_DET_ROUNDS,
                     "hist_q", "19b", yard)
     again = xtt.train(EXTMEM_DET, d, EXTMEM_DET_ROUNDS, verbose_eval=False)
@@ -4582,7 +4702,7 @@ def phase_extmem_det(xtt, hist_cuda, pages, yard):
         raise AssertionError("phase 19b: two deterministic runs wrote "
                              "different models")
     log("phase 19b: two deterministic runs byte-identical")
-    _extmem_serial(xtt, d, EXTMEM_DET, "19b")
+    _extmem_overlap(xtt, d, EXTMEM_DET, "19b")
     phase_profile(xtt, d, EXTMEM_DET, "19b (out of core, deterministic)")
     d.release_device()
     return r
@@ -4670,6 +4790,21 @@ def phase_extmem_cpu(xtt):
         "deterministic: the card's model JSON byte-identical to the CPU's, "
         "predictions equal")
     card.release_device()
+
+
+def phase_19(xtt, hist_cuda, n_pages: int = EXTMEM_PAGES):
+    """Phases 19a-19d at ``n_pages`` of the ladder's pages (19b on at most
+    EXTMEM_DET_PAGES of them)."""
+    t0 = time.perf_counter()
+    pages = make_extmem_pages(n_pages)
+    log(f"phase 19 data: {n_pages} pages of {EXTMEM_PAGE_ROWS} rows made in "
+        f"{time.perf_counter() - t0:.3f} s")
+    ext = timed("19a", phase_extmem, xtt, hist_cuda, pages)
+    timed("19b", phase_extmem_det, xtt, hist_cuda,
+          pages[:EXTMEM_DET_PAGES], ext["yard"])
+    timed("19c", phase_extmem_parity, xtt, pages)
+    del pages
+    timed("19d", phase_extmem_cpu, xtt)
 
 
 def _shap_entry(name, r):
@@ -4791,12 +4926,6 @@ def main() -> int:
     import xgboost_tpu_torch as xtt
     from xgboost_tpu_torch.ops import hist_cuda
 
-    def timed(label, fn, *args):
-        t0 = time.perf_counter()
-        out = fn(*args)
-        log(f"phase {label} took {time.perf_counter() - t0:.3f} s")
-        return out
-
     t_start = time.perf_counter()
     smi = timed("1", phase_device, hist_cuda)
     f32_cases = timed("2", phase_kernels, hist_cuda, "hist_f32", "2")
@@ -4853,16 +4982,7 @@ def main() -> int:
                  lossguide, dart, gbl, cat)
     del X, y, Xc
     timed("17f", phase_boosters_parity, xtt)
-    t0 = time.perf_counter()
-    pages = make_extmem_pages(EXTMEM_PAGES)
-    log(f"phase 19 data: {EXTMEM_PAGES} pages of {EXTMEM_PAGE_ROWS} rows "
-        f"made in {time.perf_counter() - t0:.3f} s")
-    ext = timed("19a", phase_extmem, xtt, hist_cuda, pages)
-    ext_det = timed("19b", phase_extmem_det, xtt, hist_cuda, pages,
-                    ext["yard"])
-    timed("19c", phase_extmem_parity, xtt, pages)
-    del pages
-    timed("19d", phase_extmem_cpu, xtt)
+    phase_19(xtt, hist_cuda)
 
     kernels = [_kernel_entry(name, hist_cuda.SOURCES[name], cases, n)
                for name, cases, n in (("hist_f32", f32_cases, f32["launches"]),

@@ -1,8 +1,8 @@
 """chip_smoke.py's out-of-core phase alone, on one GPU: phase 1 (the
-card's name and power limit, every kernel built), then phases 19a-19d at
-PAGES pages of the ladder's criteo_extmem_40m configuration (default 64,
-as chip_smoke.py; 19b takes at most 24 of them).  A quicker rehearsal
-of phase 19 than the whole script.
+card's name and power limit, every kernel built), then chip_smoke's
+phase_19 (19a-19d) at PAGES pages of the ladder's criteo_extmem_40m
+configuration (default 64, as chip_smoke.py; 19b takes at most 24 of
+them).  A quicker rehearsal of phase 19 than the whole script.
 
     python3 scripts/chip_phase19.py [PAGES]
 """
@@ -26,25 +26,9 @@ def main() -> int:
     from xgboost_tpu_torch.ops import hist_cuda
 
     n = int(sys.argv[1]) if len(sys.argv) > 1 else cs.EXTMEM_PAGES
-    cs.EXTMEM_DET_PAGES = min(cs.EXTMEM_DET_PAGES, n)
-
-    def timed(label, fn, *args):
-        t0 = time.perf_counter()
-        out = fn(*args)
-        cs.log(f"phase {label} took {time.perf_counter() - t0:.3f} s")
-        return out
-
     t_start = time.perf_counter()
-    cs.log(timed("1", cs.phase_device, hist_cuda))
-    t0 = time.perf_counter()
-    pages = cs.make_extmem_pages(n)
-    cs.log(f"phase 19 data: {n} pages of {cs.EXTMEM_PAGE_ROWS} rows made in "
-           f"{time.perf_counter() - t0:.3f} s")
-    ext = timed("19a", cs.phase_extmem, xtt, hist_cuda, pages)
-    timed("19b", cs.phase_extmem_det, xtt, hist_cuda, pages, ext["yard"])
-    timed("19c", cs.phase_extmem_parity, xtt, pages)
-    del pages
-    timed("19d", cs.phase_extmem_cpu, xtt)
+    cs.log(cs.timed("1", cs.phase_device, hist_cuda))
+    cs.phase_19(xtt, hist_cuda, n)
     cs.log(f"chip_phase19 total {time.perf_counter() - t_start:.3f} s")
     return 0
 

@@ -130,6 +130,32 @@ def test_card_streaming_is_the_cpus_under_eight_pages(prefetch, monkeypatch):
 
 
 @needs_cuda
+@pytest.mark.parametrize("prefetch", ["1", "0"])
+def test_card_staged_disk_pages_are_the_cpus_under_eight_pages(prefetch,
+                                                               monkeypatch):
+    """Pages spilled to disk (on_host=False) are read and verified on the
+    decode pool into the ring's pinned staging buffers and copied to the
+    card from there: the same model, byte for byte, as the CPU's."""
+    monkeypatch.setenv("XTB_EXTMEM_PREFETCH_PAGES", "2")
+    _, _, batches = _pages()
+    params = dict(DET, _extmem_prefetch=prefetch)
+    card = _ext(batches, "cuda", on_host=False)
+    assert all(isinstance(p, tx.DiskPage) for p in card._pages)
+    tx.reset_counters()
+    hist_cuda.reset_launches()
+    got = xtt.train(params, card, 3, verbose_eval=False, device="cuda")
+    c = tx.counters()
+    assert hist_cuda.launches["hist_q"] == 3 * 8 * DET["max_depth"]
+    assert c["xtb_extmem_pages_loaded_total"] >= 3 * 8 * DET["max_depth"]
+    slots = 3 if prefetch == "1" else 1
+    assert c["device_page_bytes_hwm"] <= slots * card._pages[0].nbytes
+    cpu = _ext(batches, "cpu")
+    want = xtt.train(params, cpu, 3, verbose_eval=False, device="cpu")
+    assert _json(got) == _json(want)
+    np.testing.assert_array_equal(got.predict(card), want.predict(cpu))
+
+
+@needs_cuda
 def test_card_streaming_is_the_incore_model_on_the_same_cuts():
     X, y, batches = _pages()
     types = batches[0]["feature_types"]
