@@ -292,6 +292,22 @@ holds each CUDA kernel against its plain PyTorch version:
      predicting within 1e-6 of the in-memory predictions; (d) 20,000 rows
      in 4 pages under deterministic_histogram=1: the card's model JSON
      byte-identical to the CPU's
+  20. data-parallel training across ranks on the one card, the HIGGS
+     shape (28 features, max_bin=256, depth 6, binary:logistic): (a) two
+     in-memory ranks (threads) of 1,048,576 rows each, 5 rounds, on both
+     histogram paths: the distributed sketch, the ranks' models
+     byte-identical, each rank's own launches (K1 or K2 and K3 6 a round,
+     K4 once a round and once for the base score), the AUC on the union
+     within 0.005 of one rank trained on the union, a round's time at two
+     ranks beside one rank on the union, one on a shard and two threads
+     training their shards alone at once, the host exchange's parts
+     (device-to-host, gather, sum, host-to-device) and share of the
+     round, the same ranks on a CUDA stream each at a 0.2 ms switch
+     interval, and a profile of two rounds at two ranks; (b) two ranks of
+     16,384 rows on the card and on the CPU, deterministic: the same
+     bytes; (c) train_distributed with two gloo worker processes on the
+     card, 262,144 rows a rank, deterministic, 3 rounds: the bytes of two
+     in-memory ranks on the same shards
 
 Phase 2 and 2b also give each case's device time a launch (torch.profiler),
 and phases 7, 8 and 9 the bound, the kernel and the index_add_ yardstick on
@@ -305,6 +321,7 @@ kernels JSON line and the device JSON line.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import json
 import os
@@ -312,6 +329,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -4807,6 +4825,308 @@ def phase_19(xtt, hist_cuda, n_pages: int = EXTMEM_PAGES):
     timed("19d", phase_extmem_cpu, xtt)
 
 
+# ----------------------------------------------------------------- phase 20
+P20 = BASE  # the HIGGS shape: binary:logistic, max_bin 256, depth 6
+P20_DET = DET
+P20_ROWS = 1 << 20  # rows a rank in 20a
+P20_ROUNDS = 5
+P20_CPU_ROWS = 16_384  # rows a rank in 20b
+P20_PROC_ROWS = 262_144  # rows a rank in 20c
+P20_PROC_ROUNDS = 3
+P20_AUC_TOL = 0.005
+P20_SWITCH_S = 2e-4  # 20a's second timing: the interpreter's switch interval
+
+
+def _sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _rank_threads(group, fn, world: int = 2, timeout: float = 600.0):
+    """``fn(rank)`` in ``world`` threads, each a rank of an in-memory
+    collective group: the results by rank.  A rank's failure fails the
+    phase (its peers' collectives raise, the CommunicatorContext aborting
+    the group); so does a rank still running at ``timeout``."""
+    from xgboost_tpu_torch import collective
+
+    out, errs = {}, {}
+
+    def worker(r):
+        try:
+            with collective.CommunicatorContext(
+                    dmlc_communicator="in-memory", in_memory_world_size=world,
+                    in_memory_rank=r, in_memory_group=group):
+                out[r] = fn(r)
+        except BaseException as e:  # noqa: BLE001 - raised below
+            errs[r] = e
+
+    threads = [threading.Thread(target=worker, args=(r,), daemon=True)
+               for r in range(world)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=timeout)
+    if any(t.is_alive() for t in threads):
+        raise AssertionError(f"{group}: a rank is still running after "
+                             f"{timeout} s")
+    if errs:
+        raise errs[min(errs)]
+    return [out[r] for r in range(world)]
+
+
+def _rank_train(xtt, hist_cuda, shards, params, rounds, group,
+                device="cuda", timed_repeat=True, dmats=None,
+                own_stream=False):
+    """Each shard a rank (a thread of this process, all on ``device``):
+    the distributed sketch and bins (or the rank's matrix of ``dmats``,
+    binned already), then ``rounds`` rounds of training, the second run
+    timed (the first plans the kernels' launches).  ``own_stream``: each
+    rank on a CUDA stream of its own (else all on the default stream).
+    By rank: the model JSON, the sketch seconds, the timed run's
+    seconds, its launches (the thread's own counts), the host exchange's
+    parts, the booster and the matrix."""
+    def fn(r):
+        X, y = shards[r]
+        t0 = time.perf_counter()
+        d = dmats[r] if dmats else xtt.DMatrix(X, label=y, device=device)
+        d.ensure_ellpack(max_bin=params["max_bin"])
+        _sync(device)
+        ingest_s = time.perf_counter() - t0
+        stream = (torch.cuda.stream(torch.cuda.Stream()) if own_stream
+                  else contextlib.nullcontext())
+        with stream:
+            if timed_repeat:
+                xtt.train(params, d, rounds, verbose_eval=False)
+            before = dict(hist_cuda.thread_launches())
+            t0 = time.perf_counter()
+            bst = xtt.train(params, d, rounds, verbose_eval=False)
+            _sync(device)
+            train_s = time.perf_counter() - t0
+        mine = {k: v - before[k]
+                for k, v in hist_cuda.thread_launches().items()}
+        return dict(json=_model_bytes(bst), ingest_s=ingest_s,
+                    train_s=train_s, launches=mine,
+                    exchange=dict(bst._grower.exchange.stats), bst=bst,
+                    dmat=d)
+
+    return _rank_threads(group, fn)
+
+
+def _threads_alone(xtt, dmats, params, rounds):
+    """Each matrix trained alone (no collective, one model a thread) in a
+    thread of its own, the threads started together: the seconds of the
+    slower thread's ``rounds`` rounds.  The ranks' round without their
+    exchange: what the two threads' level loops cost side by side."""
+    start, secs, errs = threading.Barrier(len(dmats)), {}, {}
+
+    def worker(i):
+        try:
+            start.wait(timeout=60)
+            t0 = time.perf_counter()
+            xtt.train(params, dmats[i], rounds, verbose_eval=False)
+            torch.cuda.synchronize()
+            secs[i] = time.perf_counter() - t0
+        except BaseException as e:  # noqa: BLE001 - raised below
+            errs[i] = e
+
+    threads = [threading.Thread(target=worker, args=(i,), daemon=True)
+               for i in range(len(dmats))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    if errs or any(t.is_alive() for t in threads):
+        raise AssertionError(f"threads alone: {errs or 'still running'}")
+    return max(secs.values())
+
+
+def _exchange_line(stats, rounds, round_s):
+    per = {k: stats[k] / rounds * 1e3 for k in ("d2h_s", "gather_s",
+                                                "sum_s", "h2d_s")}
+    total = sum(per.values())
+    return (f"{stats['calls'] // rounds} exchanges a round, "
+            f"{stats['bytes'] / rounds / 1e6:.3f} MB a round from a rank; "
+            f"a round's exchange {total:.3f} ms = device-to-host "
+            f"{per['d2h_s']:.3f} + gather {per['gather_s']:.3f} + sum "
+            f"{per['sum_s']:.3f} + host-to-device {per['h2d_s']:.3f}; "
+            f"{100 * total / (round_s * 1e3):.2f}% of the round"), total
+
+
+def phase_distributed(xtt, hist_cuda, smi, X, y, label, params, kernel):
+    """20a on one histogram path: two in-memory ranks of P20_ROWS rows on
+    the card, P20_ROUNDS rounds."""
+    from xgboost_tpu_torch.metric import auc
+
+    shards = [(X[:P20_ROWS], y[:P20_ROWS]), (X[P20_ROWS:], y[P20_ROWS:])]
+    rounds, depth = P20_ROUNDS, params["max_depth"]
+    hist_cuda.reset_launches()  # the main path's run: counts from 0
+    ranks = _rank_train(xtt, hist_cuda, shards, params, rounds,
+                        f"p20a-{kernel}")
+    total = dict(hist_cuda.launches)
+    if ranks[0]["json"] != ranks[1]["json"]:
+        raise AssertionError(f"phase {label}: the two ranks' models differ")
+    want = depth * rounds
+    per_rank = _sigmoid_launches(hist_cuda, rounds, evals=0)
+    per_rank[kernel] = per_rank["split_scan"] = want
+    for r, rk in enumerate(ranks):
+        if rk["launches"] != per_rank:
+            raise AssertionError(
+                f"phase {label}: rank {r} launched {rk['launches']} in its "
+                f"timed run, want {per_rank}")
+    # the main path's two runs (warm-up and timed) on both ranks
+    if total[kernel] != 2 * 2 * want:
+        raise AssertionError(f"phase {label}: {total[kernel]} {kernel} "
+                             f"launches over both ranks' two runs, want "
+                             f"{4 * want}")
+    two_round = max(rk["train_s"] for rk in ranks) / rounds
+    # the same ranks, each on a stream of its own and the interpreter
+    # handing its lock over every P20_SWITCH_S (default 5 ms)
+    old_switch = sys.getswitchinterval()
+    sys.setswitchinterval(P20_SWITCH_S)
+    try:
+        alt = _rank_train(xtt, hist_cuda, shards, params, rounds,
+                          f"p20a-{kernel}-streams",
+                          dmats=[rk["dmat"] for rk in ranks],
+                          own_stream=True)
+    finally:
+        sys.setswitchinterval(old_switch)
+    if alt[0]["json"] != alt[1]["json"]:
+        raise AssertionError(f"phase {label}: the ranks on their own "
+                             "streams grew two models")
+    # K1's f32 sums take another order run to run; K2's do not
+    same = alt[0]["json"] == ranks[0]["json"]
+    if kernel == "hist_q" and not same:
+        raise AssertionError(f"phase {label}: the ranks on their own "
+                             "streams grew another deterministic model")
+    alt_round = max(rk["train_s"] for rk in alt) / rounds
+    # the device's share of the two ranks' time
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _rank_train(xtt, hist_cuda, shards, params, 2,
+                    f"p20a-{kernel}-profile",
+                    dmats=[rk["dmat"] for rk in ranks], timed_repeat=False)
+        torch.cuda.synchronize()
+        prof_ms = (time.perf_counter() - t0) * 1e3
+    _log_profile(prof, prof_ms, f"{label} (two ranks)",
+                 "2 rounds at two ranks, each rank's train() whole", top=6)
+    # one rank: the union of the shards, and one shard alone
+    d_union = xtt.DMatrix(X, label=y)
+    d_union.ensure_ellpack(max_bin=params["max_bin"])
+    xtt.train(params, d_union, 1, verbose_eval=False)
+    t0 = time.perf_counter()
+    union = xtt.train(params, d_union, rounds, verbose_eval=False)
+    torch.cuda.synchronize()
+    union_round = (time.perf_counter() - t0) / rounds
+    d_one = xtt.DMatrix(*shards[0])
+    d_one.ensure_ellpack(max_bin=params["max_bin"])
+    xtt.train(params, d_one, 1, verbose_eval=False)
+    t0 = time.perf_counter()
+    xtt.train(params, d_one, rounds, verbose_eval=False)
+    torch.cuda.synchronize()
+    one_round = (time.perf_counter() - t0) / rounds
+    # the two shards' level loops side by side, with no collective
+    alone = [xtt.DMatrix(*sh) for sh in shards]
+    for d in alone:
+        d.ensure_ellpack(max_bin=params["max_bin"])
+        xtt.train(params, d, 1, verbose_eval=False)
+    alone_round = _threads_alone(xtt, alone, params, rounds) / rounds
+    del alone
+    got_auc = auc(ranks[0]["bst"].predict(d_union)[::4],
+                  y[::4].astype(np.float64))
+    want_auc = auc(union.predict(d_union)[::4], y[::4].astype(np.float64))
+    del d_union, d_one
+    line, exch_ms = _exchange_line(ranks[0]["exchange"], rounds, two_round)
+    alt_line, _ = _exchange_line(alt[0]["exchange"], rounds, alt_round)
+    log(f"phase {label} distributed ({smi}): 2 in-memory ranks x "
+        f"{P20_ROWS} rows x {X.shape[1]} on one card, {rounds} rounds; "
+        f"distributed sketch + bins {ranks[0]['ingest_s']:.3f} / "
+        f"{ranks[1]['ingest_s']:.3f} s a rank; a round at two ranks "
+        f"{two_round * 1e3:.3f} ms, at one rank on the union "
+        f"{union_round * 1e3:.3f} ms, at one rank on one shard "
+        f"{one_round * 1e3:.3f} ms, two threads each training a shard "
+        f"alone at once {alone_round * 1e3:.3f} ms; the two ranks' models "
+        f"byte-identical; "
+        f"{kernel} and K3 launched {want} a rank ({depth} a round a rank), "
+        f"K4 {per_rank['sigmoid']}, {total[kernel]} {kernel} over both "
+        f"ranks' two runs; AUC@stride4 on the "
+        f"union {got_auc:.6f}, one rank trained on the union "
+        f"{want_auc:.6f} (|diff| {abs(got_auc - want_auc):.6f}, gate "
+        f"{P20_AUC_TOL})")
+    log(f"phase {label} exchange at two ranks (rank 0): {line}")
+    log(f"phase {label} two ranks, each on its own CUDA stream, the "
+        f"interpreter's switch interval {P20_SWITCH_S * 1e3:g} ms: a round "
+        f"{alt_round * 1e3:.3f} ms (the first timing's model: {same}); "
+        f"exchange (rank 0): "
+        f"{alt_line}")
+    if not abs(got_auc - want_auc) <= P20_AUC_TOL:
+        raise AssertionError(f"phase {label}: AUC {got_auc} at two ranks "
+                             f"against {want_auc} at one")
+    return dict(two_round=two_round, alt_round=alt_round,
+                alone_round=alone_round, union_round=union_round,
+                one_round=one_round, exchange_ms=exch_ms,
+                launches=total[kernel], auc=got_auc)
+
+
+def phase_distributed_cpu(xtt, hist_cuda, smi):
+    """20b: deterministic, two in-memory ranks of P20_CPU_ROWS rows on the
+    card and on the CPU: the same model bytes."""
+    X, y = make_data(2 * P20_CPU_ROWS, 28, seed=2001)
+    shards = [(X[:P20_CPU_ROWS], y[:P20_CPU_ROWS]),
+              (X[P20_CPU_ROWS:], y[P20_CPU_ROWS:])]
+    card = _rank_train(xtt, hist_cuda, shards, P20_DET, P20_ROUNDS,
+                       "p20b-card", timed_repeat=False)
+    cpu = _rank_train(xtt, hist_cuda, shards, dict(P20_DET, device="cpu"),
+                      P20_ROUNDS, "p20b-cpu", device="cpu",
+                      timed_repeat=False)
+    if not (card[0]["json"] == card[1]["json"] == cpu[0]["json"]
+            == cpu[1]["json"]):
+        raise AssertionError("phase 20b: the card's two-rank model JSON is "
+                             "not the CPU's")
+    log(f"phase 20b parity ({smi}): 2 ranks x {P20_CPU_ROWS} rows, "
+        f"{P20_ROUNDS} rounds, deterministic: the card's model JSON "
+        "byte-identical to the CPU's, on every rank")
+
+
+def phase_distributed_procs(xtt, hist_cuda, smi):
+    """20c: train_distributed, two gloo worker processes on the one card,
+    deterministic; the same bytes as two in-memory ranks here."""
+    X, y = make_data(2 * P20_PROC_ROWS, 28, seed=2002)
+    shards = [(X[:P20_PROC_ROWS], y[:P20_PROC_ROWS]),
+              (X[P20_PROC_ROWS:], y[P20_PROC_ROWS:])]
+    t0 = time.perf_counter()
+    out = xtt.train_distributed(P20_DET, shards,
+                                num_boost_round=P20_PROC_ROUNDS,
+                                eval_train=True, timeout=300)
+    job_s = time.perf_counter() - t0
+    mem = _rank_train(xtt, hist_cuda, shards, P20_DET, P20_PROC_ROUNDS,
+                      "p20c-memory", timed_repeat=False)
+    got = _model_bytes(out["booster"])
+    if got != mem[0]["json"]:
+        raise AssertionError("phase 20c: the gloo workers' model is not the "
+                             "in-memory ranks'")
+    final = {m: v[-1] for m, v in out["history"]["train"].items()}
+    log(f"phase 20c processes ({smi}): train_distributed, 2 gloo worker "
+        f"processes on one card x {P20_PROC_ROWS} rows, {P20_PROC_ROUNDS} "
+        f"rounds, deterministic: {job_s:.3f} s for the job (the workers' "
+        f"start, rendezvous, sketch and training); model bytes equal to 2 "
+        f"in-memory ranks' on the same shards; rank 0's train {final}")
+
+
+def phase_20(xtt, hist_cuda, smi):
+    """Phases 20a-20c: data-parallel training across ranks on one card."""
+    X, y = make_data(2 * P20_ROWS, 28, seed=2000)
+    timed("20a", phase_distributed, xtt, hist_cuda, smi, X, y, "20a",
+          P20, "hist_f32")
+    timed("20a deterministic", phase_distributed, xtt, hist_cuda, smi, X, y,
+          "20a deterministic", P20_DET, "hist_q")
+    del X, y
+    timed("20b", phase_distributed_cpu, xtt, hist_cuda, smi)
+    timed("20c", phase_distributed_procs, xtt, hist_cuda, smi)
+
+
 def _shap_entry(name, r):
     """K6's line: its main path's call (or the first rows of it, where the
     plain version ran on those only), with the launches of the call."""
@@ -4983,6 +5303,7 @@ def main() -> int:
     del X, y, Xc
     timed("17f", phase_boosters_parity, xtt)
     phase_19(xtt, hist_cuda)
+    phase_20(xtt, hist_cuda, smi)
 
     kernels = [_kernel_entry(name, hist_cuda.SOURCES[name], cases, n)
                for name, cases, n in (("hist_f32", f32_cases, f32["launches"]),

@@ -21,10 +21,14 @@ around them: ``train`` and ``cv`` with the reference's callbacks, the
 ``Booster`` (model files, ``save_config``/``load_config``, ``serialize``
 and pickling, round slicing, ``get_score``, ``inplace_predict``), the
 scikit-learn estimators and the plotting functions, both imported on first
-use.
+use.  Data-parallel training across ranks: ``collective`` (gloo processes
+or in-memory threads) and ``train_distributed`` (one worker process per
+data part), each rank's histograms on the kernels and summed over the
+ranks every level.
 """
 from __future__ import annotations
 
+from . import collective
 from .callback import (EarlyStopping, EvaluationMonitor, LearningRateScheduler,
                        TrainingCallback, TrainingCheckPoint)
 from .config import config_context, get_config, set_config
@@ -34,6 +38,7 @@ from .data.ellpack import EllpackPage
 from .data.extmem import (DataIter, ExtMemConfig, ExtMemQuantileDMatrix,
                           SparsePageDMatrix)
 from .data.quantile import HistogramCuts
+from .distributed import train_distributed
 from .training import cv, train
 
 __all__ = [
@@ -49,6 +54,8 @@ __all__ = [
     "MetaInfo",
     "train",
     "cv",
+    "train_distributed",
+    "collective",
     "config_context",
     "set_config",
     "get_config",

@@ -167,11 +167,14 @@ class EarlyStopping(TrainingCallback):
 
 class EvaluationMonitor(TrainingCallback):
     """Log eval results every ``period`` rounds (reference: callback.py:511);
-    ``show_stdv``: a cv score as ``mean+std``; ``logger`` receives each
-    line (default: print)."""
+    ``rank``: across ranks only that rank prints (the reference's
+    ``printer_rank``); ``show_stdv``: a cv score as ``mean+std``;
+    ``logger`` receives each line (default: print)."""
 
-    def __init__(self, period: int = 1, show_stdv: bool = False,
+    def __init__(self, rank: int = 0, period: int = 1,
+                 show_stdv: bool = False,
                  logger: Optional[Callable[[str], None]] = None):
+        self.printer_rank = int(rank)
         self.period = max(period, 1)
         self.show_stdv = show_stdv
         self.logger = logger or print
@@ -186,6 +189,10 @@ class EvaluationMonitor(TrainingCallback):
 
     def after_iteration(self, model, epoch, evals_log) -> bool:
         if not evals_log:
+            return False
+        from . import collective
+
+        if collective.get_rank() != self.printer_rank:
             return False
         msg = f"[{epoch}]"
         for data, metrics in evals_log.items():

@@ -62,6 +62,18 @@ The other boosters and updaters (reference core.py:206-255):
 - ``booster="gblinear"`` (models/gblinear.py): the coordinate chain in
   PyTorch operations on the device, the selectors' orders from the host.
 
+Across ranks (reference core.py:930-936 ``_process_parallel``): when the
+collective (collective.py) spans several ranks, each holding a row shard,
+the training matrix's cuts come from every shard's host sketch
+(``sketch_distributed``), the base score from the gathered labels, each
+tree from ``ProcessHistTreeGrower`` (parallel/process.py), or the
+best-first and vector-leaf growers with ``distributed=True``, which sum
+the root and each level's histogram over the ranks; approx sketches the
+round's hessians over the ranks, the adaptive refit gathers the leaves'
+rows, and ``eval_set`` reports the global metrics.  exact, gblinear,
+process_type="update" and out-of-core matrices raise there (ROADMAP Queue
+1 item 9): none of them may train a rank's rows alone.
+
 Out of core (reference core.py:680-837): on an ExtMemQuantileDMatrix the
 trees grow on StreamingHistTreeGrower (tree/stream.py), which streams the
 host pages to the device at every level; the training state (margins,
@@ -82,9 +94,11 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from . import collective
 from .data.dmatrix import DMatrix, categories_by_name, recode_dense
 from .data.ellpack import build_ellpack
-from .metric import create_metric
+from .data.quantile import sketch_distributed
+from .metric import create_metric, distributed_reduction
 from .models import gblinear
 from .models.tree import RegTree
 from .models.updaters import _route_masks, prune_tree, refresh_tree, sync_trees
@@ -94,6 +108,7 @@ from .ops.predict import (predict_leaf_ids, predict_margin_delta,
                           predict_margin_delta_binned,
                           predict_margin_delta_multi)
 from .ops.split import SplitParams
+from .parallel.process import ProcessHistTreeGrower
 from .params import (KNOWN_LEARNER_KEYS, TrainParam, canonicalize,
                      reject_unsupported, split_unknown, tree_keys)
 from .tree.bestfirst import BestFirstGrower
@@ -107,6 +122,12 @@ from .utils.fp import sqrt_f32, sum_f32
 from .utils.random import bernoulli, prng_key, uniform
 
 __all__ = ["Booster"]
+
+
+def _gather_rows(t: torch.Tensor) -> torch.Tensor:
+    """Every rank's rows of ``t`` in rank order, on ``t``'s device."""
+    return torch.from_numpy(collective.allgather_ragged(
+        t.cpu().numpy())).to(t.device)
 
 
 class _Cache:
@@ -350,6 +371,9 @@ class Booster:
         self._lockstep = False
         self._grower = self._lockstep_grower = self._multi_grower = None
         self._stream_growers: Dict[tuple, StreamingHistTreeGrower] = {}
+        # rows sharded over ranks (reference core.py:930 _process_parallel)
+        self._distributed = collective.is_distributed()
+        dist = self._distributed
         if self.booster_kind == "gblinear" or self.tree_method == "exact":
             # neither grows on histograms
             self._configured = True
@@ -363,7 +387,14 @@ class Booster:
             self._grower = BestFirstGrower(
                 max(tp.max_depth, 0), self._split_params,
                 max_leaves=tp.max_leaves,
-                interaction_sets=tp.interaction_constraints)
+                interaction_sets=tp.interaction_constraints,
+                distributed=dist)
+        elif dist:
+            self._grower = ProcessHistTreeGrower(
+                self._resolve_max_depth(lossguide), self._split_params,
+                interaction_sets=tp.interaction_constraints,
+                max_leaves=tp.max_leaves, lossguide=lossguide,
+                quantised=self.deterministic_histogram)
         else:
             self._grower = HistTreeGrower(
                 self._resolve_max_depth(lossguide), self._split_params,
@@ -375,6 +406,7 @@ class Booster:
         # histograms only; _boost_trees checks the rest of its gate
         self._lockstep = (
             not self._best_first and not self.deterministic_histogram
+            and not dist
             # the refit is per tree: adaptive objectives grow sequentially
             and not self._adaptive
             and str(p.get("_hist_impl", "xla")) == "xla"
@@ -388,6 +420,7 @@ class Booster:
         self._multi_grower = MultiTargetTreeGrower(
             self._resolve_max_depth(lossguide), self._split_params,
             self.n_groups, max_leaves=tp.max_leaves, lossguide=lossguide,
+            distributed=dist,
         ) if self.multi_strategy == "multi_output_tree" else None
         self._configured = True
 
@@ -448,9 +481,14 @@ class Booster:
                 bm = self.objective.prob_to_margin(prob)
             elif not self.trees and cache.ready:
                 v = cache.valid
-                bm = self.objective.init_estimation(
-                    cache.labels[v],
-                    None if cache.weights is None else cache.weights[v])
+                lab = cache.labels[v]
+                wts = None if cache.weights is None else cache.weights[v]
+                if self._distributed:
+                    # every rank estimates on the global labels (the
+                    # reference allreduces inside FitStump, fit_stump.cc:52)
+                    lab = _gather_rows(lab)
+                    wts = None if wts is None else _gather_rows(wts)
+                bm = self.objective.init_estimation(lab, wts)
             else:
                 bm = torch.zeros(self.n_groups)
             self._base_margin_value = np.broadcast_to(
@@ -499,6 +537,12 @@ class Booster:
     # ------------------------------------------------------------------ train
     def _train_cache(self, dtrain: DMatrix) -> _Cache:
         self._configure()
+        if self._distributed != collective.is_distributed():
+            # the collective changed since the growers were made
+            self._configured = False
+            self._configure()
+        if self._distributed:
+            self._check_distributed_training(dtrain)
         cache = self._get_cache(dtrain)
         if cache.is_extmem:
             self._check_extmem_training()
@@ -533,6 +577,26 @@ class Booster:
                 self.objective.set_group_info(gp)
                 self.objective._group_owner = owner
         return cache
+
+    def _check_distributed_training(self, dtrain: DMatrix) -> None:
+        """Refuse, across ranks, what the port does not yet train across
+        ranks (ROADMAP Queue 1 item 9): the reference runs exact and
+        process_type="update" distributed (core.py:1022-1050, :1108-1115,
+        :1243-1246) and out of core through its page reduction; gblinear
+        has no reduction there.  None may train a rank's rows alone."""
+        what = None
+        if hasattr(dtrain, "_pages"):
+            what = "external-memory training"
+        elif self.booster_kind == "gblinear":
+            what = "booster='gblinear'"
+        elif self.tree_method == "exact":
+            what = "tree_method='exact'"
+        elif self.process_type == "update":
+            what = "process_type='update'"
+        if what is not None:
+            raise NotImplementedError(
+                f"{what} across ranks is not ported to xgboost_tpu_torch "
+                "yet (ROADMAP Queue 1 item 9)")
 
     def _check_extmem_training(self) -> None:
         """Refuse what the pages cannot train, as the reference does:
@@ -966,8 +1030,15 @@ class Booster:
         hess_w = hess.sum(axis=1)[: cache.n_real]
         # each column's sort is the matrix's, found once (a training
         # frame's codes are the booster's: no recoding)
-        cuts = cache.dmat.weighted_sketch().cuts(
-            max_bin, hess_w.astype(np.float64))
+        if self._distributed:
+            # one merge of every rank's weighted grid (reference
+            # core.py:1467-1472, quantile.cc AllreduceV)
+            cuts = sketch_distributed(self._host_X(cache), max_bin,
+                                      weights=hess_w.astype(np.float64),
+                                      cat_mask=cache.dmat.cat_mask())
+        else:
+            cuts = cache.dmat.weighted_sketch().cuts(
+                max_bin, hess_w.astype(np.float64))
         page = build_ellpack(self._cache_X(cache), cuts)
         if page.n_padded != cache.bins.shape[0]:
             raise AssertionError("approx page padding mismatch")
@@ -1170,9 +1241,15 @@ class Booster:
                 self._grower.n_slots
         else:
             is_leaf, n_slots = state.is_leaf, self._grower.max_nodes
-        residual = cache.labels - cache.margin[:, k]
+        pos, residual, valid = (state.pos, cache.labels - cache.margin[:, k],
+                                cache.valid)
+        if self._distributed:
+            # the quantile of the leaf's rows on every rank (reference
+            # core.py:1579-1590)
+            pos, residual, valid = (_gather_rows(t)
+                                    for t in (pos, residual, valid))
         leaf_val = segment_quantile_leaf(
-            state.pos, residual, cache.valid, is_leaf,
+            pos, residual, valid, is_leaf,
             float(self.objective.adaptive_alpha(k)), float(self.tparam.eta),
             max_nodes=n_slots)
         if self._best_first:
@@ -1410,12 +1487,24 @@ class Booster:
                     kw.pop("alphas")
                     if preds.ndim == 2 and lab.ndim == 1:
                         lab = np.repeat(lab[:, None], preds.shape[1], axis=1)
-                v = fn(preds, lab, dmat.get_weight(), **kw)
+                if self._distributed:
+                    # every rank reports the global metric (reference
+                    # core.py:1721-1727)
+                    with distributed_reduction():
+                        v = fn(preds, lab, dmat.get_weight(), **kw)
+                else:
+                    v = fn(preds, lab, dmat.get_weight(), **kw)
                 msgs.append(f"{name}-{mname}:{v:g}")
             if feval is not None:
                 res = feval(margin.cpu().numpy() if output_margin else preds,
                             dmat)
                 for mname, v in [res] if isinstance(res, tuple) else res:
+                    if self._distributed:
+                        # a custom metric sees its rank's rows: its mean
+                        # over the ranks (reference core.py:1741-1746)
+                        num, den = collective.global_sum(
+                            np.array([float(v), 1.0], np.float64))
+                        v = num / den
                     msgs.append(f"{name}-{mname}:{v:g}")
         return "\t".join(msgs)
 

@@ -35,7 +35,8 @@ import torch
 from ..utils.device import resolve_device
 from .arrow import arrow_to_columnar, is_arrow
 from .ellpack import EllpackPage, build_ellpack, build_ellpack_csr
-from .quantile import HistogramCuts, WeightedSketch, sketch_csr, sketch_dense
+from .quantile import (HistogramCuts, WeightedSketch, sketch_csr,
+                       sketch_dense, sketch_distributed)
 
 
 @dataclasses.dataclass
@@ -424,13 +425,24 @@ class DMatrix:
                        ref: Optional["DMatrix"] = None) -> EllpackPage:
         """Sketch and bin once per ``max_bin``.  ``ref``: a matrix whose
         page is built lends its cuts (GetCutsFromRef, reference
-        dmatrix.py:464-465), so that these rows land in its bins."""
-        if self._ellpack is None or self._max_bin_built != max_bin:
+        dmatrix.py:464-465), so that these rows land in its bins.  Where
+        the collective spans several ranks this matrix is a rank's row
+        shard, and its cuts are the ranks' shared cuts from the host
+        sketches of every shard (reference dmatrix.py:463-469,
+        quantile.cc:397), made in a collective every rank joins."""
+        from .. import collective
+
+        distributed = collective.is_distributed()
+        key = (max_bin, distributed and ref is None)
+        if self._ellpack is None or self._max_bin_built != key:
             cuts: Optional[HistogramCuts] = None
             if ref is not None and ref._ellpack is not None:
                 cuts = ref._ellpack.cuts
             if self._csr is None:
-                if cuts is None:
+                if cuts is None and distributed:
+                    cuts = sketch_distributed(self.host_dense(), max_bin,
+                                              cat_mask=self.cat_mask())
+                elif cuts is None:
                     cuts = sketch_dense(self.X, max_bin,
                                         cat_mask=self.cat_mask())
                 self._ellpack = build_ellpack(self.X, cuts,
@@ -439,11 +451,12 @@ class DMatrix:
                 F = self.num_col()
                 if cuts is None:
                     cuts = sketch_csr(*self._csr, F, max_bin,
-                                      cat_mask=self.cat_mask())
+                                      cat_mask=self.cat_mask(),
+                                      distributed=distributed)
                 self._ellpack = build_ellpack_csr(
                     *self._csr, F, cuts, row_align=row_align,
                     device=self.device)
-            self._max_bin_built = max_bin
+            self._max_bin_built = key
         return self._ellpack
 
 

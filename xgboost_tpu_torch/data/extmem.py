@@ -611,6 +611,21 @@ def _iterate(it: DataIter):
         yield got[0]
 
 
+def check_not_distributed() -> None:
+    """Raise where the collective spans several ranks: out-of-core data
+    across ranks (the reference's distributed page sketch and per-level
+    page reduction, extmem.py:520, :721, tree/stream.py:306-313) is not
+    ported, and a rank must not train its pages alone."""
+    from .. import collective
+
+    if collective.is_distributed():
+        raise NotImplementedError(
+            "external-memory training across ranks (ExtMemQuantileDMatrix, "
+            "SparsePageDMatrix, ExtMemConfig) is not ported to "
+            "xgboost_tpu_torch yet (ROADMAP Queue 1 item 9); use an "
+            "in-memory DMatrix a rank")
+
+
 class ExtMemQuantileDMatrix(DMatrix):
     """Binned external-memory DMatrix (reference extmem.py:636,
     extmem_quantile_dmatrix.h:29): the pages stay on the host (or on
@@ -630,6 +645,7 @@ class ExtMemQuantileDMatrix(DMatrix):
                  compress: bool = True, device=None, **kwargs: Any) -> None:
         if not isinstance(data, DataIter):
             raise TypeError("ExtMemQuantileDMatrix requires a DataIter")
+        check_not_distributed()
         self.device = resolve_device(device)
         self.max_bin = max_bin
         self.on_host = on_host

@@ -408,11 +408,18 @@ def _csr_grid(indptr, indices, values, n_features: int, max_bin: int,
 
 
 def sketch_csr(indptr, indices, values, n_features: int, max_bin: int,
-               cat_mask: Optional[np.ndarray] = None) -> HistogramCuts:
+               cat_mask: Optional[np.ndarray] = None,
+               distributed: bool = False) -> HistogramCuts:
     """HistogramCuts of a CSR matrix from its stored entries alone: an
     implicit zero is missing, as in the reference's sparse DMatrix
     (reference quantile.py:573 sketch_csr; src/common/hist_util.cc
-    SketchOnDMatrix walks the stored entries)."""
+    SketchOnDMatrix walks the stored entries).  ``distributed``: this
+    rank holds a row shard; one StreamingSketch page a rank, merged over
+    the ranks without making the shard dense."""
+    if distributed:
+        sk = StreamingSketch(n_features, max_bin, cat_mask=cat_mask)
+        sk.push_csr(indptr, indices, values)
+        return sk.finalize(distributed=True)
     grid, nvalid, vmax, vmin, _, cat_max = _csr_grid(
         indptr, indices, values, n_features, max_bin, cat_mask)
     base = cuts_from_quantile_grid(grid, nvalid, vmax, vmin)
@@ -585,19 +592,25 @@ class StreamingSketch:
         self._contribs.append(_pack_contrib(grid, nvalid, vmax, vmin, mass))
 
     def finalize(self, distributed: bool = False) -> HistogramCuts:
-        """Merge every page's summary into shared cuts.  ``distributed``
-        (a gather of every process's summaries) is not ported: the port
-        trains in one process (ROADMAP Queue 1 item 9)."""
+        """Merge every page's summary into shared cuts.  ``distributed``:
+        the summaries of every rank, in one ragged gather (reference
+        quantile.py:474-495), and the categorical maxima by MAX, so every
+        rank computes the same cuts; a rank may hold no page, as long as
+        every rank calls ``finalize`` and one page exists overall."""
+        F, Q = self.n_features, self.n_cand
+        local = (np.stack([c if isinstance(c, np.ndarray) else c.result()
+                           for c in self._contribs]) if self._contribs
+                 else np.zeros((0, F, Q + 4), np.float64))
+        cat_max = self._cat_max
         if distributed:
-            raise NotImplementedError(
-                "StreamingSketch.finalize(distributed=True) is not "
-                "supported by xgboost_tpu_torch yet: it trains in one "
-                "process")
-        if not self._contribs:
+            from .. import collective
+
+            flat = local.reshape(local.shape[0], F * (Q + 4))
+            local = collective.allgather_ragged(flat).reshape(-1, F, Q + 4)
+            if self.cat_mask is not None:
+                cat_max = collective.allreduce(cat_max, collective.Op.MAX)
+        if local.shape[0] == 0:
             raise ValueError("StreamingSketch.finalize: no pages pushed")
-        Q = self.n_cand
-        local = np.stack([c if isinstance(c, np.ndarray) else c.result()
-                          for c in self._contribs])
         base = merge_quantile_grids(
             local[:, :, :Q].astype(np.float32),
             local[:, :, Q].astype(np.int64),
@@ -606,9 +619,21 @@ class StreamingSketch:
             self.max_bin, masses=local[:, :, Q + 3])
         if self.cat_mask is None:
             return base
-        cat_n_cats = {int(f): (int(self._cat_max[f]) + 1
-                               if self._cat_max[f] >= 0 else 1)
+        cat_n_cats = {int(f): (int(cat_max[f]) + 1 if cat_max[f] >= 0
+                               else 1)
                       for f in np.nonzero(self.cat_mask)[0]}
         return _assemble_cuts(
             self.n_features, self.max_bin, cat_n_cats,
             lambda f: (base.feature_cuts(f), base.min_vals[f]))
+
+
+def sketch_distributed(X, max_bin: int, weights: Optional[np.ndarray] = None,
+                       cat_mask: Optional[np.ndarray] = None) -> HistogramCuts:
+    """Cuts shared by the ranks, each holding a row shard of X (reference
+    quantile.py:511): one StreamingSketch page a rank, one ragged gather,
+    the deterministic merge; categorical features take identity cuts sized
+    by the largest code over the ranks."""
+    Xh = np.asarray(X, dtype=np.float32)
+    sk = StreamingSketch(Xh.shape[1], max_bin, cat_mask=cat_mask)
+    sk.push(Xh, weights=weights)
+    return sk.finalize(distributed=True)

@@ -12,15 +12,48 @@ per-group branch) take the query groups as ``group_ptr``; from 64 groups
 up, ndcg, map and pre run the segment sums of ``device_rank.py`` on the
 booster's ``device``, below it the loop over groups (``use_device_rank``
 forces either).
+
+Across ranks (``distributed_reduction``, which the booster enters in its
+evaluation when the collective spans several ranks) every metric sums its
+partial (value, weight) pairs over the ranks (``_reduce_sums``, the
+reference's GlobalSum/GlobalRatio, src/collective/aggregator.h), so every
+rank reports the same global metric from its own rows.  A rank whose
+shard is empty or has one class still joins each reduction.
 """
 from __future__ import annotations
 
+import threading
 from typing import Callable, Dict
 
 import numpy as np
 import torch
 
 _REGISTRY: Dict[str, Callable] = {}
+_DIST = threading.local()
+
+
+class distributed_reduction:
+    """While active (in this thread), the metrics sum their partial sums
+    over the ranks (reference metric/__init__.py:24-38)."""
+
+    def __enter__(self):
+        _DIST.on = True
+        return self
+
+    def __exit__(self, *exc):
+        _DIST.on = False
+        return False
+
+
+def _reduce_sums(*vals: float):
+    """The scalars summed over the ranks where a distributed reduction is
+    active, else as given (reference metric/__init__.py:64)."""
+    if not getattr(_DIST, "on", False):
+        return vals
+    from .. import collective
+
+    out = collective.global_sum(np.asarray(vals, np.float64))
+    return tuple(float(v) for v in out)
 
 # rank metrics with the reference's trailing-minus convention (degenerate
 # groups score 0 instead of 1, ranking_utils.cc ParseMetricName)
@@ -83,9 +116,11 @@ def _wmean(err, labels, weights):
     x targets (reference metric/__init__.py:121-132)."""
     w = _w(labels if err.ndim == 1 else err[:, 0], weights)
     if err.ndim == 2:
-        return float(np.sum(err * w[:, None])) / (float(np.sum(w))
-                                                  * err.shape[1])
-    return float(np.sum(err * w)) / float(np.sum(w))
+        s, wsum = _reduce_sums(float(np.sum(err * w[:, None])),
+                               float(np.sum(w)))
+        return s / (wsum * err.shape[1])
+    s, wsum = _reduce_sums(float(np.sum(err * w)), float(np.sum(w)))
+    return s / wsum
 
 
 @register_metric("rmse")
@@ -169,7 +204,9 @@ def auc(preds, labels, weights=None, group_ptr=None, **kw):
     np.add.at(ties_neg, grp, ww * (~yy))
     score = below + ties_neg[grp] / 2.0
     area = float(np.sum(ww[yy] * score[yy]))
-    pairs = pos_w * neg_w
+    # across ranks the reference's merge, GlobalRatio(area, pos * neg)
+    # (auc.cc:345): a pair-weighted mean of the ranks' AUCs
+    area, pairs = _reduce_sums(area, pos_w * neg_w)
     if pairs == 0:
         return 0.5
     return min(area / pairs, 1.0)
@@ -277,17 +314,21 @@ def ams(preds, labels, weights=None, at: float = 1.0, **kw):
         if len(sp):
             distinct[:-1] = sp[:-1] != sp[1:]
         cand = np.nonzero(distinct)[0]
-        if len(cand) == 0:
-            return 0.0
-        return float(np.max(np.sqrt(2 * (
+        # an all-tied shard scores 0 and still joins the reduction
+        best = 0.0 if len(cand) == 0 else float(np.max(np.sqrt(2 * (
             (ps[cand] + bs[cand] + br) * np.log1p(ps[cand] / (bs[cand] + br))
             - ps[cand]))))
+        num, den = _reduce_sums(best, 1.0)
+        return num / den
     top = order[: min(ntop, n - 1)]
     pos = labels[top] > 0.5
     s_tp = float(np.sum(w[top][pos]))
     b_fp = float(np.sum(w[top][~pos]))
-    return float(np.sqrt(2 * ((s_tp + b_fp + br)
-                              * np.log1p(s_tp / (b_fp + br)) - s_tp)))
+    # across ranks the mean of the ranks' values: the top fraction is a
+    # rank's own, as the reference's
+    num, den = _reduce_sums(float(np.sqrt(2 * (
+        (s_tp + b_fp + br) * np.log1p(s_tp / (b_fp + br)) - s_tp))), 1.0)
+    return num / den
 
 
 def _pr_area(s, y, w):
@@ -327,10 +368,12 @@ def aucpr(preds, labels, weights=None, group_ptr=None, **kw):
                 wg = float(weights[g]) if group_w else 1.0
                 total += area * wg
                 valid += wg
-        return total / valid if valid > 0 else 0.0
+        num, den = _reduce_sums(total, valid)
+        return num / den if den > 0 else 0.0
     area, pairs = _pr_area(s, y, _w(labels, weights))
-    # the reference's pair-weighted merge of one shard
-    return area * pairs / pairs if pairs > 0 else 0.0
+    # the reference's pair-weighted merge over the ranks
+    num, den = _reduce_sums(area * pairs, pairs)
+    return num / den if den > 0 else 0.0
 
 
 @register_metric("aft-nloglik")
@@ -379,16 +422,22 @@ def cox_nloglik(preds, labels, weights=None, **kw):
     risk = revcum[np.searchsorted(ts, ts, side="left")]
     ll = np.sum(np.log(np.maximum(r_s, 1e-16))[ev_s]
                 - np.log(np.maximum(risk, 1e-16))[ev_s])
-    return float(-ll) / max(float(ev_s.sum()), 1.0)
+    # across ranks the risk sets are a rank's own, as the reference's
+    num, den = _reduce_sums(float(-ll), float(ev_s.sum()))
+    return num / max(den, 1.0)
 
 
 # ---------------------------------------------------------------- ranking
 def _use_device_rank(group_ptr, preds, kw) -> bool:
     """The segment sums for 64 groups or more, the loop below;
-    ``use_device_rank`` forces either (reference metric/__init__.py:55)."""
+    ``use_device_rank`` forces either (reference metric/__init__.py:46-61).
+    Across ranks the loop, unless forced: a choice by the rank's own group
+    count could give the ranks other sum orders for one reduction."""
     forced = kw.get("use_device_rank")
     if forced is not None:
         return bool(forced)
+    if getattr(_DIST, "on", False):
+        return False
     return np.ndim(preds) == 1 and len(group_ptr) - 1 >= _MIN_DEVICE_GROUPS
 
 
@@ -417,8 +466,8 @@ def ndcg(preds, labels, weights=None, group_ptr=None, at: float = 0,
     if _use_device_rank(group_ptr, preds, kw):
         from .device_rank import ndcg_pair
 
-        n, d = ndcg_pair(preds, labels, group_ptr, weights, k or 0, minus,
-                         kw.get("device"))
+        n, d = _reduce_sums(*ndcg_pair(preds, labels, group_ptr, weights,
+                                       k or 0, minus, kw.get("device")))
         return n / d if d > 0 else 1.0
     n_groups = len(group_ptr) - 1
     vals, ws = [], []
@@ -433,8 +482,8 @@ def ndcg(preds, labels, weights=None, group_ptr=None, at: float = 0,
         idcg = _dcg_at(np.sort(y)[::-1], kk)
         vals.append(dcg / idcg if idcg > 0 else (0.0 if minus else 1.0))
         ws.append(_group_weight(weights, g, lo, n_groups))
-    num = float(np.dot(vals, ws)) if vals else 0.0
-    den = float(np.sum(ws)) if ws else 0.0
+    num, den = _reduce_sums(float(np.dot(vals, ws)) if vals else 0.0,
+                            float(np.sum(ws)) if ws else 0.0)
     return num / den if den > 0 else 1.0
 
 
@@ -450,8 +499,8 @@ def map_metric(preds, labels, weights=None, group_ptr=None, at: float = 0,
     if _use_device_rank(group_ptr, preds, kw):
         from .device_rank import map_pair
 
-        n, d = map_pair(preds, labels, group_ptr, weights, k or 0, minus,
-                        kw.get("device"))
+        n, d = _reduce_sums(*map_pair(preds, labels, group_ptr, weights,
+                                      k or 0, minus, kw.get("device")))
         return n / d if d > 0 else 0.0
     n_groups = len(group_ptr) - 1
     vals, ws = [], []
@@ -467,8 +516,8 @@ def map_metric(preds, labels, weights=None, group_ptr=None, at: float = 0,
         vals.append(float(np.sum(yo * hits / np.arange(1, len(yo) + 1))
                           / npos) if npos > 0 else (0.0 if minus else 1.0))
         ws.append(_group_weight(weights, g, lo, n_groups))
-    num = float(np.dot(vals, ws)) if vals else 0.0
-    den = float(np.sum(ws)) if ws else 0.0
+    num, den = _reduce_sums(float(np.dot(vals, ws)) if vals else 0.0,
+                            float(np.sum(ws)) if ws else 0.0)
     return num / den if den > 0 else 0.0
 
 
@@ -484,8 +533,8 @@ def precision_at(preds, labels, weights=None, group_ptr=None, at: float = 0,
     if _use_device_rank(group_ptr, preds, kw):
         from .device_rank import precision_pair
 
-        n, d = precision_pair(preds, labels, group_ptr, weights, k,
-                              kw.get("device"))
+        n, d = _reduce_sums(*precision_pair(preds, labels, group_ptr,
+                                            weights, k, kw.get("device")))
         return n / d if d > 0 else 0.0
     n_groups = len(group_ptr) - 1
     vals, ws = [], []
@@ -498,5 +547,5 @@ def precision_at(preds, labels, weights=None, group_ptr=None, at: float = 0,
         wg = _group_weight(weights, g, lo, n_groups)
         vals.append(float(np.sum(labels[lo:hi][order[:n]])) * wg / n)
         ws.append(wg)
-    s, wsum = float(np.sum(vals)), float(np.sum(ws))
+    s, wsum = _reduce_sums(float(np.sum(vals)), float(np.sum(ws)))
     return s / wsum if wsum > 0 else 0.0

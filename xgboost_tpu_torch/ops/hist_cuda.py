@@ -81,7 +81,7 @@ __all__ = ["build_histogram", "build_histogram_cuda", "build_histogram_plain",
            "build_histogram_q_plain", "build_all", "card_max_clusters",
            "choose_block", "Plan", "MultiPlan", "load_library", "launches",
            "plan_f32", "plan_f32_multi", "plan_q", "planned_multi",
-           "reset_launches", "run_f32", "run_f32_multi", "run_q",
+           "reset_launches", "thread_launches", "run_f32", "run_f32_multi", "run_q",
            "slice_units", "launched", "on_device", "multi_smem",
            "multi_scratch", "multi_partial", "multi_roles", "multi_chunk",
            "class_axis_lanes", "bucket_level", "class_axis_items",
@@ -104,8 +104,12 @@ EXTRA_FLAGS = {"split_scan": ["--fmad=false"], "sigmoid": ["--fmad=false"],
                "lambdarank": ["--fmad=false"], "treeshap": ["--fmad=false"]}
 
 # kernel launches per kernel since the last reset_launches(); K6's
-# interaction entry is counted apart from its values entry
+# interaction entry is counted apart from its values entry.  The ranks of
+# the in-memory collective are threads of one process: ``launches`` counts
+# them all, ``thread_launches()`` the calling thread's own
 launches = {name: 0 for name in [*SOURCES, "treeshap_interactions"]}
+_count_lock = threading.Lock()
+_thread_counts = threading.local()
 
 _BIN_CODES = {torch.uint8: 0, torch.int16: 1, torch.int32: 2}
 # shared memory one block may use for its histogram; 227 KB is the H100's
@@ -150,8 +154,20 @@ _plans: dict = {}  # each kernel's plan per (device, dtype, shapes, stride)
 
 
 def reset_launches() -> None:
-    for name in launches:
-        launches[name] = 0
+    """Zero the process's counts and the calling thread's."""
+    with _count_lock:
+        for name in launches:
+            launches[name] = 0
+    _thread_counts.counts = dict.fromkeys(launches, 0)
+
+
+def thread_launches() -> dict:
+    """The calling thread's launches per kernel since it last called
+    ``reset_launches`` (or since it started)."""
+    counts = getattr(_thread_counts, "counts", None)
+    if counts is None:
+        counts = _thread_counts.counts = dict.fromkeys(launches, 0)
+    return counts
 
 
 def _nvcc() -> str:
@@ -310,7 +326,9 @@ def launched(name: str, lib, rc: int) -> None:
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: "
                            + lib.xtb_cuda_error_string(rc).decode())
-    launches[name] += 1
+    with _count_lock:
+        launches[name] += 1
+    thread_launches()[name] += 1
 
 
 class Plan(NamedTuple):

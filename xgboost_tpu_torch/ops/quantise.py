@@ -1,6 +1,5 @@
 """Fixed-point gradient quantisation for ``deterministic_histogram=1`` (port
-of xgboost_tpu/ops/quantise.py for one process; reference
-src/tree/gpu_hist/quantiser.cuh).
+of xgboost_tpu/ops/quantise.py; reference src/tree/gpu_hist/quantiser.cuh).
 
 (g, h) become 22-bit signed fixed point against a per-round scale ``rho``
 (the per-channel max |gradient|), split into three signed base-256 int8
@@ -20,14 +19,22 @@ test_torch_quantise.py holds them):
 
 ``hist_accumulate_q`` is the plain version of the CUDA kernel K2
 (csrc/hist_q.cu); the grower calls the dispatcher in ops/hist_cuda.py.
+
+Across ranks (``distributed=True``) every rank quantises with one scale,
+the MAX of the ranks' scales, and the limb sums cross ranks as int64
+(``allreduce_limbs``): integer sums do not depend on order, so the trees
+are the same bits on any number of ranks.  ``dequantise`` casts int32 and
+int64 limbs to f32 alike.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 __all__ = ["QUANT_BITS", "MAX_ROWS", "local_rho", "quantise_gpair",
            "hist_accumulate_q", "node_sums_q", "dequantise_parts",
-           "dequantise", "quantised_root_state", "check_row_budget", "prepare_quantised"]
+           "dequantise", "quantised_root_state", "check_row_budget",
+           "prepare_quantised", "allreduce_limbs"]
 
 QUANT_BITS = 22
 _QMAX = float((1 << QUANT_BITS) - 1)
@@ -115,10 +122,13 @@ def dequantise(hist_q, rho):
     return combined * scale
 
 
-def quantised_root_state(state, gq, rho):
+def quantised_root_state(state, gq, rho, *, process_reduce: bool = False):
     """Replace the f32 root totals with the dequantised exact limb sum of
-    the root (the reference's InitRoot in fixed point), in place."""
+    the root (the reference's InitRoot in fixed point), in place;
+    ``process_reduce``: the limb sums of every rank (GlobalSum)."""
     root = node_sums_q(gq, state.pos, 0, 1)
+    if process_reduce:
+        root = allreduce_limbs(root)
     state.totals[0] = dequantise(root, rho)[0]
     return state
 
@@ -133,10 +143,31 @@ def check_row_budget(n_rows: int) -> None:
             "the default f32 histogram for more rows.")
 
 
-def prepare_quantised(gpair, valid, state):
-    """Row budget, scale, limbs and exact root totals: (gq, rho, state)."""
+def prepare_quantised(gpair, valid, state, *, distributed: bool = False):
+    """Row budget, scale, limbs and exact root totals: (gq, rho, state).
+    ``distributed``: the scale is the MAX over the ranks and the root the
+    sum over them (reference ops/quantise.py:224-247)."""
     check_row_budget(gpair.shape[0])
     rho = local_rho(gpair, valid)
+    if distributed:
+        from .. import collective
+
+        rho = torch.from_numpy(collective.allreduce(
+            rho.cpu().numpy(), collective.Op.MAX)).to(rho.device)
     gq = quantise_gpair(gpair, rho)
-    state = quantised_root_state(state, gq, rho)
+    state = quantised_root_state(state, gq, rho, process_reduce=distributed)
     return gq, rho, state
+
+
+def allreduce_limbs(hist_q, exchange=None):
+    """The limb sums of every rank: int32 limbs summed as int64 on the host
+    in rank order (exact, so the order does not matter), returned as int64
+    on the input's device (reference ops/quantise.py:249).  ``exchange``:
+    a ``parallel.process.HostExchange`` that times the copies and reuses
+    pinned host buffers."""
+    if exchange is None:
+        from .. import collective
+
+        out = collective.allreduce(hist_q.cpu().numpy().astype(np.int64))
+        return torch.from_numpy(out).to(hist_q.device)
+    return exchange.allreduce(hist_q, torch.int64)

@@ -1,6 +1,8 @@
 """train() and cv() (port of xgboost_tpu/training.py without the
 elastic, resume and multi-process external-memory (ExtMemConfig) branches
-of train; reference
+of train; across ranks, train runs in each worker inside a
+``collective.CommunicatorContext``, and ``EvaluationMonitor`` prints on
+rank 0; reference
 python-package/xgboost/training.py:53, :435).  train continues a model
 (``xgb_model``), takes a custom objective (``obj``) and a custom metric
 (``custom_metric``); cv builds the reference's folds (plain, stratified or
@@ -46,13 +48,18 @@ def train(
     continue: its rounds are counted first, so round i of the continuation
     draws the seeds of round i of an uninterrupted run.  Under
     ``process_type="update"`` the rounds are the model's own, from 0."""
+    from . import collective
     from .data.extmem import ExtMemConfig
 
+    # this worker's place among the ranks (reference training.py:257-260;
+    # the elastic loop that reshards on them is not ported)
+    rank, world = collective.get_rank(), collective.get_world_size()
     if isinstance(dtrain, ExtMemConfig):
         raise NotImplementedError(
-            "ExtMemConfig (multi-process out-of-core training) is not "
-            "supported by xgboost_tpu_torch yet: it trains in one process; "
-            "pass an ExtMemQuantileDMatrix")
+            "ExtMemConfig (out-of-core training across ranks) is not "
+            f"ported to xgboost_tpu_torch yet (ROADMAP Queue 1 item 9; rank "
+            f"{rank} of {world}); pass an ExtMemQuantileDMatrix in one "
+            "process")
     callbacks = list(callbacks) if callbacks else []
     evals = list(evals) if evals else []
     if early_stopping_rounds is not None:

@@ -16,6 +16,11 @@ the split scan of the two (K3 on the card).  The host reads one pair
 (node, gain) per expansion, as the reference pops its queue.  A
 categorical split routes by set membership, as the level grower's does.
 The state's tensors are updated in place.
+
+With ``distributed=True`` the rows are sharded over ranks: the root's
+totals and each expansion's histogram are summed over the ranks through
+the host (``parallel.process.HostExchange``, reference
+tree/bestfirst.py:178-225), after which every rank pops the same node.
 """
 from __future__ import annotations
 
@@ -30,7 +35,7 @@ from ..ops.hist_cuda import build_histogram
 from ..ops.histogram import node_sums
 from ..ops.split import SplitParams, calc_weight, evaluate_splits, \
     is_monotone, monotone_vec
-from .grow import FeatureMasks, HistTreeGrower
+from .grow import FeatureMasks, HistTreeGrower, sync_root_totals
 
 _EPS = 1e-6
 
@@ -197,7 +202,8 @@ class BestFirstGrower:
     push)."""
 
     def __init__(self, max_depth: int, params: SplitParams, *,
-                 max_leaves: int, interaction_sets=None) -> None:
+                 max_leaves: int, interaction_sets=None,
+                 distributed: bool = False) -> None:
         if max_leaves <= 1:
             raise ValueError("the best-first grower needs max_leaves > 1")
         self.max_depth = max_depth  # 0 = unbounded
@@ -207,6 +213,20 @@ class BestFirstGrower:
         self.n_slots = 2 * max_leaves  # any L-leaf binary tree: 2L-1 nodes
         self._setmat = {}  # (n_features, device) -> set matrix there
         self._catmask = {}  # (mask bytes, device) -> cat mask there
+        self.exchange = None
+        if distributed:
+            from ..parallel.process import HostExchange
+
+            self.exchange = HostExchange()
+
+    def _node_hist(self, bins, gpair, pos, node0: int, n_nodes: int,
+                   n_bin: int):
+        """Both children's (or the root's) histogram, summed over the ranks
+        where distributed."""
+        hist = build_histogram(bins, gpair, pos, node0=node0,
+                               n_nodes=n_nodes, n_bin=n_bin)
+        return hist if self.exchange is None else self.exchange.allreduce(
+            hist)
 
     # the interaction sets and categorical mask on the device, made once
     # (as the level grower)
@@ -224,12 +244,13 @@ class BestFirstGrower:
         st = _init_state(gpair, valid, self.n_slots,
                          1 if setmat is None else setmat.shape[0],
                          0 if cm is None else B)
+        if self.exchange is not None:
+            sync_root_totals(st)
         p, md = self.params, self.max_depth
         # column sampling: a fresh bylevel/bynode draw per expansion (the
         # reference's ColumnSampler draws as nodes are created)
         fm = None if feature_masks is None else feature_masks(0, 1)
-        hist = build_histogram(bins, gpair, st.pos, node0=0, n_nodes=1,
-                               n_bin=B)
+        hist = self._node_hist(bins, gpair, st.pos, 0, 1, B)
         _eval_nodes(st, hist, n_bins, fm, setmat, cm, 0, 1, p, md)
         gamma_eps = max(p.gamma, _EPS)
         for _ in range(self.max_leaves - 1):
@@ -239,8 +260,7 @@ class BestFirstGrower:
             l_id = st.n_nodes
             _apply_split(st, bins, setmat, nid, l_id, l_id + 1, p, B)
             fm = None if feature_masks is None else feature_masks(0, 2)
-            hist = build_histogram(bins, gpair, st.pos, node0=l_id,
-                                   n_nodes=2, n_bin=B)
+            hist = self._node_hist(bins, gpair, st.pos, l_id, 2, B)
             _eval_nodes(st, hist, n_bins, fm, setmat, cm, l_id, 2, p, md)
             st.n_nodes += 2
         return st

@@ -128,6 +128,18 @@ def init_tree_state(gpair, valid, *, max_nodes: int, n_sets: int = 1,
                              device=dev) if n_cat_bin else None))
 
 
+def sync_root_totals(state):
+    """The root's totals summed over the ranks (GlobalSum,
+    updater_gpu_hist.cu:581; reference tree/grow.py:130), in place: the
+    scalar state's (max_nodes, 2) totals or the vector-leaf state's
+    (max_nodes, K, 2)."""
+    from .. import collective
+
+    root = collective.allreduce(state.totals[:1].cpu().numpy())
+    state.totals[0] = torch.from_numpy(root[0]).to(state.totals.device)
+    return state
+
+
 def _children(left, right):
     """Interleave per-node (N, ...) left and right values to the children's
     heap order (left at odd, right at even ids)."""

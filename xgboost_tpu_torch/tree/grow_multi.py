@@ -13,6 +13,11 @@ gain under lossguide and in node order otherwise (level-synchronous in
 both, as the reference grows it), rows routed by the scalar grower's
 ``_update_positions``.  The state's tensors are updated in place and stay
 on the device until the finished tree is copied out.
+
+With ``distributed=True`` the rows are sharded over ranks: the root's
+totals and each level's built histogram are summed over the ranks before
+the subtraction (reference grow_multi.py:252-302, the AllReduceHist of
+updater_quantile_hist.cc:156).
 """
 from __future__ import annotations
 
@@ -27,7 +32,7 @@ from ..ops.histogram import combine_sibling_hists, node_sums
 from ..ops.split import (SplitParams, calc_weight, evaluate_splits_multi,
                          mean_last_f32)
 from .grow import (FeatureMasks, _children, _update_positions,
-                   max_nodes_for_depth)
+                   max_nodes_for_depth, sync_root_totals)
 
 _EPS = 1e-6
 
@@ -134,10 +139,15 @@ def level_step_multi(st: MultiTreeState, bins, gpair, cuts_pad, n_bins,
                      feature_mask=None, hist_prev=None, *, depth: int,
                      params: SplitParams, last_level: bool,
                      subtract: bool = False, lossguide: bool = False,
-                     budget: bool = False):
+                     budget: bool = False, reduce=None):
     """One level: 2K-channel histogram -> summed-gain split -> apply.
     Returns (state, hist), hist (N, F, B, K, 2) for the next level's
-    subtraction (right sibling = parent - left); None on the last level."""
+    subtraction (right sibling = parent - left); None on the last level.
+    ``reduce``: applied to the built histogram before the subtraction
+    (the sum over the ranks)."""
+    if reduce is None:
+        def reduce(h):
+            return h
     node0 = (1 << depth) - 1
     N = 1 << depth
     B = cuts_pad.shape[1]
@@ -145,13 +155,15 @@ def level_step_multi(st: MultiTreeState, bins, gpair, cuts_pad, n_bins,
         _finalize_leaves_multi(st, params, slice(node0, node0 + N))
         return st, None
     if subtract:
-        left = build_level_hist_multi(bins, gpair, st.pos, node0=node0,
-                                      n_nodes=N // 2, n_bin=B, stride=2)
+        left = reduce(build_level_hist_multi(bins, gpair, st.pos,
+                                             node0=node0, n_nodes=N // 2,
+                                             n_bin=B, stride=2))
         hist = combine_sibling_hists(left, hist_prev,
                                      st.alive[node0:node0 + N])
     else:
-        hist = build_level_hist_multi(bins, gpair, st.pos, node0=node0,
-                                      n_nodes=N, n_bin=B)
+        hist = reduce(build_level_hist_multi(bins, gpair, st.pos,
+                                             node0=node0, n_nodes=N,
+                                             n_bin=B))
     _decide_body(st, hist, bins, cuts_pad, n_bins, feature_mask, depth=depth,
                  params=params, lossguide=lossguide, budget=budget)
     return st, hist
@@ -180,16 +192,22 @@ class GrownMultiTree(NamedTuple):
 
 class MultiTargetTreeGrower:
     """Host loop over the vector-leaf level steps (reference
-    grow_multi.py:198-307, one device)."""
+    grow_multi.py:198-307); ``distributed``: rows sharded over ranks."""
 
     def __init__(self, max_depth: int, params: SplitParams, n_targets: int,
-                 *, max_leaves: int = 0, lossguide: bool = False) -> None:
+                 *, max_leaves: int = 0, lossguide: bool = False,
+                 distributed: bool = False) -> None:
         self.max_depth = max_depth
         self.params = params
         self.n_targets = n_targets
         self.max_leaves = max_leaves
         self.lossguide = lossguide
         self.max_nodes = max_nodes_for_depth(max_depth)
+        self.exchange = None
+        if distributed:
+            from ..parallel.process import HostExchange
+
+            self.exchange = HostExchange()
 
     def grow(self, bins, gpair, valid, cuts_pad, n_bins,
              feature_masks: Optional[FeatureMasks] = None) -> MultiTreeState:
@@ -197,6 +215,10 @@ class MultiTargetTreeGrower:
         state = init_multi_state(
             gpair, valid, max_nodes=self.max_nodes,
             max_splits=self.max_leaves - 1 if self.max_leaves > 0 else 0)
+        reduce = None
+        if self.exchange is not None:
+            sync_root_totals(state)
+            reduce = self.exchange.allreduce
         hist = None
         for d in range(self.max_depth + 1):
             # the last level draws its mask too, as the reference does
@@ -205,7 +227,7 @@ class MultiTargetTreeGrower:
                 state, bins, gpair, cuts_pad, n_bins, fm, hist, depth=d,
                 params=self.params, last_level=d == self.max_depth,
                 subtract=hist is not None, lossguide=self.lossguide,
-                budget=self.max_leaves > 0)
+                budget=self.max_leaves > 0, reduce=reduce)
         return state
 
     @staticmethod
