@@ -321,7 +321,6 @@ kernels JSON line and the device JSON line.
 """
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import json
 import os
@@ -4834,7 +4833,6 @@ P20_CPU_ROWS = 16_384  # rows a rank in 20b
 P20_PROC_ROWS = 262_144  # rows a rank in 20c
 P20_PROC_ROUNDS = 3
 P20_AUC_TOL = 0.005
-P20_SWITCH_S = 2e-4  # 20a's second timing: the interpreter's switch interval
 
 
 def _sync(device) -> None:
@@ -4875,33 +4873,27 @@ def _rank_threads(group, fn, world: int = 2, timeout: float = 600.0):
 
 
 def _rank_train(xtt, hist_cuda, shards, params, rounds, group,
-                device="cuda", timed_repeat=True, dmats=None,
-                own_stream=False):
+                device="cuda", timed_repeat=True, dmats=None):
     """Each shard a rank (a thread of this process, all on ``device``):
     the distributed sketch and bins (or the rank's matrix of ``dmats``,
     binned already), then ``rounds`` rounds of training, the second run
-    timed (the first plans the kernels' launches).  ``own_stream``: each
-    rank on a CUDA stream of its own (else all on the default stream).
-    By rank: the model JSON, the sketch seconds, the timed run's
+    timed (the first plans the kernels' launches).  By rank: the model JSON, the sketch seconds, the timed run's
     seconds, its launches (the thread's own counts), the host exchange's
     parts, the booster and the matrix."""
     def fn(r):
         X, y = shards[r]
         t0 = time.perf_counter()
         d = dmats[r] if dmats else xtt.DMatrix(X, label=y, device=device)
-        d.ensure_ellpack(max_bin=params["max_bin"])
+        d.ensure_ellpack(max_bin=params["max_bin"], distributed=True)
         _sync(device)
         ingest_s = time.perf_counter() - t0
-        stream = (torch.cuda.stream(torch.cuda.Stream()) if own_stream
-                  else contextlib.nullcontext())
-        with stream:
-            if timed_repeat:
-                xtt.train(params, d, rounds, verbose_eval=False)
-            before = dict(hist_cuda.thread_launches())
-            t0 = time.perf_counter()
-            bst = xtt.train(params, d, rounds, verbose_eval=False)
-            _sync(device)
-            train_s = time.perf_counter() - t0
+        if timed_repeat:
+            xtt.train(params, d, rounds, verbose_eval=False)
+        before = dict(hist_cuda.thread_launches())
+        t0 = time.perf_counter()
+        bst = xtt.train(params, d, rounds, verbose_eval=False)
+        _sync(device)
+        train_s = time.perf_counter() - t0
         mine = {k: v - before[k]
                 for k, v in hist_cuda.thread_launches().items()}
         return dict(json=_model_bytes(bst), ingest_s=ingest_s,
@@ -4979,26 +4971,6 @@ def phase_distributed(xtt, hist_cuda, smi, X, y, label, params, kernel):
                              f"launches over both ranks' two runs, want "
                              f"{4 * want}")
     two_round = max(rk["train_s"] for rk in ranks) / rounds
-    # the same ranks, each on a stream of its own and the interpreter
-    # handing its lock over every P20_SWITCH_S (default 5 ms)
-    old_switch = sys.getswitchinterval()
-    sys.setswitchinterval(P20_SWITCH_S)
-    try:
-        alt = _rank_train(xtt, hist_cuda, shards, params, rounds,
-                          f"p20a-{kernel}-streams",
-                          dmats=[rk["dmat"] for rk in ranks],
-                          own_stream=True)
-    finally:
-        sys.setswitchinterval(old_switch)
-    if alt[0]["json"] != alt[1]["json"]:
-        raise AssertionError(f"phase {label}: the ranks on their own "
-                             "streams grew two models")
-    # K1's f32 sums take another order run to run; K2's do not
-    same = alt[0]["json"] == ranks[0]["json"]
-    if kernel == "hist_q" and not same:
-        raise AssertionError(f"phase {label}: the ranks on their own "
-                             "streams grew another deterministic model")
-    alt_round = max(rk["train_s"] for rk in alt) / rounds
     # the device's share of the two ranks' time
     from torch.profiler import ProfilerActivity, profile
 
@@ -5039,7 +5011,6 @@ def phase_distributed(xtt, hist_cuda, smi, X, y, label, params, kernel):
     want_auc = auc(union.predict(d_union)[::4], y[::4].astype(np.float64))
     del d_union, d_one
     line, exch_ms = _exchange_line(ranks[0]["exchange"], rounds, two_round)
-    alt_line, _ = _exchange_line(alt[0]["exchange"], rounds, alt_round)
     log(f"phase {label} distributed ({smi}): 2 in-memory ranks x "
         f"{P20_ROWS} rows x {X.shape[1]} on one card, {rounds} rounds; "
         f"distributed sketch + bins {ranks[0]['ingest_s']:.3f} / "
@@ -5056,15 +5027,10 @@ def phase_distributed(xtt, hist_cuda, smi, X, y, label, params, kernel):
         f"{want_auc:.6f} (|diff| {abs(got_auc - want_auc):.6f}, gate "
         f"{P20_AUC_TOL})")
     log(f"phase {label} exchange at two ranks (rank 0): {line}")
-    log(f"phase {label} two ranks, each on its own CUDA stream, the "
-        f"interpreter's switch interval {P20_SWITCH_S * 1e3:g} ms: a round "
-        f"{alt_round * 1e3:.3f} ms (the first timing's model: {same}); "
-        f"exchange (rank 0): "
-        f"{alt_line}")
     if not abs(got_auc - want_auc) <= P20_AUC_TOL:
         raise AssertionError(f"phase {label}: AUC {got_auc} at two ranks "
                              f"against {want_auc} at one")
-    return dict(two_round=two_round, alt_round=alt_round,
+    return dict(two_round=two_round,
                 alone_round=alone_round, union_round=union_round,
                 one_round=one_round, exchange_ms=exch_ms,
                 launches=total[kernel], auc=got_auc)

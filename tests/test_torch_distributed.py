@@ -342,6 +342,36 @@ def test_worker_script_imports_only_the_port():
     assert mods == {"json", "os", "pickle", "sys", "xgboost_tpu_torch"}
 
 
+@pytest.mark.parametrize("builders", ["every rank", "rank 0 alone"])
+def test_quantile_dmatrix_in_a_group_keeps_its_own_cuts(builders):
+    """A QuantileDMatrix made inside a group is sketched on its rank's rows,
+    as the reference's is (its training cache asks for the shared cuts,
+    reference core.py:305): each rank's cuts are the reference's on the
+    same shard, and a matrix that rank 0 alone builds (a validation set)
+    joins no collective."""
+    shards = _shards(*_data())
+
+    def cuts(pkg):
+        dev = {} if pkg is xtb else {"device": "cpu"}
+
+        def fn(r):
+            if builders == "rank 0 alone" and r:
+                return None
+            X, y, _ = shards[r]
+            return pkg.QuantileDMatrix(X, label=y, max_bin=32,
+                                       **dev)._ellpack.cuts
+
+        return ranks(pkg, f"qdm-{builders}-{pkg.__name__}", fn)
+
+    for got, want in zip(cuts(xtt), cuts(xtb)):
+        if want is None:
+            assert got is None
+            continue
+        for field in ("cut_ptrs", "cut_values", "min_vals"):
+            np.testing.assert_array_equal(getattr(got, field),
+                                          getattr(want, field))
+
+
 # what the port does not train across ranks yet (ROADMAP Queue 1 item 9):
 # each raises on every rank rather than train a rank's rows alone
 _REFUSED = {

@@ -29,7 +29,6 @@ hooks of the reference's collective are left out (item 11).
 from __future__ import annotations
 
 import datetime
-import os
 import pickle
 import socket
 import sys
@@ -140,11 +139,9 @@ class SingleProcessBackend(CollBackend):
         return payload
 
 
-def _timeout() -> datetime.timedelta:
-    """How long a rank waits in a rendezvous or a collective for its peers
-    before it raises (``XGBOOST_TPU_TORCH_COLL_TIMEOUT_S``, default 600)."""
-    return datetime.timedelta(seconds=float(
-        os.environ.get("XGBOOST_TPU_TORCH_COLL_TIMEOUT_S", "600")))
+# how long a rank waits in a rendezvous or a collective for its peers
+# before it raises (reference collective.py:443-445)
+_TIMEOUT = datetime.timedelta(seconds=600)
 
 
 class TorchDistributedBackend(CollBackend):
@@ -179,7 +176,7 @@ class TorchDistributedBackend(CollBackend):
             raise RuntimeError("torch.distributed is already initialized")
         dist.init_process_group(
             "gloo", init_method=addr, rank=int(args["process_id"]),
-            world_size=int(args["num_processes"]), timeout=_timeout())
+            world_size=int(args["num_processes"]), timeout=_TIMEOUT)
         self._owned = True
 
     @staticmethod
@@ -265,7 +262,7 @@ class InMemoryBackend(CollBackend):
     def allgather(self, data: np.ndarray) -> np.ndarray:
         g = self._group
         g.slots[self._rank] = np.asarray(data)
-        timeout = _timeout().total_seconds()
+        timeout = _TIMEOUT.total_seconds()
         g.barrier.wait(timeout=timeout)  # every slot filled
         out = np.stack([np.asarray(s) for s in g.slots])
         g.barrier.wait(timeout=timeout)  # every rank copied before reuse

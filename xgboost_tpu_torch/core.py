@@ -152,14 +152,15 @@ class _Cache:
     def is_extmem(self) -> bool:
         return hasattr(self.dmat, "_pages")
 
-    def ensure_train(self, max_bin: int) -> None:
+    def ensure_train(self, max_bin: int, distributed: bool = False) -> None:
         if self.is_extmem:
             if not self.ready:
                 self._stage_extmem()
             return
         if self.ellpack is not None:
             return
-        ell = self.dmat.ensure_ellpack(max_bin=max_bin)
+        ell = self.dmat.ensure_ellpack(max_bin=max_bin,
+                                       distributed=distributed)
         self.ellpack = ell
         self.bins = ell.bins.to(self.device)
         self.cuts_pad = ell.cuts_pad.to(self.device)
@@ -393,7 +394,7 @@ class Booster:
             self._grower = ProcessHistTreeGrower(
                 self._resolve_max_depth(lossguide), self._split_params,
                 interaction_sets=tp.interaction_constraints,
-                max_leaves=tp.max_leaves, lossguide=lossguide,
+                max_leaves=tp.max_leaves,
                 quantised=self.deterministic_histogram)
         else:
             self._grower = HistTreeGrower(
@@ -551,7 +552,7 @@ class Booster:
                 or self.process_type == "update"):
             cache.ensure_train_raw()
         else:
-            cache.ensure_train(self.tparam.max_bin)
+            cache.ensure_train(self.tparam.max_bin, self._distributed)
         if dtrain.cat_categories:
             cats = {int(k): list(v) for k, v in dtrain.cat_categories.items()}
             if self._cat_categories is None:

@@ -422,19 +422,16 @@ class DMatrix:
         return self._weighted_sketch
 
     def ensure_ellpack(self, max_bin: int = 256, row_align: int = 1024,
-                       ref: Optional["DMatrix"] = None) -> EllpackPage:
+                       ref: Optional["DMatrix"] = None,
+                       distributed: bool = False) -> EllpackPage:
         """Sketch and bin once per ``max_bin``.  ``ref``: a matrix whose
         page is built lends its cuts (GetCutsFromRef, reference
-        dmatrix.py:464-465), so that these rows land in its bins.  Where
-        the collective spans several ranks this matrix is a rank's row
-        shard, and its cuts are the ranks' shared cuts from the host
-        sketches of every shard (reference dmatrix.py:463-469,
-        quantile.cc:397), made in a collective every rank joins."""
-        from .. import collective
-
-        distributed = collective.is_distributed()
-        key = (max_bin, distributed and ref is None)
-        if self._ellpack is None or self._max_bin_built != key:
+        dmatrix.py:464-465), so that these rows land in its bins.
+        ``distributed``: this matrix is a rank's row shard, and its cuts
+        are the ranks' shared cuts from the host sketches of every shard
+        (reference dmatrix.py:463-469, quantile.cc:397), made in a
+        collective every rank joins; the training cache asks for it."""
+        if self._ellpack is None or self._max_bin_built != max_bin:
             cuts: Optional[HistogramCuts] = None
             if ref is not None and ref._ellpack is not None:
                 cuts = ref._ellpack.cuts
@@ -456,7 +453,7 @@ class DMatrix:
                 self._ellpack = build_ellpack_csr(
                     *self._csr, F, cuts, row_align=row_align,
                     device=self.device)
-            self._max_bin_built = key
+            self._max_bin_built = max_bin
         return self._ellpack
 
 

@@ -111,14 +111,11 @@ class HostExchange:
 
 class ProcessHistTreeGrower(HistTreeGrower):
     """The depthwise grower when the rows are sharded over ranks
-    (reference parallel/process.py:40-156).  ``lossguide`` spends the
-    ``max_leaves`` budget by gain within a level, as the reference's
-    level-wise grower does.  ``mesh`` (ranks that each shard their rows
-    over several cards) is not ported."""
+    (reference parallel/process.py:40-156).  ``mesh`` (ranks that each
+    shard their rows over several cards) is not ported."""
 
     def __init__(self, max_depth: int, params: SplitParams, *,
-                 interaction_sets=None, max_leaves: int = 0,
-                 lossguide: bool = False, mesh=None,
+                 interaction_sets=None, max_leaves: int = 0, mesh=None,
                  quantised: bool = False) -> None:
         if mesh is not None:
             raise NotImplementedError(
@@ -127,7 +124,6 @@ class ProcessHistTreeGrower(HistTreeGrower):
                 "item 9): give each rank one device")
         super().__init__(max_depth, params, interaction_sets=interaction_sets,
                          max_leaves=max_leaves, quantised=quantised)
-        self.lossguide = lossguide
         self.exchange = HostExchange()
 
     def grow(self, bins, gpair, valid, cuts_pad, n_bins,
@@ -178,7 +174,7 @@ class ProcessHistTreeGrower(HistTreeGrower):
             best, can = decide_level(
                 state, hist, cuts_pad, n_bins, None if last else fm, setmat,
                 rho, cm, depth=d, params=self.params, last_level=last,
-                budget=self.max_leaves > 0, lossguide=self.lossguide,
+                budget=self.max_leaves > 0,
                 fused_dequantise=False)
             hist_prev = hist
             prev = None if best is None else (best, can, d)
