@@ -239,11 +239,11 @@ holds each CUDA kernel against its plain PyTorch version:
      round (torch.profiler) and of one group's coordinate chain (a CUDA
      graph, no copy to the host), K1-K3 never, the final logloss and
      rmse below the constant model's, reloads predicting identically;
-     (d) process_type="update" over a 5-round model: refresh alone
+     (d) process_type="update" over a 3-round model: refresh alone
      (refresh_leaf 0) keeps every tree's structure and the predictions,
      refresh,prune with refresh_leaf 1 and 0 at the median gain of the
      splits above two leaves removes splits, K4 once a round; (e)
-     tree_method="exact" on the first 2^17 rows, 3 rounds: seconds a
+     tree_method="exact" on the first 2^17 rows, 2 rounds: seconds a
      round split into the host enumeration and the device gradient,
      AUC > 0.9; 17f: card vs CPU on 20,000 rows at depth 4: deterministic
      DART (both sample and normalize types, one_drop and skip_drop),
@@ -308,6 +308,23 @@ holds each CUDA kernel against its plain PyTorch version:
      bytes; (c) train_distributed with two gloo worker processes on the
      card, 262,144 rows a rank, deterministic, 3 rounds: the bytes of two
      in-memory ranks on the same shards
+  21. out of core, exact and process_type="update" across ranks on the
+     one card: (a) train(params, ExtMemConfig(...)) at two in-memory ranks
+     on phase 19a's 64 pages, a shard a page (32 a rank, round robin),
+     f32, depth 8, 5 rounds: the ranks' cuts 19a's one-rank cuts, their
+     models byte-identical, each rank's own launches (K1 its pages x 8
+     levels a round, K3 8 a round, K4 once a round and once for the base
+     score), every rank's pages streamed (depth + 1) times a round,
+     AUC@stride8 over the 64 pages within 0.005 of 19a's, the round beside
+     19a's and the host exchange's parts and share of it; (b) the same on
+     19b's 24 pages under deterministic_histogram=1, 3 rounds, K2: 19b's
+     model JSON byte for byte; (c) exact (2 rounds) and
+     refresh,prune,sync over a 5-round model at two ranks of 16,384 HIGGS
+     rows each: the ranks' models byte-identical, exact's one rank's on
+     the union, K4 only; (d) 20,000 rows in 4 pages at two ranks,
+     deterministic: the card's model JSON the CPU's, one rank's, and
+     train_distributed's with two gloo workers building their pages in a
+     callable part
 
 Phase 2 and 2b also give each case's device time a launch (torch.profiler),
 and phases 7, 8 and 9 the bound, the kernel and the index_add_ yardstick on
@@ -3639,8 +3656,8 @@ P17_APPROX = dict(BASE, tree_method="approx")
 # cut to 2^17 to make room for phase 19 within the script's time limit
 P17_EXACT_ROWS = 1 << 17
 # process_type="update" over a model of this many rounds (10 until phase 19
-# needed the time; a round took 2.1-2.2 s)
-P17D_ROUNDS = 5
+# needed the time, 5 until phase 21 did; a round took 2.1-2.6 s)
+P17D_ROUNDS = 3
 
 
 def _dart_drops(xtt, params, dtrain, rounds):
@@ -3889,11 +3906,12 @@ def phase_gblinear(xtt, hist_cuda, X, y):
 
 
 def phase_update(xtt, hist_cuda, dtrain, X):
-    """process_type="update" over a 5-round model of phase 3's data on
-    the card: refresh alone (refresh_leaf 0) keeps every tree's structure
-    and the predictions; refresh,prune with refresh_leaf 1 and 0 at a
-    positive gamma removes splits; K4 once a round (each round's
-    gradient, on the card, copied to the host once), K1-K3 never."""
+    """process_type="update" over a P17D_ROUNDS-round model of phase
+    3's data on the card: refresh alone (refresh_leaf 0) keeps every
+    tree's structure and the predictions; refresh,prune with
+    refresh_leaf 1 and 0 at a positive gamma removes splits; K4 once a
+    round (each round's gradient, on the card, copied to the host once),
+    K1-K3 never."""
     base = xtt.train(BASE, dtrain, P17D_ROUNDS, verbose_eval=False)
     raw = bytes(base.save_raw("json"))
     dtest = xtt.DMatrix(X[:100_000])
@@ -3951,14 +3969,14 @@ def phase_update(xtt, hist_cuda, dtrain, X):
 
 
 def phase_exact(xtt, hist_cuda, X, y):
-    """tree_method="exact" on phase 3's 28 features, 3 rounds, depth 6, on
+    """tree_method="exact" on phase 3's 28 features, 2 rounds, depth 6, on
     the first P17_EXACT_ROWS rows: seconds a round split into the host
     enumeration (and its pruning) and the device gradient; AUC > 0.9; K4
     once for the base score and twice a round (gradient, evaluation),
     K1-K3 never."""
     import xgboost_tpu_torch.core as core
 
-    R, rounds = P17_EXACT_ROWS, 3
+    R, rounds = P17_EXACT_ROWS, 2
     d = xtt.DMatrix(X[:R], label=y[:R])
     host = {"s": 0.0}
     grow, prune = core.grow_exact, core.prune_tree
@@ -4704,7 +4722,7 @@ def phase_extmem(xtt, hist_cuda, pages):
     r["on_s"], r["off_s"], r["overlap"] = _extmem_overlap(xtt, d, EXTMEM,
                                                           "19a")
     phase_profile(xtt, d, EXTMEM, "19a (out of core)")
-    r.update(auc=got, incore_auc=want, ingest_s=ingest_s, yard=yard)
+    r.update(auc=got, incore_auc=want, ingest_s=ingest_s, yard=yard, dmat=d)
     d.release_device()
     return r
 
@@ -4811,17 +4829,21 @@ def phase_extmem_cpu(xtt):
 
 def phase_19(xtt, hist_cuda, n_pages: int = EXTMEM_PAGES):
     """Phases 19a-19d at ``n_pages`` of the ladder's pages (19b on at most
-    EXTMEM_DET_PAGES of them)."""
+    EXTMEM_DET_PAGES of them).  Returns what phase 21 holds its ranks
+    against: the pages, 19a's matrix, AUC and round seconds, and 19b's
+    model JSON."""
     t0 = time.perf_counter()
     pages = make_extmem_pages(n_pages)
     log(f"phase 19 data: {n_pages} pages of {EXTMEM_PAGE_ROWS} rows made in "
         f"{time.perf_counter() - t0:.3f} s")
     ext = timed("19a", phase_extmem, xtt, hist_cuda, pages)
-    timed("19b", phase_extmem_det, xtt, hist_cuda,
-          pages[:EXTMEM_DET_PAGES], ext["yard"])
+    det = timed("19b", phase_extmem_det, xtt, hist_cuda,
+                pages[:EXTMEM_DET_PAGES], ext["yard"])
     timed("19c", phase_extmem_parity, xtt, pages)
-    del pages
     timed("19d", phase_extmem_cpu, xtt)
+    return dict(pages=pages, dmat=ext["dmat"], auc=ext["auc"],
+                round_s=ext["train_s"] / EXTMEM_ROUNDS,
+                det_json=_model_bytes(det["bst"]))
 
 
 # ----------------------------------------------------------------- phase 20
@@ -5093,6 +5115,307 @@ def phase_20(xtt, hist_cuda, smi):
     timed("20c", phase_distributed_procs, xtt, hist_cuda, smi)
 
 
+# ----------------------------------------------------------------- phase 21
+P21_ROWS = 1 << 14  # rows a rank in 21c (exact's host enumeration)
+P21_EXACT_ROUNDS = 2
+P21_UPDATE_ROUNDS = 5
+P21_CPU_CUT = (0, 4000, 9000, 15_000, 20_000)  # 21d's 4 pages, as 19d's
+
+
+def _p21_config(xtt, pages, device=None):
+    """ExtMemConfig over ``pages``, a shard a page, round robin."""
+    def data_fn(smap, rank, world):
+        return _page_iter(xtt, [pages[i] for i in smap.shards_of(rank)])
+
+    return xtt.ExtMemConfig(data_fn, num_shards=len(pages), max_bin=128,
+                            compress=False, enable_categorical=True)
+
+
+def _p21_ranks(xtt, hist_cuda, make_dtrain, params, rounds, group,
+               device="cuda", **train_kw):
+    """Each rank a thread: ``train(params, make_dtrain(rank), rounds)``
+    once, timed round by round (the card synchronized at each round's
+    start and end).  By rank: the model JSON, the round seconds, the
+    thread's launches, the training matrix, the booster and, out of core,
+    the host exchange's parts."""
+    def fn(r):
+        marks = []
+
+        class Clock(xtt.TrainingCallback):
+            def before_iteration(self, model, epoch, evals_log):
+                _sync(device)
+                marks.append(time.perf_counter())
+                return False
+
+            def after_iteration(self, model, epoch, evals_log):
+                _sync(device)
+                marks[-1] = time.perf_counter() - marks[-1]
+                return False
+
+        before = dict(hist_cuda.thread_launches())
+        t0 = time.perf_counter()
+        bst = xtt.train(params, make_dtrain(r), rounds, verbose_eval=False,
+                        callbacks=[Clock()], **train_kw)
+        _sync(device)
+        total_s = time.perf_counter() - t0
+        mine = {k: v - before[k]
+                for k, v in hist_cuda.thread_launches().items()}
+        dmat = next(iter(bst._caches.values())).dmat
+        growers = list(bst._stream_growers.values())
+        return dict(json=_model_bytes(bst), rounds=marks, total_s=total_s,
+                    launches=mine, dmat=dmat, bst=bst,
+                    exchange=(dict(growers[0].exchange.stats) if growers
+                              else None))
+
+    return _rank_threads(group, fn)
+
+
+def _cuts_bytes(cuts) -> bytes:
+    return b"".join(np.ascontiguousarray(getattr(cuts, f)).tobytes()
+                    for f in ("cut_ptrs", "cut_values", "min_vals"))
+
+
+def _p21_pages(xtt, hist_cuda, smi, ref, pages, params, rounds, kernel,
+               label):
+    """Two thread ranks through train(params, ExtMemConfig(...)) on the
+    card, each on its half of ``pages``: the ranks' bytes equal, each
+    rank's launches pages x levels a round, the page bytes streamed a
+    round every rank's pages (depth + 1) times."""
+    from xgboost_tpu_torch.data import extmem
+
+    depth = params["max_depth"]
+    extmem.reset_counters()
+    hist_cuda.reset_launches()  # the main path's run: counts from 0
+    ranks = _p21_ranks(xtt, hist_cuda, lambda r: _p21_config(xtt, pages),
+                       params, rounds, f"p21-{label}")
+    total = dict(hist_cuda.launches)
+    streamed = extmem.counters()["xtb_extmem_page_bytes_total"] / rounds
+    if ranks[0]["json"] != ranks[1]["json"]:
+        raise AssertionError(f"phase {label}: the two ranks' models differ")
+    for r, rk in enumerate(ranks):
+        n = len(rk["dmat"]._pages)
+        want = _sigmoid_launches(hist_cuda, rounds, evals=0)
+        want[kernel] = n * depth * rounds
+        want["split_scan"] = depth * rounds
+        if rk["launches"] != want:
+            raise AssertionError(f"phase {label}: rank {r} launched "
+                                 f"{rk['launches']}, want {want} ({n} pages "
+                                 f"x {depth} levels a round)")
+    if total[kernel] != len(pages) * depth * rounds:
+        raise AssertionError(f"phase {label}: {total[kernel]} {kernel} "
+                             f"launches over both ranks, want "
+                             f"{len(pages) * depth * rounds}")
+    page_bytes = sum(rk["dmat"].page_bytes() for rk in ranks)
+    if streamed != (depth + 1) * page_bytes:
+        raise AssertionError(f"phase {label}: {streamed} page bytes a round,"
+                             f" want {depth + 1} passes of {page_bytes}")
+    # rounds 2 and later (the first plans the kernels' launches); the mean
+    # of all rounds as 19a's train loop counts them
+    round_s = max(statistics.median(rk["rounds"][1:]) for rk in ranks)
+    mean_s = max(sum(rk["rounds"]) / rounds for rk in ranks)
+    line, _ = _exchange_line(ranks[0]["exchange"], rounds, round_s)
+    log(f"phase {label} ({smi}): train(params, ExtMemConfig(...)) at 2 "
+        f"in-memory ranks on one card, {len(pages)} pages ({len(pages)} "
+        f"shards, {len(ranks[0]['dmat']._pages)} a rank, round robin), "
+        f"depth {depth}, {rounds} rounds; a rank's train() "
+        f"{ranks[0]['total_s']:.3f} / {ranks[1]['total_s']:.3f} s, its "
+        f"ingest inside; a round (median of rounds 2-{rounds}, the slower "
+        f"rank) {round_s * 1e3:.3f} ms ("
+        + " ".join(f"{t * 1e3:.3f}" for t in ranks[0]["rounds"])
+        + f" on rank 0), the mean of all rounds {mean_s * 1e3:.3f} ms "
+        f"against one rank's on all the pages {ref['round_s'] * 1e3:.3f} ms "
+        f"(19a's train loop over its rounds); the ranks' models "
+        f"byte-identical; {kernel} "
+        f"{ranks[0]['launches'][kernel]} + {ranks[1]['launches'][kernel]} "
+        f"(pages x {depth} levels x {rounds} a rank), K3 "
+        f"{ranks[0]['launches']['split_scan']} a rank, K4 "
+        f"{ranks[0]['launches']['sigmoid']} a rank; page bytes streamed a "
+        f"round {streamed:.0f} ({depth + 1} passes of {page_bytes})")
+    log(f"phase {label} exchange at two ranks (rank 0): {line}")
+    return ranks, round_s
+
+
+def phase_extmem_ranks(xtt, hist_cuda, smi, ref):
+    """21a: the 64 pages of 19a at two ranks, f32."""
+    from xgboost_tpu_torch.metric import auc
+
+    ranks, round_s = _p21_pages(xtt, hist_cuda, smi, ref, ref["pages"],
+                                EXTMEM, EXTMEM_ROUNDS, "hist_f32", "21a")
+    d19 = ref["dmat"]
+    for r, rk in enumerate(ranks):
+        if _cuts_bytes(rk["dmat"]._cuts) != _cuts_bytes(d19._cuts):
+            raise AssertionError(f"phase 21a: rank {r}'s cuts are not 19a's "
+                                 "one-rank cuts of the same pages")
+        rk["dmat"].release_device()
+    pred = ranks[0]["bst"].predict(d19)
+    d19.release_device()
+    if pred.shape != (d19.num_row(),) or not np.all(np.isfinite(pred)):
+        raise AssertionError(f"phase 21a: predictions {pred.shape}")
+    got = auc(pred[::8], d19.label[::8].astype(np.float64))
+    log(f"phase 21a quality: the ranks' cuts byte-identical to 19a's; "
+        f"AUC@stride8 over the {len(ref['pages'])} pages {got:.6f}, 19a's "
+        f"one rank "
+        f"{ref['auc']:.6f} (|diff| {abs(got - ref['auc']):.6f}, gate "
+        f"{EXTMEM_AUC_TOL})")
+    if not abs(got - ref["auc"]) <= EXTMEM_AUC_TOL:
+        raise AssertionError(f"phase 21a: AUC {got} at two ranks against "
+                             f"{ref['auc']} at one")
+    return dict(launches=ranks[0]["launches"]["hist_f32"], round_s=round_s,
+                auc=got)
+
+
+def phase_extmem_ranks_det(xtt, hist_cuda, smi, ref):
+    """21b: 19b's first EXTMEM_DET_PAGES pages at two ranks,
+    deterministic: 19b's bytes."""
+    ranks, _ = _p21_pages(xtt, hist_cuda, smi, ref,
+                          ref["pages"][:EXTMEM_DET_PAGES], EXTMEM_DET,
+                          EXTMEM_DET_ROUNDS, "hist_q", "21b")
+    for rk in ranks:
+        rk["dmat"].release_device()
+    if ranks[0]["json"] != ref["det_json"]:
+        raise AssertionError("phase 21b: the two ranks' deterministic model "
+                             "is not 19b's one-rank model")
+    log(f"phase 21b: {EXTMEM_DET_PAGES} pages at two ranks, deterministic: "
+        "the model JSON byte-identical to 19b's at one rank")
+
+
+def _p21_splits(bst) -> int:
+    return sum(int((t.left_children != -1).sum()) for t in bst.trees)
+
+
+def phase_exact_update_ranks(xtt, hist_cuda, smi):
+    """21c: exact and process_type="update" at two ranks of P21_ROWS HIGGS
+    rows on the card."""
+    X, y = make_data(2 * P21_ROWS, 28, seed=2100)
+    shards = [(X[:P21_ROWS], y[:P21_ROWS]), (X[P21_ROWS:], y[P21_ROWS:])]
+
+    def dmat(r):
+        return xtt.DMatrix(*shards[r])
+
+    exact = dict(BASE, tree_method="exact")
+    rounds = P21_EXACT_ROUNDS
+    hist_cuda.reset_launches()
+    ranks = _p21_ranks(xtt, hist_cuda, dmat, exact, rounds, "p21c-exact")
+    want = _sigmoid_launches(hist_cuda, rounds, evals=0)
+    for r, rk in enumerate(ranks):
+        if rk["launches"] != want:
+            raise AssertionError(f"phase 21c exact: rank {r} launched "
+                                 f"{rk['launches']}, want {want}")
+    t0 = time.perf_counter()
+    union = xtt.train(exact, xtt.DMatrix(X, label=y), rounds,
+                      verbose_eval=False)
+    union_s = time.perf_counter() - t0
+    if not ranks[0]["json"] == ranks[1]["json"] == _model_bytes(union):
+        raise AssertionError("phase 21c exact: the two ranks' models are not "
+                             "one rank's on the union")
+    log(f"phase 21c exact ({smi}): 2 in-memory ranks x {P21_ROWS} rows x 28, "
+        f"depth 6, {rounds} rounds, every rank enumerating both ranks' rows: "
+        f"a round {max(max(rk['rounds']) for rk in ranks):.3f} s at two "
+        f"ranks (the slower), one rank on the union {union_s / rounds:.3f} s;"
+        f" the ranks' models byte-identical to one rank's on the union; K4 "
+        f"{want['sigmoid']} a rank, K1-K3 0")
+    # update: a 5-round model of the union, refreshed at the ranks
+    base = xtt.train(BASE, xtt.DMatrix(X, label=y), P21_UPDATE_ROUNDS,
+                     verbose_eval=False)
+    raw = bytes(base.save_raw("json"))
+    gains = [float(t.loss_changes[n]) for t in base.trees
+             for n in range(t.n_nodes) if t.left_children[n] != -1]
+    upd = dict(BASE, process_type="update", updater="refresh,prune,sync",
+               gamma=float(np.median(gains)))
+    hist_cuda.reset_launches()
+    ranks = _p21_ranks(xtt, hist_cuda, dmat, upd, P21_UPDATE_ROUNDS,
+                       "p21c-update", xgb_model=bytearray(raw))
+    want = {k: 0 for k in hist_cuda.launches}
+    want["sigmoid"] = P21_UPDATE_ROUNDS  # one gradient a round
+    for r, rk in enumerate(ranks):
+        if rk["launches"] != want:
+            raise AssertionError(f"phase 21c update: rank {r} launched "
+                                 f"{rk['launches']}, want {want}")
+    if ranks[0]["json"] != ranks[1]["json"]:
+        raise AssertionError("phase 21c update: the two ranks' models "
+                             "differ")
+    got = ranks[0]["bst"]
+    if got.num_boosted_rounds() != P21_UPDATE_ROUNDS or \
+            not _p21_splits(got) < _p21_splits(base):
+        raise AssertionError("phase 21c update: no split pruned, or the "
+                             "rounds changed")
+    one = xtt.train(upd, xtt.DMatrix(X, label=y), P21_UPDATE_ROUNDS,
+                    verbose_eval=False, xgb_model=bytearray(raw))
+    dx = xtt.DMatrix(X)
+    diff = float(np.abs(got.predict(dx) - one.predict(dx)).max())
+    log(f"phase 21c update ({smi}): refresh,prune,sync over a "
+        f"{P21_UPDATE_ROUNDS}-round model at 2 ranks x {P21_ROWS} rows, "
+        f"gamma {upd['gamma']:.6g}: a round "
+        f"{max(max(rk['rounds']) for rk in ranks):.3f} s; the ranks' models "
+        f"byte-identical; splits {_p21_splits(base)} -> {_p21_splits(got)} "
+        f"({_p21_splits(one)} at one rank on the union); max |pred diff| "
+        f"against one rank on the union {diff:.3g} (f64 node sums in "
+        f"another order, not a gate); K4 {want['sigmoid']} a rank, K1-K3 0")
+
+
+def _p21_cpu_pages():
+    X, y = make_criteo(P21_CPU_CUT[-1], seed=7100)
+    return [(X[a:b], y[a:b]) for a, b in zip(P21_CPU_CUT, P21_CPU_CUT[1:])]
+
+
+def _p21_part(rank: int, device=None):
+    """A train_distributed worker's part in 21d: its pages of 21d's rows
+    (``ShardMap`` round robin) as an ExtMemQuantileDMatrix on ``device``
+    (None: the card)."""
+    import xgboost_tpu_torch as xtt
+
+    pages = _p21_cpu_pages()
+    mine = xtt.ShardMap.create(len(pages), 2).shards_of(rank)
+    return xtt.ExtMemQuantileDMatrix(
+        _page_iter(xtt, [pages[i] for i in mine]), max_bin=128,
+        compress=False, enable_categorical=True, device=device)
+
+
+def phase_extmem_ranks_cpu(xtt, hist_cuda, smi):
+    """21d: 20,000 rows in 4 pages, deterministic, at two ranks on the card
+    and on the CPU, at one rank on the card, and in two gloo worker
+    processes: one model."""
+    import functools
+
+    import chip_smoke as module  # the parts unpickle by this import path
+
+    pages = _p21_cpu_pages()
+    card = _p21_ranks(xtt, hist_cuda, lambda r: _p21_config(xtt, pages),
+                      EXTMEM_DET, 5, "p21d-card")
+    cpu = _p21_ranks(xtt, hist_cuda, lambda r: _p21_config(xtt, pages),
+                     dict(EXTMEM_DET, device="cpu"), 5, "p21d-cpu",
+                     device="cpu")
+    one = xtt.train(EXTMEM_DET, _p21_config(xtt, pages), 5,
+                    verbose_eval=False)
+    if not (card[0]["json"] == card[1]["json"] == cpu[0]["json"]
+            == cpu[1]["json"] == _model_bytes(one)):
+        raise AssertionError("phase 21d: the card's two-rank model JSON is "
+                             "not the CPU's, or not one rank's")
+    t0 = time.perf_counter()
+    out = xtt.train_distributed(
+        EXTMEM_DET, [functools.partial(module._p21_part, r,
+                                       EXTMEM_DET.get("device"))
+                     for r in range(2)], num_boost_round=5, timeout=300)
+    job_s = time.perf_counter() - t0
+    if _model_bytes(out["booster"]) != card[0]["json"]:
+        raise AssertionError("phase 21d: the gloo workers' out-of-core model "
+                             "is not the in-memory ranks'")
+    log(f"phase 21d parity ({smi}): {P21_CPU_CUT[-1]} rows in 4 pages, "
+        "depth 8, 5 rounds, deterministic: two ranks' model JSON on the "
+        "card byte-identical to the CPU's, to one rank's on the card, and "
+        f"to train_distributed's two gloo worker processes building their "
+        f"pages in a callable part ({job_s:.3f} s for the job)")
+
+
+def phase_21(xtt, hist_cuda, smi, ref):
+    """Phases 21a-21d: out of core, exact and process_type="update" across
+    ranks on one card; ``ref`` phase 19's results."""
+    timed("21a", phase_extmem_ranks, xtt, hist_cuda, smi, ref)
+    timed("21b", phase_extmem_ranks_det, xtt, hist_cuda, smi, ref)
+    timed("21c", phase_exact_update_ranks, xtt, hist_cuda, smi)
+    timed("21d", phase_extmem_ranks_cpu, xtt, hist_cuda, smi)
+
+
 def _shap_entry(name, r):
     """K6's line: its main path's call (or the first rows of it, where the
     plain version ran on those only), with the launches of the call."""
@@ -5268,8 +5591,10 @@ def main() -> int:
                  lossguide, dart, gbl, cat)
     del X, y, Xc
     timed("17f", phase_boosters_parity, xtt)
-    phase_19(xtt, hist_cuda)
+    ext = phase_19(xtt, hist_cuda)
     phase_20(xtt, hist_cuda, smi)
+    phase_21(xtt, hist_cuda, smi, ext)
+    del ext
 
     kernels = [_kernel_entry(name, hist_cuda.SOURCES[name], cases, n)
                for name, cases, n in (("hist_f32", f32_cases, f32["launches"]),

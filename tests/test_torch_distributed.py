@@ -372,42 +372,36 @@ def test_quantile_dmatrix_in_a_group_keeps_its_own_cuts(builders):
                                           getattr(want, field))
 
 
-# what the port does not train across ranks yet (ROADMAP Queue 1 item 9):
-# each raises on every rank rather than train a rank's rows alone
+# what the port does not train across ranks (ROADMAP Queue 3 item 8,
+# Queue 1 item 9b.5): each raises on every rank rather than train a rank's
+# rows alone
 _REFUSED = {
-    "exact": lambda d: xtt.train({"tree_method": "exact"}, d, 1,
-                                 verbose_eval=False, device="cpu"),
     "gblinear": lambda d: xtt.train({"booster": "gblinear"}, d, 1,
                                     verbose_eval=False, device="cpu"),
-    "update": lambda d: xtt.train(
-        {"process_type": "update", "updater": "refresh"}, d, 1,
-        verbose_eval=False, device="cpu",
-        xgb_model=xtt.Booster({"device": "cpu"})),
-    "extmem_matrix": lambda d: xtt.ExtMemQuantileDMatrix(
-        _OneBatch(), device="cpu", compress=False),
-    "extmem_config": lambda d: xtt.train(
-        {}, xtt.ExtMemConfig(lambda *a: None), 1, verbose_eval=False,
-        device="cpu"),
     "mesh": lambda d: ProcessHistTreeGrower(
         3, None, mesh=object()),
 }
 
 
-class _OneBatch(xtt.DataIter):
-    def __init__(self):
-        super().__init__()
-        self._done = False
+def _one_batch(pkg, X, y):
+    """A ``pkg.DataIter`` of one batch."""
 
-    def next(self, input_data):
-        if self._done:
-            return 0
-        self._done = True
-        input_data(data=np.zeros((8, 2), np.float32),
-                   label=np.zeros(8, np.float32))
-        return 1
+    class OneBatch(pkg.DataIter):
+        def __init__(self):
+            super().__init__()
+            self._done = False
 
-    def reset(self):
-        self._done = False
+        def next(self, input_data):
+            if self._done:
+                return 0
+            self._done = True
+            input_data(data=X, label=y)
+            return 1
+
+        def reset(self):
+            self._done = False
+
+    return OneBatch()
 
 
 @pytest.mark.parametrize("case", list(_REFUSED))
@@ -423,14 +417,70 @@ def test_unported_paths_raise_across_ranks(case):
     assert ranks(xtt, f"refused-{case}", fn) == [True, True]
 
 
+def _lifted(pkg, case, X, y, model):
+    """What the port refused across ranks before, in ``pkg``, on the rows
+    given: the trained booster."""
+    dev = {} if pkg is xtb else {"device": "cpu"}
+    ext = {} if pkg is xtb else {"device": "cpu", "compress": False}
+    if case == "exact":
+        return pkg.train({"tree_method": "exact"},
+                         pkg.DMatrix(X, label=y, **dev), 1,
+                         verbose_eval=False, **dev)
+    if case == "update":
+        return pkg.train({"process_type": "update", "updater": "refresh",
+                          "max_bin": 32}, pkg.DMatrix(X, label=y, **dev),
+                         2, verbose_eval=False, xgb_model=model, **dev)
+    if case == "extmem_matrix":
+        d = pkg.ExtMemQuantileDMatrix(_one_batch(pkg, X, y), max_bin=32,
+                                      **ext)
+        return pkg.train(DET, d, 2, verbose_eval=False, **dev)
+    cfg = pkg.ExtMemConfig(lambda smap, rank, world: _one_batch(pkg, X, y),
+                           max_bin=32, **({} if pkg is xtb else
+                                          {"compress": False}))
+    return pkg.train(DET, cfg, 2, verbose_eval=False, **dev)
+
+
+@pytest.mark.parametrize("case", ["exact", "update", "extmem_matrix",
+                                  "extmem_config"])
+def test_lifted_paths_train_across_ranks(case):
+    """exact, process_type="update", out-of-core matrices and ExtMemConfig
+    train across ranks: the same bytes on every rank, the reference's at
+    the same ranks (deterministic histograms where there are any)."""
+    X, y = _data(n=400)
+    models = {pkg: pkg.train(dict(DET, objective="reg:squarederror"),
+                             pkg.DMatrix(X, label=y, **dev), 2,
+                             verbose_eval=False, **dev)
+              for pkg, dev in ((xtt, {"device": "cpu"}), (xtb, {}))}
+
+    def run(pkg):
+        def fn(r):
+            bst = _lifted(pkg, case, X[r::2], y[r::2], models[pkg])
+            return _port_json(bst) if pkg is xtt else _ref_json(bst)
+
+        return ranks(pkg, f"lifted-{case}-{pkg.__name__}", fn)
+
+    got, want = run(xtt), run(xtb)
+    assert got[0] == got[1] == want[0]
+
+
 def test_pages_built_in_one_process_refuse_ranks():
-    """An out-of-core matrix made before the ranks formed still refuses to
-    train across them."""
-    d = xtt.ExtMemQuantileDMatrix(_OneBatch(), device="cpu", compress=False)
+    """An out-of-core matrix made before the ranks formed trains across
+    them as the reference's does: every rank streams all of its pages, so
+    each level sums the matrix once a rank (the ranks' bytes equal, and
+    the reference's)."""
+    X, y = _data(n=400)
 
-    def fn(r):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            xtt.train({}, d, 1, verbose_eval=False, device="cpu")
-        return True
+    def run(pkg):
+        dev = {} if pkg is xtb else {"device": "cpu"}
+        ext = {} if pkg is xtb else {"device": "cpu", "compress": False}
+        d = pkg.ExtMemQuantileDMatrix(_one_batch(pkg, X, y), max_bin=32,
+                                      **ext)
 
-    assert ranks(xtt, "refused-prebuilt-pages", fn) == [True, True]
+        def fn(r):
+            bst = pkg.train(DET, d, 2, verbose_eval=False, **dev)
+            return _port_json(bst) if pkg is xtt else _ref_json(bst)
+
+        return ranks(pkg, f"prebuilt-pages-{pkg.__name__}", fn)
+
+    got, want = run(xtt), run(xtb)
+    assert got[0] == got[1] == want[0]

@@ -439,15 +439,28 @@ def test_multi_column_labels_raise_valueerror():
 
 
 def test_port_only_refusals():
-    """Where the port trains in one process (no collective) and pages
-    carry no query groups."""
+    """Pages carry no query groups; an ExtMemConfig in one process (no
+    collective) trains the matrix its data_fn gives, over every shard."""
     _, y, batches = make_batches(R=1200, splits=(0, 600, 1200))
     d = xtt.ExtMemQuantileDMatrix(make_iter(xtt, batches), max_bin=16,
                                   compress=False, device="cpu")
     with pytest.raises(NotImplementedError, match="query groups"):
         xtt.train({"objective": "rank:ndcg"}, d, 1, verbose_eval=False,
                   device="cpu")
-    with pytest.raises(NotImplementedError, match="one process"):
+    shards = []
+
+    def data_fn(smap, rank, world):
+        shards.append((smap.shards_of(rank), rank, world))
+        return make_iter(xtt, batches)
+
+    p = {"max_depth": 3, "deterministic_histogram": 1}
+    cfg = xtt.ExtMemConfig(data_fn, num_shards=2, max_bin=16,
+                           compress=False)
+    got = xtt.train(p, cfg, 2, verbose_eval=False, device="cpu")
+    want = xtt.train(p, d, 2, verbose_eval=False, device="cpu")
+    assert shards == [((0, 1), 0, 1)]
+    assert got.save_raw_dict() == want.save_raw_dict()
+    with pytest.raises(TypeError, match="DataIter"):
         xtt.train({}, xtt.ExtMemConfig(lambda *a: None), 1,
                   verbose_eval=False, device="cpu")
     sk = tq.StreamingSketch(2, 8)

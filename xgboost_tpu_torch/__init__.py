@@ -24,11 +24,13 @@ scikit-learn estimators and the plotting functions, both imported on first
 use.  Data-parallel training across ranks: ``collective`` (gloo processes
 or in-memory threads) and ``train_distributed`` (one worker process per
 data part), each rank's histograms on the kernels and summed over the
-ranks every level.
+ranks every level, in memory or out of core (``ExtMemConfig`` with a
+``ShardMap`` of page shards), and exact and ``process_type="update"``
+training, whose host steps see every rank's rows.
 """
 from __future__ import annotations
 
-from . import collective
+from . import collective, elastic
 from .callback import (EarlyStopping, EvaluationMonitor, LearningRateScheduler,
                        TrainingCallback, TrainingCheckPoint)
 from .config import config_context, get_config, set_config
@@ -39,6 +41,7 @@ from .data.extmem import (DataIter, ExtMemConfig, ExtMemQuantileDMatrix,
                           SparsePageDMatrix)
 from .data.quantile import HistogramCuts
 from .distributed import train_distributed
+from .elastic import ShardMap
 from .training import cv, train
 
 __all__ = [
@@ -49,6 +52,7 @@ __all__ = [
     "ExtMemQuantileDMatrix",
     "SparsePageDMatrix",
     "ExtMemConfig",
+    "ShardMap",
     "HistogramCuts",
     "EllpackPage",
     "MetaInfo",
@@ -56,6 +60,7 @@ __all__ = [
     "cv",
     "train_distributed",
     "collective",
+    "elastic",
     "config_context",
     "set_config",
     "get_config",

@@ -70,9 +70,14 @@ tree from ``ProcessHistTreeGrower`` (parallel/process.py), or the
 best-first and vector-leaf growers with ``distributed=True``, which sum
 the root and each level's histogram over the ranks; approx sketches the
 round's hessians over the ranks, the adaptive refit gathers the leaves'
-rows, and ``eval_set`` reports the global metrics.  exact, gblinear,
-process_type="update" and out-of-core matrices raise there (ROADMAP Queue
-1 item 9): none of them may train a rank's rows alone.
+rows, and ``eval_set`` reports the global metrics.  Out of core, each
+rank's pages stream through the streaming grower with
+``distributed=True``, which sums each level's page histograms over the
+ranks once.  exact gathers every rank's rows and gradients, so every rank
+enumerates the whole set, and takes rank 0's tree; process_type="update"
+sums each node's refreshed (G, H) over the ranks, and ``sync`` gives every
+rank rank 0's model.  gblinear raises there (ROADMAP Queue 3 item 8): it
+may not train a rank's rows alone.
 
 Out of core (reference core.py:680-837): on an ExtMemQuantileDMatrix the
 trees grow on StreamingHistTreeGrower (tree/stream.py), which streams the
@@ -580,24 +585,18 @@ class Booster:
         return cache
 
     def _check_distributed_training(self, dtrain: DMatrix) -> None:
-        """Refuse, across ranks, what the port does not yet train across
-        ranks (ROADMAP Queue 1 item 9): the reference runs exact and
-        process_type="update" distributed (core.py:1022-1050, :1108-1115,
-        :1243-1246) and out of core through its page reduction; gblinear
-        has no reduction there.  None may train a rank's rows alone."""
-        what = None
-        if hasattr(dtrain, "_pages"):
-            what = "external-memory training"
-        elif self.booster_kind == "gblinear":
-            what = "booster='gblinear'"
-        elif self.tree_method == "exact":
-            what = "tree_method='exact'"
-        elif self.process_type == "update":
-            what = "process_type='update'"
-        if what is not None:
+        """Refuse gblinear across ranks: the reference's coordinate
+        descent reduces nothing across ranks, so a rank would train its
+        rows alone (ROADMAP Queue 3 item 8).  exact, process_type="update"
+        and out-of-core matrices train across ranks (item 9b.1); what
+        Queue 1 item 9 leaves (the tracker, elastic membership, federated
+        and n_devices > 1) is refused where it is asked for."""
+        if self.booster_kind == "gblinear":
             raise NotImplementedError(
-                f"{what} across ranks is not ported to xgboost_tpu_torch "
-                "yet (ROADMAP Queue 1 item 9)")
+                "booster='gblinear' across ranks is not ported to "
+                "xgboost_tpu_torch: the reference reduces nothing across "
+                "ranks there (ROADMAP Queue 3 item 8; Queue 1 item 9 ports "
+                "the tree paths)")
 
     def _check_extmem_training(self) -> None:
         """Refuse what the pages cannot train, as the reference does:
@@ -906,7 +905,8 @@ class Booster:
         """The streaming grower of the current parameters (reference
         core.py:695-715): ``_extmem_prefetch`` 0 puts page copies and
         compute in series; ``_extmem_page_skip`` 0 keeps sampled-out pages
-        in every level pass."""
+        in every level pass.  Across ranks it sums each level over them
+        (the growers are made anew when the collective changes)."""
         tp = self.tparam
         lossguide = tp.grow_policy == "lossguide"
 
@@ -924,7 +924,7 @@ class Booster:
                 interaction_sets=tp.interaction_constraints,
                 max_leaves=tp.max_leaves, lossguide=lossguide,
                 quantised=self.deterministic_histogram, prefetch=prefetch,
-                page_skip=page_skip)
+                page_skip=page_skip, distributed=self._distributed)
         return self._stream_growers[key]
 
     def _boost_trees_extmem(self, cache: _Cache, gpair,
@@ -1071,8 +1071,9 @@ class Booster:
                                            cache.dmat.feature_weights,
                                            host=True)
             gp = self._subsample_mask(gpair, iteration * 131 + p)
-            # the parallel tree's gradients to the host, once
-            gp_host = gp[: cache.n_real].cpu().numpy()
+            # the parallel tree's gradients to the host, once (every
+            # rank's, in rank order)
+            gp_host = self._gather_host(gp[: cache.n_real].cpu().numpy())
             for k in range(K):
                 tree, delta = self._grow_exact_one(cache, gp_host, k,
                                                    fmask_fn)
@@ -1084,13 +1085,41 @@ class Booster:
                                              drop_margin)
         cache.n_trees_applied = len(self.trees)
 
+    def _gather_host(self, a: np.ndarray) -> np.ndarray:
+        """Every rank's rows of a host array in rank order (``a`` itself
+        in one process)."""
+        return collective.allgather_ragged(a) if self._distributed else a
+
+    def _exact_rows(self, cache: _Cache):
+        """exact's host matrix and its columns' sort, made once a cache
+        (round-invariant, as the colmaker's SortedCSC); across ranks every
+        rank's rows in rank order, so every rank enumerates the whole set
+        (reference core.py:1018-1037, updater_sync.cc).  Returns (X, order,
+        this rank's first row in X, its row count)."""
+        if getattr(cache, "exact_X", None) is None:
+            X = self._host_X(cache)
+            cache.exact_n_local, cache.exact_row_start = X.shape[0], 0
+            if self._distributed:
+                sizes = collective.allgather(
+                    np.asarray([X.shape[0]], np.int64))[:, 0]
+                cache.exact_row_start = int(
+                    sizes[: collective.get_rank()].sum())
+                X = collective.allgather_ragged(X)
+            cache.exact_X = X
+            cache.exact_order = np.argsort(X, axis=0,
+                                           kind="stable").astype(np.int32)
+        return (cache.exact_X, cache.exact_order, cache.exact_row_start,
+                cache.exact_n_local)
+
     def _grow_exact_one(self, cache: _Cache, gp_host: np.ndarray, k: int,
                         fmask_fn):
-        """One exact tree (reference core.py:989-1119, one process): the
-        host enumeration over raw values (updater_colmaker.cc ColMaker)
-        chained with the pruner, as the reference chains
-        "grow_colmaker,prune"; returns (RegTree, the margin's delta as
-        host f32 over the cache's rows)."""
+        """One exact tree (reference core.py:989-1119): the host
+        enumeration over raw values (updater_colmaker.cc ColMaker) chained
+        with the pruner, as the reference chains "grow_colmaker,prune";
+        returns (RegTree, the margin's delta as host f32 over the cache's
+        rows).  ``gp_host``: the gradients of every rank's rows.  Across
+        ranks every rank grows the same tree from the same inputs and
+        keeps rank 0's, broadcast (TreeSyncher)."""
         tp = self.tparam
         cat_mask = cache.dmat.cat_mask()
         if cat_mask is not None and np.any(cat_mask):
@@ -1104,11 +1133,7 @@ class Booster:
         if tp.grow_policy == "lossguide":
             raise ValueError("tree_method='exact' only supports depthwise "
                              "growth (driver.h lossguide needs hist/approx)")
-        if getattr(cache, "exact_order", None) is None:
-            # round-invariant, as the colmaker's SortedCSC
-            cache.exact_order = np.argsort(self._host_X(cache), axis=0,
-                                           kind="stable").astype(np.int32)
-        X = self._host_X(cache)
+        X, order, row_start, R_local = self._exact_rows(cache)
         R = X.shape[0]
         gh = np.asarray(gp_host[:, k, :], np.float64)
         tree, pos = grow_exact(
@@ -1118,7 +1143,7 @@ class Booster:
             min_child_weight=float(tp.min_child_weight),
             max_delta_step=float(tp.max_delta_step),
             eta=float(tp.eta), feature_masks=fmask_fn,
-            col_order=cache.exact_order)
+            col_order=order)
         tree, n_pruned = prune_tree(tree, gamma=float(tp.gamma),
                                     eta=float(tp.eta))
         if n_pruned:
@@ -1133,12 +1158,15 @@ class Booster:
             # margin, on the host as the reference's exact path does
             if getattr(cache, "exact_adaptive_meta", None) is None:
                 cache.exact_adaptive_meta = (
-                    cache.labels[:R].cpu().numpy(),
-                    cache.valid[:R].cpu().numpy().astype(bool),
-                    (cache.weights[:R].cpu().numpy()
+                    self._gather_host(
+                        cache.labels[:R_local].cpu().numpy()),
+                    self._gather_host(cache.valid[:R_local].cpu().numpy()
+                                      ).astype(bool),
+                    (self._gather_host(cache.weights[:R_local].cpu().numpy())
                      if cache.weights is not None else None))
             labels, valid, w = cache.exact_adaptive_meta
-            residual = labels - cache.margin[:R, k].cpu().numpy()
+            residual = labels - self._gather_host(
+                cache.margin[:R_local, k].cpu().numpy())
             alpha_q = float(self.objective.adaptive_alpha(k))
             for nid in np.nonzero(tree.left_children == -1)[0]:
                 m = (pos == nid) & valid
@@ -1152,8 +1180,14 @@ class Booster:
                     cw = np.cumsum(w[m][srt])
                     q = res[srt][np.searchsorted(cw, alpha_q * cw[-1])]
                 tree.split_conditions[nid] = np.float32(float(tp.eta) * q)
+        if self._distributed:
+            # rank 0's tree, the same by construction, made certain
+            # (reference core.py:1107-1115)
+            tree = RegTree.from_json_dict(
+                collective.broadcast(tree.to_json_dict(0, 0), 0))
         delta = np.zeros(cache.margin.shape[0], np.float32)
-        delta[:R] = tree.split_conditions[pos]
+        delta[:R_local] = tree.split_conditions[pos][
+            row_start: row_start + R_local]
         return tree, delta
 
     # ----------------------------------------------------------------- DART
@@ -1391,7 +1425,9 @@ class Booster:
         ``iteration``'s existing trees.  The round's gradients come from
         the margin of the rounds before it as already updated, taken on
         the device and copied to the host once; refresh, prune and sync
-        rewrite the trees there."""
+        rewrite the trees there.  Across ranks each rank refreshes on its
+        own rows with the node sums of all of them, and sync gives every
+        rank rank 0's trees."""
         if not self.updater_seq:
             raise ValueError(
                 "process_type='update' requires updater=..., e.g. "
@@ -1431,6 +1467,9 @@ class Booster:
         valid = cache.valid.cpu().numpy()
         Xh = self._host_X(cache)
         end = min(start + tpr, len(self.trees))
+        # across ranks each node's (G, H) is summed over the ranks before
+        # the weights (reference core.py:1243-1246); prune stays local
+        reduce = collective.allreduce if self._distributed else None
         for tid in range(start, end):
             k = self.tree_info[tid]
             tree = self.trees[tid]
@@ -1441,7 +1480,7 @@ class Booster:
                         eta=float(self.tparam.eta),
                         lambda_=float(self.tparam.lambda_),
                         alpha=float(self.tparam.alpha),
-                        refresh_leaf=self.refresh_leaf)
+                        refresh_leaf=self.refresh_leaf, reduce=reduce)
                 elif upd == "prune":
                     tree, _ = prune_tree(
                         tree, gamma=float(self.tparam.gamma),

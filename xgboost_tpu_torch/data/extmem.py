@@ -611,21 +611,6 @@ def _iterate(it: DataIter):
         yield got[0]
 
 
-def check_not_distributed() -> None:
-    """Raise where the collective spans several ranks: out-of-core data
-    across ranks (the reference's distributed page sketch and per-level
-    page reduction, extmem.py:520, :721, tree/stream.py:306-313) is not
-    ported, and a rank must not train its pages alone."""
-    from .. import collective
-
-    if collective.is_distributed():
-        raise NotImplementedError(
-            "external-memory training across ranks (ExtMemQuantileDMatrix, "
-            "SparsePageDMatrix, ExtMemConfig) is not ported to "
-            "xgboost_tpu_torch yet (ROADMAP Queue 1 item 9); use an "
-            "in-memory DMatrix a rank")
-
-
 class ExtMemQuantileDMatrix(DMatrix):
     """Binned external-memory DMatrix (reference extmem.py:636,
     extmem_quantile_dmatrix.h:29): the pages stay on the host (or on
@@ -645,7 +630,6 @@ class ExtMemQuantileDMatrix(DMatrix):
                  compress: bool = True, device=None, **kwargs: Any) -> None:
         if not isinstance(data, DataIter):
             raise TypeError("ExtMemQuantileDMatrix requires a DataIter")
-        check_not_distributed()
         self.device = resolve_device(device)
         self.max_bin = max_bin
         self.on_host = on_host
@@ -699,13 +683,22 @@ class ExtMemQuantileDMatrix(DMatrix):
                 sketch.wait(2 * SKETCH_THREADS - 1)
                 sketch.push(X, weights=w_b, executor=_sketch_pool())
         if ref is not None:
+            # the ref's cuts, in every rank alike: no collective
             cuts = getattr(ref, "_cuts", None)
             if cuts is None:
                 cuts = ref.ensure_ellpack(max_bin=max_bin).cuts
         else:
             if sketch is None:
+                # the column count comes with the first batch: a rank
+                # without one cannot join the sketch's gather
                 raise ValueError("DataIter produced no batches")
-            cuts = sketch.finalize()
+            from .. import collective
+
+            # across ranks, one merge of every rank's page summaries: the
+            # page is the sketch's unit, so the cuts do not depend on how
+            # the pages are spread over the ranks (reference
+            # extmem.py:712-721)
+            cuts = sketch.finalize(distributed=collective.is_distributed())
         self._cuts: HistogramCuts = cuts
         self.ingest_seconds["sketch"] = time.perf_counter() - t0
 
@@ -959,9 +952,18 @@ class SparsePageDMatrix(ExtMemQuantileDMatrix):
 
 
 class ExtMemConfig:
-    """Multi-process out-of-core training (reference extmem.py:956): each
-    process builds an ExtMemQuantileDMatrix over its shard of pages.  The
-    port trains in one process; ``train`` refuses a config."""
+    """Out-of-core training across ranks, ``train(params, ExtMemConfig(
+    ...))`` (reference extmem.py:956): each rank builds an
+    ExtMemQuantileDMatrix over the page shards a ``ShardMap`` gives it.
+
+    ``data_fn(shard_map, rank, world)`` returns the rank's ``DataIter``
+    (one ``input_data`` batch a page it owns), or ``(DataIter, evals)``
+    to bring evaluation sets too.  ``num_shards`` defaults to the world
+    size; ``max_bin``, ``on_host``, ``compress`` and
+    ``enable_categorical`` go to the matrix.  The pages' sketch merges
+    every rank's page summaries once, and the trees sum each level's
+    histograms over the ranks; one process (world 1) trains the same
+    way on all the shards."""
 
     def __init__(self, data_fn: Callable[..., Any], *,
                  num_shards: Optional[int] = None, max_bin: int = 256,
@@ -975,3 +977,26 @@ class ExtMemConfig:
         self.on_host = bool(on_host)
         self.compress = bool(compress)
         self.enable_categorical = bool(enable_categorical)
+
+    def build(self, device=None):
+        """This rank's (matrix on ``device``, evals), in the collective
+        that is current (reference extmem.py:994-1012)."""
+        from .. import collective
+        from ..elastic import ShardMap
+
+        rank, world = collective.get_rank(), collective.get_world_size()
+        smap = ShardMap.create(self.num_shards or world, world)
+        built = self.data_fn(smap, rank, world)
+        evals: List[Any] = []
+        if isinstance(built, tuple):
+            built, ev = built
+            evals = list(ev) if ev else []
+        if not isinstance(built, DataIter):
+            raise TypeError(
+                "ExtMemConfig.data_fn must return a DataIter (or a "
+                f"(DataIter, evals) pair); got {type(built).__name__}")
+        dtrain = ExtMemQuantileDMatrix(
+            built, max_bin=self.max_bin, on_host=self.on_host,
+            compress=self.compress,
+            enable_categorical=self.enable_categorical, device=device)
+        return dtrain, evals

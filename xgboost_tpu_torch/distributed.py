@@ -16,9 +16,12 @@ share one card.  A worker that fails ends the job at once: the parent
 stops the others and raises with the failed worker's log.
 
 A part is a ``(X, y)`` tuple, a ``{"data": X, "label": y, ...}`` dict of
-DMatrix arguments, or a picklable zero-argument callable returning one of
-them (run in the worker).  The reference's tracker, which assigns ranks
-and fans out errors, is not ported (ROADMAP Queue 1 item 9).
+DMatrix arguments, or a picklable module-level zero-argument callable
+returning one of them or a DMatrix.  The callable runs in the worker once
+the collective is up, so an ``ExtMemQuantileDMatrix`` it builds over the
+worker's pages takes the ranks' shared cuts.  The reference's tracker,
+which assigns ranks and fans out errors, is not ported (ROADMAP Queue 1
+item 9b.2).
 """
 from __future__ import annotations
 
@@ -78,7 +81,7 @@ print("WORKER-DONE", flush=True)
 
 def _make_dmatrix(part: Any, device=None):
     """One worker's part as a DMatrix on ``device`` (the DaskDMatrix
-    role)."""
+    role); a callable's own DMatrix as it built it."""
     from .data.dmatrix import DMatrix
 
     if callable(part):

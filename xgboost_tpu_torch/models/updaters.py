@@ -49,14 +49,20 @@ def _route_masks(tree: RegTree, X: np.ndarray) -> np.ndarray:
 
 def refresh_tree(tree: RegTree, X: np.ndarray, grad: np.ndarray,
                  hess: np.ndarray, *, eta: float, lambda_: float,
-                 alpha: float = 0.0, refresh_leaf: bool = True) -> RegTree:
+                 alpha: float = 0.0, refresh_leaf: bool = True,
+                 reduce=None) -> RegTree:
     """Recompute each node's hessian sum, weight and split gain, and with
     ``refresh_leaf`` the leaf values, from the given gradients (f64 sums);
     the structure stays (updater_refresh.cc TreeRefresher::Update).  The
-    tree's arrays are rewritten in place."""
+    tree's arrays are rewritten in place.  ``reduce``: an allreduce of the
+    per-node (G, H) sums, so that every rank computes the weights of all
+    the ranks' rows (updater_refresh.cc:102)."""
     masks = _route_masks(tree, X)
     G = masks @ grad.astype(np.float64)
     H = masks @ hess.astype(np.float64)
+    if reduce is not None:
+        G = reduce(G)
+        H = reduce(H)
 
     def thr_l1(g):
         return np.sign(g) * np.maximum(np.abs(g) - alpha, 0.0)
@@ -153,6 +159,14 @@ def prune_tree(tree: RegTree, *, gamma: float, eta: float,
 
 
 def sync_trees(trees, tree_info, tree_weights):
-    """Rank 0's model to every worker (updater_sync.cc TreeSyncher): the
-    port trains in one process, so the model is already everyone's."""
-    return trees, tree_info, tree_weights
+    """Rank 0's model to every worker (updater_sync.cc TreeSyncher): its
+    trees as JSON, its tree info and weights; the model itself in one
+    process."""
+    from .. import collective
+
+    if not collective.is_distributed():
+        return trees, tree_info, tree_weights
+    tdicts, info, wts = collective.broadcast(
+        ([t.to_json_dict(0, i) for i, t in enumerate(trees)],
+         list(tree_info), list(tree_weights)), 0)
+    return [RegTree.from_json_dict(d) for d in tdicts], info, wts

@@ -1,8 +1,8 @@
 """train() and cv() (port of xgboost_tpu/training.py without the
-elastic, resume and multi-process external-memory (ExtMemConfig) branches
-of train; across ranks, train runs in each worker inside a
-``collective.CommunicatorContext``, and ``EvaluationMonitor`` prints on
-rank 0; reference
+elastic and resume branches of train; across ranks, train runs in each
+worker inside a ``collective.CommunicatorContext``, an ``ExtMemConfig``
+builds the rank's pages there, and ``EvaluationMonitor`` prints on rank 0;
+reference
 python-package/xgboost/training.py:53, :435).  train continues a model
 (``xgb_model``), takes a custom objective (``obj``) and a custom metric
 (``custom_metric``); cv builds the reference's folds (plain, stratified or
@@ -47,21 +47,21 @@ def train(
     ``xgb_model``: a model file's path or bytes, or a ``Booster``, to
     continue: its rounds are counted first, so round i of the continuation
     draws the seeds of round i of an uninterrupted run.  Under
-    ``process_type="update"`` the rounds are the model's own, from 0."""
-    from . import collective
+    ``process_type="update"`` the rounds are the model's own, from 0.
+    ``dtrain`` may be an ``ExtMemConfig``: the rank's pages are built from
+    it on the booster's device, and its evals are used where ``evals`` is
+    empty."""
     from .data.extmem import ExtMemConfig
 
-    # this worker's place among the ranks (reference training.py:257-260;
-    # the elastic loop that reshards on them is not ported)
-    rank, world = collective.get_rank(), collective.get_world_size()
-    if isinstance(dtrain, ExtMemConfig):
-        raise NotImplementedError(
-            "ExtMemConfig (out-of-core training across ranks) is not "
-            f"ported to xgboost_tpu_torch yet (ROADMAP Queue 1 item 9; rank "
-            f"{rank} of {world}); pass an ExtMemQuantileDMatrix in one "
-            "process")
     callbacks = list(callbacks) if callbacks else []
     evals = list(evals) if evals else []
+    if isinstance(dtrain, ExtMemConfig):
+        # this rank's pages (reference training.py:187-199); the config's
+        # evals apply where the call gives none
+        dtrain, extmem_evals = dtrain.build(
+            device=device if device is not None else params.get("device"))
+        if not evals:
+            evals = extmem_evals
     if early_stopping_rounds is not None:
         if not evals:
             raise ValueError(

@@ -18,6 +18,15 @@ of the next pages overlaps the kernels of this one.
 Under gradient-based sampling a page whose rows all sampled out (zero
 gradient pairs) is left out of the level passes and routed once at the end
 by replaying the recorded decisions (``_route_skipped``).
+
+Across ranks (``distributed=True``; reference tree/stream.py:302-313) each
+rank streams its own pages and the level's page sum crosses the ranks once,
+after the last page and before the sibling subtraction, through the host
+exchange of parallel/process.py: f32 sums in rank order, limbs as int64.
+The root totals are summed first (f32), or the quantisation's scale and
+exact root taken over the ranks (deterministic).  Page skipping keeps at
+least one page streamed, so a rank whose rows all sampled out still joins
+every level's exchange.
 """
 from __future__ import annotations
 
@@ -27,10 +36,12 @@ import torch
 
 from ..ops.hist_cuda import build_histogram, build_histogram_q
 from ..ops.histogram import combine_sibling_hists
-from ..ops.quantise import prepare_quantised
+from ..ops.quantise import allreduce_limbs, prepare_quantised
 from ..ops.split import SplitParams
+from ..parallel.process import HostExchange
 from .grow import (FeatureMasks, HistTreeGrower, TreeState, _update_positions,
-                   decide_level, init_tree_state, max_nodes_for_depth)
+                   decide_level, init_tree_state, max_nodes_for_depth,
+                   sync_root_totals)
 
 
 class StreamingHistTreeGrower(HistTreeGrower):
@@ -39,19 +50,23 @@ class StreamingHistTreeGrower(HistTreeGrower):
     in order of gain within a level, as the reference's streaming grower
     does.  ``prefetch``: pages in flight beyond the one consumed (None:
     ``XTB_EXTMEM_PREFETCH_PAGES`` or 2; 0 puts copy and compute in series).
-    ``page_skip``: gradient-based page residency."""
+    ``page_skip``: gradient-based page residency.  ``distributed``: the
+    pages are this rank's, and each level sums over the ranks
+    (``exchange.stats`` times it)."""
 
     def __init__(self, max_depth: int, params: SplitParams, *,
                  interaction_sets=None, max_leaves: int = 0,
                  lossguide: bool = False, quantised: bool = False,
                  prefetch: Optional[int] = None,
-                 page_skip: bool = False) -> None:
+                 page_skip: bool = False, distributed: bool = False) -> None:
         super().__init__(max_depth, params,
                          interaction_sets=interaction_sets,
                          max_leaves=max_leaves, quantised=quantised)
         self.lossguide = lossguide
         self.prefetch = prefetch
         self.page_skip = page_skip
+        self.distributed = distributed
+        self.exchange = HostExchange() if distributed else None
         self.max_nodes = max_nodes_for_depth(max_depth)
 
     def _scheduler(self, dmat, idx: List[int], device):
@@ -95,7 +110,10 @@ class StreamingHistTreeGrower(HistTreeGrower):
             skipped = [i for i in range(n_pages) if not active[i]]
         rho = None
         if self.quantised:
-            gpair, rho, state = prepare_quantised(gpair, valid, state)
+            gpair, rho, state = prepare_quantised(
+                gpair, valid, state, distributed=self.distributed)
+        elif self.distributed:
+            sync_root_totals(state)  # GlobalSum, updater_gpu_hist.cu:581
         build_fn = build_histogram_q if self.quantised else build_histogram
         prev = None  # (best, can_split, depth) of the previous level
         decisions = []
@@ -125,6 +143,10 @@ class StreamingHistTreeGrower(HistTreeGrower):
                     sched.release(j)
             finally:
                 sched.close()
+            if hist is not None and self.distributed:
+                # the level's one exchange, after the rank's last page
+                hist = (allreduce_limbs(hist, self.exchange)
+                        if self.quantised else self.exchange.allreduce(hist))
             if subtract:
                 hist = combine_sibling_hists(hist, hist_prev,
                                              state.alive[node0: node0 + N])
