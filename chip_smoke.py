@@ -4,7 +4,9 @@ Drives the port's training paths through its public entry points and
 holds each CUDA kernel against its plain PyTorch version:
 
   1. device: card name and power limit; build every kernel library (one
-     nvcc per source, all at once) and load it
+     nvcc per source, all at once) and load it; K6's (csrc/treeshap.cu,
+     minutes where the others take seconds) finishes in a thread while
+     phases 2-17 run, and is loaded before phase 18
   2. K1 vs plain: the f32 histogram kernel (csrc/hist.cu) against
      build_histogram_plain at R=1,048,576 x F=28, B=256, int16 and uint8
      bins, within 1e-5 of the largest cell, at the six levels a depth-6
@@ -305,9 +307,10 @@ holds each CUDA kernel against its plain PyTorch version:
      round, the same ranks on a CUDA stream each at a 0.2 ms switch
      interval, and a profile of two rounds at two ranks; (b) two ranks of
      16,384 rows on the card and on the CPU, deterministic: the same
-     bytes; (c) train_distributed with two gloo worker processes on the
-     card, 262,144 rows a rank, deterministic, 3 rounds: the bytes of two
-     in-memory ranks on the same shards
+     bytes; (c) train_distributed with two worker processes on the card,
+     ranked by its tracker and gathering through gloo at the tracker's
+     coordinator, 262,144 rows a rank, deterministic, 3 rounds: the bytes
+     of two in-memory ranks on the same shards
   21. out of core, exact and process_type="update" across ranks on the
      one card: (a) train(params, ExtMemConfig(...)) at two in-memory ranks
      on phase 19a's 64 pages, a shard a page (32 a rank, round robin),
@@ -323,8 +326,21 @@ holds each CUDA kernel against its plain PyTorch version:
      rows each: the ranks' models byte-identical, exact's one rank's on
      the union, K4 only; (d) 20,000 rows in 4 pages at two ranks,
      deterministic: the card's model JSON the CPU's, one rank's, and
-     train_distributed's with two gloo workers building their pages in a
-     callable part
+     train_distributed's with two tracker-ranked workers building their
+     pages in a callable part
+  22. the tracker and the launcher on the one card, 20c's shards and
+     settings: (a) launcher.run_distributed with a worker function
+     training its shard, over the tracker's socket relay, over gloo at
+     the tracker's coordinator (each job alone) and over gloo directly
+     (run_distributed's default on the card): the three jobs' model bytes
+     equal each other and 20c's in-memory ranks', each worker K2 6 a
+     round, K3 6 a round and K4 once a round and once for the base
+     score; the jobs' seconds and their round times side by side; (b),
+     beside the direct job, one worker
+     raises after the rendezvous while its peer waits in its first
+     collective: the job ends with WorkerFailedError within 60 s, the
+     peer aborted by the tracker (exit 255), the failing worker's
+     traceback in the error
 
 Phase 2 and 2b also give each case's device time a launch (torch.profiler),
 and phases 7, 8 and 9 the bound, the kernel and the index_add_ yardstick on
@@ -384,6 +400,31 @@ def timed(label, fn, *args):
     out = fn(*args)
     log(f"phase {label} took {time.perf_counter() - t0:.3f} s")
     return out
+
+
+def _in_thread(fn, *args):
+    """Start ``fn(*args)`` in a thread; the returned call joins it and
+    gives its result or raises its exception."""
+    box = {}
+
+    def run():
+        try:
+            box["out"] = fn(*args)
+        except BaseException as e:  # noqa: BLE001 - raised by the join
+            box["err"] = e
+
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+
+    def join():
+        t.join(timeout=600)
+        if "err" in box:
+            raise box["err"]
+        if "out" not in box:
+            raise AssertionError(f"{fn.__name__} is still running")
+        return box["out"]
+
+    return join
 
 
 def cuda_ms(fn, reps: int = 20) -> float:
@@ -536,17 +577,58 @@ def graph_ops(fn) -> list:
     return ops
 
 
-def phase_device(hist_cuda):
+# K6's source builds in about three minutes, every other in under half a
+# minute (one nvcc each, all at once, on the H100's host): main() leaves it
+# to a thread while the phases before 18 run
+LATE_BUILD = ("treeshap",)
+
+
+def start_build(hist_cuda, names):
+    """Start the nvcc of each library of ``names`` in a thread; the returned
+    call waits for them, loads them and logs the seconds since the start.
+    The thread is not a daemon: a run that fails before the call still
+    waits for its nvcc at exit rather than leave it running."""
+    t0 = time.perf_counter()
+    errs = []
+
+    def build():
+        try:
+            hist_cuda._build(list(names))
+        except BaseException as e:  # noqa: BLE001 - raised by wait()
+            errs.append(e)
+
+    thread = threading.Thread(target=build)
+    thread.start()
+
+    def wait():
+        t1 = time.perf_counter()
+        thread.join()
+        if errs:
+            raise errs[0]
+        for name in names:
+            hist_cuda.load_library(name)
+        log(f"phase 1 late build: {sorted(names)} built and loaded "
+            f"{time.perf_counter() - t0:.3f} s after their start, "
+            f"{time.perf_counter() - t1:.3f} s of it waited for")
+
+    return wait
+
+
+def phase_device(hist_cuda, later=()):
+    """The card's name and power limit; every kernel library built (one nvcc
+    a source, all at once) and loaded but those of ``later``, which a
+    start_build beside this one builds."""
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     t0 = time.perf_counter()
-    hist_cuda.build_all()  # one nvcc per kernel source, all at once
-    for name in hist_cuda.SOURCES:
+    names = [n for n in hist_cuda.SOURCES if n not in later]
+    hist_cuda._build(names)
+    for name in names:
         hist_cuda.load_library(name)
     build_s = time.perf_counter() - t0
     log(f"phase 1 device: {torch.cuda.get_device_name(0)}; kernels "
-        f"{sorted(hist_cuda.SOURCES)} built and loaded in {build_s:.3f} s")
+        f"{sorted(names)} built and loaded in {build_s:.3f} s")
     return smi
 
 
@@ -5078,12 +5160,18 @@ def phase_distributed_cpu(xtt, hist_cuda, smi):
         "byte-identical to the CPU's, on every rank")
 
 
-def phase_distributed_procs(xtt, hist_cuda, smi):
-    """20c: train_distributed, two gloo worker processes on the one card,
-    deterministic; the same bytes as two in-memory ranks here."""
+def _p20c_shards():
+    """20c's two shards of P20_PROC_ROWS HIGGS rows (22's too)."""
     X, y = make_data(2 * P20_PROC_ROWS, 28, seed=2002)
-    shards = [(X[:P20_PROC_ROWS], y[:P20_PROC_ROWS]),
-              (X[P20_PROC_ROWS:], y[P20_PROC_ROWS:])]
+    return [(X[:P20_PROC_ROWS], y[:P20_PROC_ROWS]),
+            (X[P20_PROC_ROWS:], y[P20_PROC_ROWS:])]
+
+
+def phase_distributed_procs(xtt, hist_cuda, smi):
+    """20c: train_distributed, two tracker-ranked worker processes on the
+    one card, deterministic; the same bytes as two in-memory ranks here,
+    whose model JSON it returns."""
+    shards = _p20c_shards()
     t0 = time.perf_counter()
     out = xtt.train_distributed(P20_DET, shards,
                                 num_boost_round=P20_PROC_ROUNDS,
@@ -5093,18 +5181,21 @@ def phase_distributed_procs(xtt, hist_cuda, smi):
                       "p20c-memory", timed_repeat=False)
     got = _model_bytes(out["booster"])
     if got != mem[0]["json"]:
-        raise AssertionError("phase 20c: the gloo workers' model is not the "
+        raise AssertionError("phase 20c: the workers' model is not the "
                              "in-memory ranks'")
     final = {m: v[-1] for m, v in out["history"]["train"].items()}
-    log(f"phase 20c processes ({smi}): train_distributed, 2 gloo worker "
-        f"processes on one card x {P20_PROC_ROWS} rows, {P20_PROC_ROUNDS} "
+    log(f"phase 20c processes ({smi}): train_distributed, 2 tracker-ranked "
+        f"worker processes (gloo at the tracker's coordinator) on one card "
+        f"x {P20_PROC_ROWS} rows, {P20_PROC_ROUNDS} "
         f"rounds, deterministic: {job_s:.3f} s for the job (the workers' "
         f"start, rendezvous, sketch and training); model bytes equal to 2 "
         f"in-memory ranks' on the same shards; rank 0's train {final}")
+    return mem[0]["json"]
 
 
 def phase_20(xtt, hist_cuda, smi):
-    """Phases 20a-20c: data-parallel training across ranks on one card."""
+    """Phases 20a-20c: data-parallel training across ranks on one card;
+    20c's in-memory ranks' model JSON."""
     X, y = make_data(2 * P20_ROWS, 28, seed=2000)
     timed("20a", phase_distributed, xtt, hist_cuda, smi, X, y, "20a",
           P20, "hist_f32")
@@ -5112,7 +5203,7 @@ def phase_20(xtt, hist_cuda, smi):
           "20a deterministic", P20_DET, "hist_q")
     del X, y
     timed("20b", phase_distributed_cpu, xtt, hist_cuda, smi)
-    timed("20c", phase_distributed_procs, xtt, hist_cuda, smi)
+    return timed("20c", phase_distributed_procs, xtt, hist_cuda, smi)
 
 
 # ----------------------------------------------------------------- phase 21
@@ -5398,13 +5489,14 @@ def phase_extmem_ranks_cpu(xtt, hist_cuda, smi):
                      for r in range(2)], num_boost_round=5, timeout=300)
     job_s = time.perf_counter() - t0
     if _model_bytes(out["booster"]) != card[0]["json"]:
-        raise AssertionError("phase 21d: the gloo workers' out-of-core model "
-                             "is not the in-memory ranks'")
+        raise AssertionError("phase 21d: the workers' out-of-core model is "
+                             "not the in-memory ranks'")
     log(f"phase 21d parity ({smi}): {P21_CPU_CUT[-1]} rows in 4 pages, "
         "depth 8, 5 rounds, deterministic: two ranks' model JSON on the "
         "card byte-identical to the CPU's, to one rank's on the card, and "
-        f"to train_distributed's two gloo worker processes building their "
-        f"pages in a callable part ({job_s:.3f} s for the job)")
+        f"to train_distributed's two tracker-ranked worker processes "
+        f"building their pages in a callable part ({job_s:.3f} s for the "
+        f"job)")
 
 
 def phase_21(xtt, hist_cuda, smi, ref):
@@ -5414,6 +5506,178 @@ def phase_21(xtt, hist_cuda, smi, ref):
     timed("21b", phase_extmem_ranks_det, xtt, hist_cuda, smi, ref)
     timed("21c", phase_exact_update_ranks, xtt, hist_cuda, smi)
     timed("21d", phase_extmem_ranks_cpu, xtt, hist_cuda, smi)
+
+
+# ----------------------------------------------------------------- phase 22
+P22_FANOUT_S = 60  # 22b: the failed job's seconds at most
+
+
+def _p22_train(rank, world, out_dir):
+    """A run_distributed worker of 22a: trains 20c's shard of its rank on
+    the card, deterministic, and writes its model JSON, its own launches,
+    its rounds' seconds and the collective's route to
+    ``out_dir/rank<rank>.json``."""
+    import xgboost_tpu_torch as xtt
+    from xgboost_tpu_torch import collective
+    from xgboost_tpu_torch.ops import hist_cuda
+
+    X, y = _p20c_shards()[rank]
+    marks = []
+
+    class Clock(xtt.TrainingCallback):
+        def before_iteration(self, model, epoch, evals_log):
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+            return False
+
+        def after_iteration(self, model, epoch, evals_log):
+            torch.cuda.synchronize()
+            marks[-1] = time.perf_counter() - marks[-1]
+            return False
+
+    d = xtt.DMatrix(X, label=y)
+    hist_cuda.reset_launches()  # this worker's main path: counts from 0
+    bst = xtt.train(P20_DET, d, P20_PROC_ROUNDS, verbose_eval=False,
+                    callbacks=[Clock()])
+    torch.cuda.synchronize()
+    out = dict(world=world, json=_model_bytes(bst), rounds=marks,
+               launches=dict(hist_cuda.launches),
+               relay=bool(collective._backend()._relay_mode))
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as fh:
+        json.dump(out, fh)
+
+
+def _p22_fail(rank, world):
+    """A run_distributed worker of 22b: both ranks touch the card; rank 1
+    then raises, while rank 0 waits for it in a collective."""
+    from xgboost_tpu_torch import collective
+
+    torch.zeros(1, device="cuda")
+    if rank == 1:
+        raise RuntimeError("phase 22b: rank 1 fails after the rendezvous")
+    collective.allreduce(np.ones(4))
+    time.sleep(600)  # only the tracker's abort ends this worker
+
+
+def _p22_job(hist_cuda, mem_json, coll, tmp):
+    """22a's job over ``coll``: "relay" or "gloo" under the tracker (which
+    XGBOOST_TPU_COLL must name), or "direct", run_distributed's default
+    on the card (gloo, worker i rank i).  Its seconds and its workers'
+    reports, checked against 20c's in-memory ranks."""
+    import functools
+
+    import chip_smoke as module  # the workers unpickle by this path
+    from xgboost_tpu_torch.launcher import run_distributed
+
+    out_dir = os.path.join(tmp, coll)
+    os.makedirs(out_dir)
+    fn = functools.partial(module._p22_train, out_dir=out_dir)
+    t0 = time.perf_counter()
+    if coll == "direct":
+        run_distributed(fn, 2, timeout=300)
+    else:
+        run_distributed(fn, 2, rendezvous="tracker", timeout=300)
+    job_s = time.perf_counter() - t0
+    reports = []
+    for r in range(2):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as fh:
+            reports.append(json.load(fh))
+    want = _sigmoid_launches(hist_cuda, P20_PROC_ROUNDS, evals=0)
+    want["hist_q"] = want["split_scan"] = \
+        P20_DET["max_depth"] * P20_PROC_ROUNDS
+    for r, rep in enumerate(reports):
+        if rep["json"] != mem_json:
+            raise AssertionError(f"phase 22a {coll}: rank {r}'s model is not "
+                                 "20c's in-memory ranks'")
+        if rep["relay"] != (coll == "relay") or rep["world"] != 2:
+            raise AssertionError(f"phase 22a {coll}: rank {r} took the relay "
+                                 f"{rep['relay']}, world {rep['world']}")
+        if rep["launches"] != want:
+            raise AssertionError(f"phase 22a {coll}: rank {r} launched "
+                                 f"{rep['launches']}, want {want}")
+    return job_s, reports
+
+
+def phase_tracker_fanout():
+    """22b: one worker raises after the rendezvous; the tracker aborts its
+    peer, which waits in a collective.  The job's seconds, the exit codes
+    and the error's message."""
+    import chip_smoke as module
+    from xgboost_tpu_torch.launcher import WorkerFailedError, run_distributed
+
+    t0 = time.perf_counter()
+    try:
+        run_distributed(module._p22_fail, 2, rendezvous="tracker",
+                        timeout=P22_FANOUT_S)
+    except WorkerFailedError as e:
+        err = e
+    else:
+        raise AssertionError("phase 22b: the failing job did not raise")
+    return (time.perf_counter() - t0,
+            sorted(rc for _label, rc, _tail in err.failures), str(err))
+
+
+def phase_22(xtt, hist_cuda, smi, mem_json=None):
+    """Phases 22a-22b: the tracker and the launcher on one card;
+    ``mem_json`` 20c's in-memory ranks' model (trained here if None).
+    22a's relay job and its gloo job (at the tracker's coordinator) each
+    run alone, so their rounds compare; its direct job (run_distributed's
+    default on the card) runs beside 22b's failing job, which gathers
+    through gloo at its tracker's coordinator."""
+    import shutil
+
+    if mem_json is None:
+        mem = _rank_train(xtt, hist_cuda, _p20c_shards(), P20_DET,
+                          P20_PROC_ROUNDS, "p22-memory", timed_repeat=False)
+        mem_json = mem[0]["json"]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_p22_")
+    old = os.environ.get("XGBOOST_TPU_COLL")
+    try:
+        os.environ["XGBOOST_TPU_COLL"] = "relay"
+        relay = timed("22a relay", _p22_job, hist_cuda, mem_json, "relay",
+                      tmp)
+        os.environ["XGBOOST_TPU_COLL"] = "gloo"
+        gloo = timed("22a gloo", _p22_job, hist_cuda, mem_json, "gloo", tmp)
+        t0 = time.perf_counter()
+        fanout = _in_thread(phase_tracker_fanout)
+        direct = _p22_job(hist_cuda, mem_json, "direct", tmp)
+        fan_s, codes, msg = fanout()
+        log(f"phase 22a direct and 22b took "
+            f"{time.perf_counter() - t0:.3f} s")
+    finally:
+        if old is None:
+            os.environ.pop("XGBOOST_TPU_COLL", None)
+        else:
+            os.environ["XGBOOST_TPU_COLL"] = old
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    def rounds(reports):
+        return " / ".join(" ".join(f"{t * 1e3:.3f}" for t in rep["rounds"])
+                          for rep in reports)
+
+    k2 = [rep["launches"]["hist_q"] // P20_PROC_ROUNDS
+          for rep in relay[1] + gloo[1] + direct[1]]
+    log(f"phase 22a ({smi}): run_distributed, 2 workers on one card x "
+        f"{P20_PROC_ROWS} rows, {P20_PROC_ROUNDS} rounds, deterministic: "
+        f"tracker-ranked over the relay {relay[0]:.3f} s and over gloo at "
+        f"its coordinator {gloo[0]:.3f} s, each alone; direct gloo (the "
+        f"default rendezvous) {direct[0]:.3f} s beside 22b's job (the "
+        f"workers' start, rendezvous, sketch and training); round ms by "
+        f"rank, relay {rounds(relay[1])}, gloo {rounds(gloo[1])}, direct "
+        f"{rounds(direct[1])}; K2 a round by worker (relay, gloo, direct) "
+        f"{k2}, K3 {P20_DET['max_depth']} a round, K4 "
+        f"{P20_PROC_ROUNDS + 1} a worker; the three jobs' model bytes "
+        "equal to 20c's 2 in-memory ranks'")
+    if fan_s > P22_FANOUT_S or codes != [1, 255]:
+        raise AssertionError(f"phase 22b: {fan_s:.3f} s, exit codes {codes}")
+    if "Traceback" not in msg or "rank 1 fails after the rendezvous" \
+            not in msg or "aborted by tracker fan-out" not in msg:
+        raise AssertionError(f"phase 22b: the error lacks the traceback or "
+                             f"the abort: {msg[-1500:]}")
+    log(f"phase 22b ({smi}): a worker raised after the rendezvous; its peer, "
+        f"waiting in a gloo collective, was aborted by the tracker (exit "
+        f"codes {codes}); WorkerFailedError after {fan_s:.3f} s (gate "
+        f"{P22_FANOUT_S}) with the failing worker's traceback")
 
 
 def _shap_entry(name, r):
@@ -5536,7 +5800,8 @@ def main() -> int:
     from xgboost_tpu_torch.ops import hist_cuda
 
     t_start = time.perf_counter()
-    smi = timed("1", phase_device, hist_cuda)
+    late_build = start_build(hist_cuda, LATE_BUILD)
+    smi = timed("1", phase_device, hist_cuda, LATE_BUILD)
     f32_cases = timed("2", phase_kernels, hist_cuda, "hist_f32", "2")
     q_cases = timed("2b", phase_kernels, hist_cuda, "hist_q", "2b")
     scan_cases = timed("2c", phase_split_scan, hist_cuda)
@@ -5587,14 +5852,18 @@ def main() -> int:
     timed("17d", phase_update, xtt, hist_cuda, dtrain, X)
     del dtrain
     timed("17e", phase_exact, xtt, hist_cuda, X, y)
+    late_build()
     shap = timed("18", phase_shap, xtt, hist_cuda, f32, X, cover, Xc,
                  lossguide, dart, gbl, cat)
     del X, y, Xc
     timed("17f", phase_boosters_parity, xtt)
     ext = phase_19(xtt, hist_cuda)
-    phase_20(xtt, hist_cuda, smi)
+    mem_json = phase_20(xtt, hist_cuda, smi)
     phase_21(xtt, hist_cuda, smi, ext)
     del ext
+    t22 = time.perf_counter()
+    phase_22(xtt, hist_cuda, smi, mem_json)
+    log(f"phase 22 took {time.perf_counter() - t22:.3f} s")
 
     kernels = [_kernel_entry(name, hist_cuda.SOURCES[name], cases, n)
                for name, cases, n in (("hist_f32", f32_cases, f32["launches"]),

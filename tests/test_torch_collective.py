@@ -169,14 +169,19 @@ def test_failed_rank_aborts_its_peers():
 
 
 @pytest.mark.parametrize("args,match", [
-    ({"dmlc_tracker_uri": "127.0.0.1", "dmlc_tracker_port": 9091},
-     "tracker"),
+    ({"dmlc_tracker_uri": "127.0.0.1"}, "tracker"),
     ({"dmlc_communicator": "federated"}, "federated"),
     ({"dmlc_communicator": "in-memory", "in_memory_join": True}, "join"),
 ])
 def test_unported_backends_raise(args, match):
-    with pytest.raises(NotImplementedError, match=match):
+    """The unported backends raise NotImplementedError; a tracker address
+    without its port raises the reference's ValueError (a worker that
+    meant to join a job must not train its shard alone)."""
+    exc = ValueError if match == "tracker" else NotImplementedError
+    with pytest.raises(exc, match=match):
         coll.init(**args)
+    with pytest.raises(ValueError, match="BOTH"):
+        xtb.collective.init(**{"dmlc_tracker_port": 9091})
     with pytest.raises(NotImplementedError, match="regroup"):
         coll.regroup(0)
     assert coll.get_world_size() == 1  # nothing was left initialized
@@ -267,9 +272,9 @@ print(json.dumps(out))
 def test_gloo_processes_reduce_as_the_in_memory_ranks():
     """Two processes over torch.distributed's gloo backend: every op's
     result is what the in-memory ranks compute from the same inputs."""
-    from xgboost_tpu_torch.distributed import _free_port
+    from xgboost_tpu_torch.launcher import _free_port
 
-    port = _free_port("127.0.0.1")
+    port = _free_port()
     procs = [subprocess.Popen(
         [sys.executable, "-c", _GLOO_WORKER, ROOT, str(port), str(r)],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)

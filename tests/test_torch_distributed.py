@@ -18,7 +18,9 @@ Tolerances:
 The shards are uneven (1,100 and 900 rows), so the ragged gathers and the
 ranks' padding differ."""
 import ast
+import inspect
 import json
+import textwrap
 import time
 
 import numpy as np
@@ -29,6 +31,7 @@ import xgboost_tpu_torch as xtt
 from xgboost_tpu import metric as ref_metric
 from xgboost_tpu.utils import native as ref_native
 from xgboost_tpu_torch import distributed as tdist
+from xgboost_tpu_torch import launcher
 from xgboost_tpu_torch import metric as port_metric
 from xgboost_tpu_torch.parallel import ProcessHistTreeGrower
 
@@ -325,21 +328,45 @@ def test_train_distributed_worker_failure_fails_fast():
     assert "cannot be read" in str(err.value)
 
 
+def test_train_distributed_failing_part_aborts_its_peer():
+    """The reference's check (tests/test_distributed_driver.py:61): a
+    worker whose callable part fails signals the tracker, which aborts
+    its peer (exit 255) waiting in the distributed sketch; the job raises
+    at once with the failing worker's traceback."""
+    X, y = _data(n=800)
+    t0 = time.time()
+    with pytest.raises(RuntimeError, match="distributed training failed") \
+            as err:
+        xtt.train_distributed(dict(DET, device="cpu"),
+                              [(X[:400], y[:400]), _failing_part],
+                              num_boost_round=2, timeout=300)
+    assert time.time() - t0 < 120, "the failure did not end the job"
+    msg = str(err.value)
+    assert "aborted by tracker fan-out" in msg
+    assert "Traceback" in msg and "in _failing_part" in msg
+    assert sorted(rc for _l, rc, _t in err.value.__cause__.failures) \
+        == [1, 255]
+
+
 def test_train_distributed_rejects_empty_parts():
     with pytest.raises(ValueError):
         xtt.train_distributed({"device": "cpu"}, [], num_boost_round=1)
 
 
 def test_worker_script_imports_only_the_port():
-    """The worker script that train_distributed starts imports the
-    standard library and xgboost_tpu_torch, nothing else."""
+    """The worker that train_distributed starts (the launcher's script,
+    then its worker function) imports the standard library and
+    xgboost_tpu_torch, nothing else."""
     mods = set()
-    for node in ast.walk(ast.parse(tdist._CHILD)):
-        if isinstance(node, ast.Import):
-            mods.update(a.name.split(".")[0] for a in node.names)
-        elif isinstance(node, ast.ImportFrom):
-            mods.add(node.module.split(".")[0])
-    assert mods == {"json", "os", "pickle", "sys", "xgboost_tpu_torch"}
+    for src in (launcher._CHILD,
+                textwrap.dedent(inspect.getsource(tdist._train_worker))):
+        for node in ast.walk(ast.parse(src)):
+            if isinstance(node, ast.Import):
+                mods.update(a.name.split(".")[0] for a in node.names)
+            elif isinstance(node, ast.ImportFrom):
+                mods.add("xgboost_tpu_torch" if node.level
+                         else node.module.split(".")[0])
+    assert mods == {"pickle", "sys", "xgboost_tpu_torch"}
 
 
 @pytest.mark.parametrize("builders", ["every rank", "rank 0 alone"])

@@ -221,11 +221,16 @@ def test_port_imports_neither_jax_nor_reference():
     sources.append(os.path.join(HERE, "test_torch_boosters_cuda.py"))
     sources.append(os.path.join(HERE, "test_torch_treeshap_cuda.py"))
     sources.append(os.path.join(HERE, "test_torch_extmem_cuda.py"))
-    # train_distributed's workers import it to build their parts
+    # train_distributed's and run_distributed's workers import them
     sources.append(os.path.join(HERE, "torch_extmem_parts.py"))
+    sources.append(os.path.join(HERE, "torch_launcher_workers.py"))
     sources += [os.path.join(os.path.dirname(HERE), "scripts", f)
                 for f in ("chip_phase19.py", "chip_phase20.py",
-                          "chip_phase21.py")]
+                          "chip_phase21.py", "chip_phase22.py")]
+    assert any(p.endswith(os.path.join("xgboost_tpu_torch", "tracker.py"))
+               for p in sources)
+    assert any(p.endswith(os.path.join("xgboost_tpu_torch", "launcher.py"))
+               for p in sources)
     assert len(sources) > 20
     assert any(p.endswith(os.path.join("ops", "quantise.py"))
                for p in sources)

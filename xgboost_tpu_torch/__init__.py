@@ -21,16 +21,17 @@ around them: ``train`` and ``cv`` with the reference's callbacks, the
 ``Booster`` (model files, ``save_config``/``load_config``, ``serialize``
 and pickling, round slicing, ``get_score``, ``inplace_predict``), the
 scikit-learn estimators and the plotting functions, both imported on first
-use.  Data-parallel training across ranks: ``collective`` (gloo processes
-or in-memory threads) and ``train_distributed`` (one worker process per
-data part), each rank's histograms on the kernels and summed over the
-ranks every level, in memory or out of core (``ExtMemConfig`` with a
+use.  Data-parallel training across ranks: ``collective`` (gloo processes,
+a ``tracker``'s ranks over its socket relay or gloo, or in-memory
+threads), ``train_distributed`` (one tracker-ranked worker process per
+data part) and ``launcher.run_distributed``, each rank's histograms on
+the kernels and summed over the ranks every level, in memory or out of core (``ExtMemConfig`` with a
 ``ShardMap`` of page shards), and exact and ``process_type="update"``
 training, whose host steps see every rank's rows.
 """
 from __future__ import annotations
 
-from . import collective, elastic
+from . import collective, elastic, tracker
 from .callback import (EarlyStopping, EvaluationMonitor, LearningRateScheduler,
                        TrainingCallback, TrainingCheckPoint)
 from .config import config_context, get_config, set_config
@@ -61,6 +62,7 @@ __all__ = [
     "train_distributed",
     "collective",
     "elastic",
+    "tracker",
     "config_context",
     "set_config",
     "get_config",

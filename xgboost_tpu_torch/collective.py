@@ -7,10 +7,19 @@ src/collective/coll.h:23, comm_group.cc:99), so the growers, the sketch
 merge and the metrics do not know which backend is live:
 
 - ``SingleProcessBackend``: world size 1, the identity.
-- ``TorchDistributedBackend``: one worker per process, rendezvous through
-  ``torch.distributed`` over gloo (``coordinator_address``,
-  ``num_processes``, ``process_id``: the reference's direct mode).  Host
-  arrays travel as CPU byte tensors through gloo's allgather.
+- ``TorchDistributedBackend``: one worker per process.  In direct mode
+  (``coordinator_address``, ``num_processes``, ``process_id``) a gloo
+  process group of ``torch.distributed``; host arrays travel as CPU byte
+  tensors through gloo's allgather.  In tracker mode
+  (``dmlc_tracker_uri``, ``dmlc_tracker_port``, ``dmlc_task_id``) a
+  ``tracker.TrackerClient`` takes the worker's rank and world from a
+  ``RabitTracker`` and keeps its connection as the error channel; the
+  gathers then go through the tracker's socket relay, or through a gloo
+  group at the coordinator address rank 0 reported.  The reference picks
+  by its JAX platform; the port has none, so the caller passes the
+  worker's ``device`` to ``init``: with ``XGBOOST_TPU_COLL=auto`` (the
+  default) a worker on the CPU (``device="cpu"``) takes the relay and any
+  other the gloo group; ``relay`` and ``gloo`` force one.
 - ``InMemoryBackend``: N threads of one process, each with its own rank
   (src/collective/in_memory_communicator.h:18), selected per thread with
   ``dmlc_communicator="in-memory"``.
@@ -21,14 +30,15 @@ on every rank, so every rank sees the same bits (an f32 sum included) and
 grows the same trees.  gloo's own all_reduce is never called: its ring
 order would differ from rank to rank.
 
-Not ported (ROADMAP Queue 1 item 9): the tracker (``dmlc_tracker_uri``),
-the federated communicator and elastic membership (join, leave, regroup)
-raise ``NotImplementedError``; the watchdog, fault seams and telemetry
-hooks of the reference's collective are left out (item 11).
+Not ported: the federated communicator (ROADMAP Queue 1 item 9b.4) and
+elastic membership (join, leave, regroup; item 9b.3) raise
+``NotImplementedError``; the watchdog, fault seams and telemetry hooks of
+the reference's collective are left out (item 11).
 """
 from __future__ import annotations
 
 import datetime
+import os
 import pickle
 import socket
 import sys
@@ -37,6 +47,8 @@ from enum import IntEnum
 from typing import Any, Dict, List, Optional
 
 import numpy as np
+
+from .tracker import COLL_TIMEOUT
 
 __all__ = [
     "init", "finalize", "get_rank", "get_world_size", "is_distributed",
@@ -47,7 +59,8 @@ __all__ = [
     "SingleProcessBackend", "TorchDistributedBackend", "InMemoryBackend",
 ]
 
-_NOT_PORTED = "(ROADMAP Queue 1 item 9)"
+_ELASTIC = "(ROADMAP Queue 1 item 9b.3)"
+_FEDERATED = "(ROADMAP Queue 1 item 9b.4)"
 
 
 class Op(IntEnum):
@@ -111,7 +124,7 @@ class CollBackend:
             buf[:] = np.frombuffer(payload, np.uint8)
         return bytes(self.allgather(buf)[root])
 
-    def abort(self) -> None:
+    def abort(self, msg: str = "") -> None:
         """Make the peers' pending and later collectives raise (a failed
         rank's signal); a no-op where a peer's failure already surfaces as
         a broken connection."""
@@ -140,43 +153,84 @@ class SingleProcessBackend(CollBackend):
 
 
 # how long a rank waits in a rendezvous or a collective for its peers
-# before it raises (reference collective.py:443-445)
-_TIMEOUT = datetime.timedelta(seconds=600)
+# before it raises (reference collective.py:443-445), the relay's bound too
+_TIMEOUT = datetime.timedelta(seconds=COLL_TIMEOUT)
 
 
 class TorchDistributedBackend(CollBackend):
-    """One worker per process over ``torch.distributed`` with the gloo
-    backend (the role of the reference's JaxDistributedBackend, whose
-    direct mode it keeps: ``coordinator_address`` "host:port" or
-    "tcp://host:port", ``num_processes``, ``process_id``).  Without a
-    coordinator it only reports a process group someone else
-    initialized.  The gather moves host bytes: each array is sent as a
-    uint8 CPU tensor of its bytes, so every dtype crosses unchanged."""
+    """One worker per process (the role of the reference's
+    JaxDistributedBackend).  Direct mode: ``coordinator_address``
+    ("host:port" or "tcp://host:port"), ``num_processes`` and
+    ``process_id`` start a gloo process group.  Tracker mode:
+    ``dmlc_tracker_uri`` and ``dmlc_tracker_port`` (``dmlc_task_id`` a
+    sort hint, not a rank) join a ``RabitTracker``, which assigns the rank;
+    the gathers take its relay or a gloo group at its coordinator (module
+    docstring; ``device`` the worker's).  Without either it only reports a
+    process group someone else initialized.  The gloo gather moves host
+    bytes: each array is sent as a uint8 CPU tensor of its bytes, so every
+    dtype crosses unchanged."""
 
     def __init__(self, **args: Any) -> None:
         self._owned = False
-        if args.get("dmlc_tracker_uri") or args.get("dmlc_tracker_port"):
-            raise NotImplementedError(
-                "tracker rendezvous (dmlc_tracker_uri / dmlc_tracker_port) "
-                "is not ported to xgboost_tpu_torch yet "
-                f"{_NOT_PORTED}; pass coordinator_address, num_processes "
-                "and process_id")
+        self._tracker = None
+        self._relay_mode = False
+        self._signalled = False
+        uri, port = args.get("dmlc_tracker_uri"), args.get("dmlc_tracker_port")
+        if uri and port:
+            self._join_tracker(str(uri), int(port), args)
+            return
+        if uri or port:
+            # a worker that meant to join a job must not train its shard
+            # alone (reference collective.py:235-242)
+            raise ValueError(
+                "tracker rendezvous needs BOTH dmlc_tracker_uri and "
+                f"dmlc_tracker_port; got uri={uri!r} port={port!r}")
         coordinator = args.get("coordinator_address")
         if coordinator is None:
             return
-        import torch.distributed as dist
-
         if args.get("num_processes") is None or args.get("process_id") is None:
             raise ValueError("coordinator_address needs num_processes and "
                              "process_id")
-        addr = str(coordinator)
-        if "://" not in addr:
-            addr = "tcp://" + addr
+        self._init_gloo(str(coordinator), int(args["process_id"]),
+                        int(args["num_processes"]))
+
+    def _join_tracker(self, uri: str, port: int, args: Dict[str, Any]) -> None:
+        from .tracker import TrackerClient
+
+        mode = os.environ.get("XGBOOST_TPU_COLL", "auto")
+        if mode not in ("auto", "relay", "gloo"):
+            raise ValueError(f"XGBOOST_TPU_COLL must be auto, relay or gloo, "
+                             f"not {mode!r}")
+        t = TrackerClient(uri, port, task_id=str(args.get("dmlc_task_id", "")))
+        self._tracker = t
+        device = str(args.get("device") or "")
+        self._relay_mode = (
+            t.coll_port is not None and t.world > 1
+            and (mode == "relay"
+                 or (mode == "auto" and device.split(":")[0] == "cpu")))
+        if self._relay_mode:
+            return
+        try:
+            self._init_gloo(t.coordinator, t.rank, t.world)
+        except Exception as e:
+            # rank 0's store may have lost the coordinator port to another
+            # process since it reported it: end the job through the
+            # tracker rather than leave the peers waiting on the store
+            msg = (f"rank {t.rank}: the gloo process group at the "
+                   f"tracker's coordinator {t.coordinator} failed: {e}")
+            t.signal_error(msg)
+            t.shutdown()
+            self._tracker = None
+            raise RuntimeError(msg) from e
+
+    def _init_gloo(self, coordinator: str, rank: int, world: int) -> None:
+        import torch.distributed as dist
+
+        addr = coordinator if "://" in coordinator else "tcp://" + coordinator
         if dist.is_initialized():
             raise RuntimeError("torch.distributed is already initialized")
-        dist.init_process_group(
-            "gloo", init_method=addr, rank=int(args["process_id"]),
-            world_size=int(args["num_processes"]), timeout=_TIMEOUT)
+        dist.init_process_group("gloo", init_method=addr, rank=rank,
+                                world_size=world, timeout=_TIMEOUT)
         self._owned = True
 
     @staticmethod
@@ -186,6 +240,8 @@ class TorchDistributedBackend(CollBackend):
         return dist.is_available() and dist.is_initialized()
 
     def rank(self) -> int:
+        if self._relay_mode:
+            return self._tracker.rank
         if not self._live():
             return 0
         import torch.distributed as dist
@@ -193,6 +249,8 @@ class TorchDistributedBackend(CollBackend):
         return dist.get_rank()
 
     def world_size(self) -> int:
+        if self._relay_mode:
+            return self._tracker.world
         if not self._live():
             return 1
         import torch.distributed as dist
@@ -201,6 +259,8 @@ class TorchDistributedBackend(CollBackend):
 
     def allgather(self, data: np.ndarray) -> np.ndarray:
         data = np.ascontiguousarray(data)
+        if self._relay_mode:
+            return self._tracker.coll_allgather(data)
         world = self.world_size()
         if world == 1:
             return data[None]
@@ -213,12 +273,23 @@ class TorchDistributedBackend(CollBackend):
         return np.stack([o.numpy().view(data.dtype).reshape(data.shape)
                          for o in out])
 
+    def abort(self, msg: str = "") -> None:
+        """Tell the tracker, once, that this worker failed: it aborts the
+        others.  Without a tracker a peer's failure surfaces in gloo."""
+        if self._tracker is not None and not self._signalled:
+            self._signalled = True
+            self._tracker.signal_error(msg or "a worker failed")
+
     def shutdown(self) -> None:
         if self._owned and self._live():
             import torch.distributed as dist
 
             dist.destroy_process_group()
         self._owned = False
+        self._relay_mode = False
+        if self._tracker is not None:
+            self._tracker.shutdown()
+            self._tracker = None
 
 
 class _InMemoryGroup:
@@ -268,7 +339,7 @@ class InMemoryBackend(CollBackend):
         g.barrier.wait(timeout=timeout)  # every rank copied before reuse
         return out
 
-    def abort(self) -> None:
+    def abort(self, msg: str = "") -> None:
         self._group.barrier.abort()
 
 
@@ -297,8 +368,11 @@ def init(**args: Any) -> None:
     """Initialize the collective (reference collective.py:677).
     ``dmlc_communicator`` (or ``xgboost_communicator``) = 'in-memory' picks
     the thread backend (``in_memory_world_size``, ``in_memory_rank``,
-    ``in_memory_group``); otherwise ``coordinator_address``,
-    ``num_processes`` and ``process_id`` start a gloo process group."""
+    ``in_memory_group``); otherwise ``dmlc_tracker_uri`` and
+    ``dmlc_tracker_port`` join a ``RabitTracker`` (``dmlc_task_id``, and
+    ``device``: the worker's, which picks the relay or gloo), or
+    ``coordinator_address``, ``num_processes`` and ``process_id`` start a
+    gloo process group."""
     global _PROCESS_BACKEND
     kind = (args.get("dmlc_communicator")
             or args.get("xgboost_communicator") or "").replace("_", "-")
@@ -306,7 +380,7 @@ def init(**args: Any) -> None:
         if args.get("in_memory_join"):
             raise NotImplementedError(
                 "elastic in-memory join is not ported to xgboost_tpu_torch "
-                f"yet {_NOT_PORTED}")
+                f"yet {_ELASTIC}")
         _TLS.backend = InMemoryBackend(
             int(args.get("in_memory_world_size", 1)),
             int(args.get("in_memory_rank", 0)),
@@ -315,7 +389,7 @@ def init(**args: Any) -> None:
     if kind == "federated":
         raise NotImplementedError(
             "the federated communicator is not ported to xgboost_tpu_torch "
-            f"yet {_NOT_PORTED}")
+            f"yet {_FEDERATED}")
     _PROCESS_BACKEND = TorchDistributedBackend(**args)
 
 
@@ -396,7 +470,7 @@ def global_ratio(dividend: float, divisor: float) -> float:
 def regroup(completed_round: int = 0):
     raise NotImplementedError(
         "elastic regroup is not ported to xgboost_tpu_torch yet "
-        f"{_NOT_PORTED}")
+        f"{_ELASTIC}")
 
 
 def broadcast(data: Any, root: int) -> Any:
@@ -410,18 +484,20 @@ def broadcast(data: Any, root: int) -> Any:
 
 
 def signal_error(msg: str = "") -> None:
-    """Fail fast (reference collective.py:319): print, make the peers'
-    collectives raise where the backend can, and exit."""
+    """Fail fast (reference collective.py:871): print, make the peers
+    stop (a tracker aborts them; in-memory ranks' collectives raise), and
+    exit 1.  No collective: a peer may be wedged already."""
     b = _backend()
     print(f"[{b.rank()}] collective error: {msg}", flush=True)
-    b.abort()
+    b.abort(msg or "signal_error")
     sys.exit(1)
 
 
 class CommunicatorContext:
     """``with`` block around ``init``/``finalize`` (reference
     collective.py:358).  A worker that leaves the block by an exception
-    aborts its backend first, so that its peers raise rather than wait."""
+    aborts its backend first, so that its peers raise rather than wait
+    (a tracker's workers are aborted)."""
 
     def __init__(self, **args: Any) -> None:
         self.args = args
@@ -430,7 +506,7 @@ class CommunicatorContext:
         init(**self.args)
         return self.args
 
-    def __exit__(self, exc_type, *exc: Any) -> None:
+    def __exit__(self, exc_type, exc, tb) -> None:
         if exc_type is not None:
-            _backend().abort()
+            _backend().abort(f"{exc_type.__name__}: {exc}")
         finalize()

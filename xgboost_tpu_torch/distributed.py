@@ -2,26 +2,27 @@
 xgboost_tpu/distributed.py; the dask ``train`` role, reference
 python-package/xgboost/dask/__init__.py:722 _train_async).
 
-``train_distributed(params, parts, ...)`` picks a free localhost port,
-starts one worker process per data part, and each worker joins a gloo
-process group there (``collective.CommunicatorContext`` with
-``coordinator_address``, ``num_processes`` and ``process_id``: worker i
-is rank i and reads part i), builds its DMatrix from its part, and
-trains: the cuts merge through the distributed sketch, the histograms
-are summed over the ranks each level.  Rank 0's model comes back as
-``{"booster": Booster, "history": dict, "best_iteration": ...}``.  The
-workers import only xgboost_tpu_torch and run on the card unless
-``params`` asks for the CPU (``"device": "cpu"``); several workers may
-share one card.  A worker that fails ends the job at once: the parent
-stops the others and raises with the failed worker's log.
+``train_distributed(params, parts, ...)`` starts a
+:class:`~xgboost_tpu_torch.tracker.RabitTracker`, then one worker process
+per data part, through the launcher's tracker rendezvous
+(``launcher.run_distributed``'s: the tracker assigns the rank, and a
+worker of rank r reads part r).  Each worker builds its DMatrix from
+its part, and trains: the cuts merge through the distributed sketch, the
+histograms are summed over the ranks each level (on the tracker's relay
+for CPU workers, a gloo group at the tracker's coordinator on the card).
+Rank 0's model comes back as ``{"booster": Booster, "history": dict,
+"best_iteration": ...}``.  The workers import only xgboost_tpu_torch and
+run on the card unless ``params`` asks for the CPU (``"device": "cpu"``);
+several workers may share one card.  A worker that fails signals the
+tracker, which aborts the others (exit 255) rather than leave them
+waiting in a collective; the parent raises with the failed workers'
+stderr tails.
 
 A part is a ``(X, y)`` tuple, a ``{"data": X, "label": y, ...}`` dict of
 DMatrix arguments, or a picklable module-level zero-argument callable
 returning one of them or a DMatrix.  The callable runs in the worker once
 the collective is up, so an ``ExtMemQuantileDMatrix`` it builds over the
-worker's pages takes the ranks' shared cuts.  The reference's tracker,
-which assigns ranks and fans out errors, is not ported (ROADMAP Queue 1
-item 9b.2).
+worker's pages takes the ranks' shared cuts.
 """
 from __future__ import annotations
 
@@ -30,53 +31,12 @@ import json
 import os
 import pickle
 import shutil
-import socket
-import subprocess
-import sys
 import tempfile
-import time
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Dict, Optional, Sequence
 
 from .core import Booster
 
 __all__ = ["train_distributed"]
-
-_CHILD = r"""
-import json, os, pickle, sys
-
-tmp, port, world, rank, syspaths = (sys.argv[1], sys.argv[2],
-                                    int(sys.argv[3]), int(sys.argv[4]),
-                                    sys.argv[5])
-for p in reversed(syspaths.split(chr(31))):
-    if p:
-        sys.path.insert(0, p)
-
-import xgboost_tpu_torch as xtt
-from xgboost_tpu_torch import collective
-from xgboost_tpu_torch.distributed import _make_dmatrix
-
-with collective.CommunicatorContext(
-        coordinator_address=f"tcp://127.0.0.1:{port}",
-        num_processes=world, process_id=rank):
-    with open(os.path.join(tmp, "spec.pkl"), "rb") as fh:
-        spec = pickle.load(fh)
-    with open(os.path.join(tmp, f"part_{rank}.pkl"), "rb") as fh:
-        part = pickle.load(fh)  # this rank's shard alone
-    dtrain = _make_dmatrix(part, spec["params"].get("device"))
-    evals = [(dtrain, "train")] if spec["eval_train"] else []
-    history = {}
-    bst = xtt.train(spec["params"], dtrain, spec["num_boost_round"],
-                    evals=evals, evals_result=history,
-                    verbose_eval=spec["verbose_eval"],
-                    **spec["train_kwargs"])
-    if rank == 0:
-        raw = bytes(bst.save_raw())
-        head = json.dumps({"history": history,
-                           "best_iteration": bst.best_iteration}).encode()
-        with open(os.path.join(tmp, "result.bin"), "wb") as fh:
-            fh.write(len(head).to_bytes(8, "little") + head + raw)
-print("WORKER-DONE", flush=True)
-"""
 
 
 def _make_dmatrix(part: Any, device=None):
@@ -98,52 +58,53 @@ def _make_dmatrix(part: Any, device=None):
                     f"{type(part)}")
 
 
-def _free_port(host: str) -> int:
-    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
-        s.bind((host, 0))
-        return s.getsockname()[1]
+def _train_worker(tmp: str, rank: int, world: int) -> None:
+    """One worker of :func:`train_distributed`, run by the launcher inside
+    the tracker-mode collective: train on ``part_<rank>`` and, at rank 0,
+    write the model and its history to ``result.bin``."""
+    import xgboost_tpu_torch as xtt
 
-
-def _import_paths(parts) -> List[str]:
-    """The repository root, and the directory of the module of each
-    callable part (a callable unpickles in the worker by import path)."""
-    paths = [os.path.dirname(os.path.dirname(os.path.abspath(__file__)))]
-    for part in parts:
-        fn = part.func if isinstance(part, functools.partial) else part
-        if callable(fn):
-            mod = sys.modules.get(getattr(fn, "__module__", ""), None)
-            f = getattr(mod, "__file__", None)
-            if f:
-                d = os.path.dirname(os.path.abspath(f))
-                if d not in paths:
-                    paths.append(d)
-    return paths
+    with open(os.path.join(tmp, "spec.pkl"), "rb") as fh:
+        spec = pickle.load(fh)
+    with open(os.path.join(tmp, f"part_{rank}.pkl"), "rb") as fh:
+        part = pickle.load(fh)  # this rank's shard alone
+    dtrain = _make_dmatrix(part, spec["params"].get("device"))
+    evals = [(dtrain, "train")] if spec["eval_train"] else []
+    history: Dict[str, Any] = {}
+    bst = xtt.train(spec["params"], dtrain, spec["num_boost_round"],
+                    evals=evals, evals_result=history,
+                    verbose_eval=spec["verbose_eval"],
+                    **spec["train_kwargs"])
+    if rank == 0:
+        raw = bytes(bst.save_raw())
+        head = json.dumps({"history": history,
+                           "best_iteration": bst.best_iteration}).encode()
+        with open(os.path.join(tmp, "result.bin"), "wb") as fh:
+            fh.write(len(head).to_bytes(8, "little") + head + raw)
 
 
 def train_distributed(params: Dict[str, Any], parts: Sequence[Any],
                       num_boost_round: int = 10, *,
                       eval_train: bool = False,
                       verbose_eval: bool = False,
+                      host_ip: str = "127.0.0.1",
                       timeout: int = 1200,
                       train_kwargs: Optional[Dict[str, Any]] = None
                       ) -> Dict[str, Any]:
     """Train one model over ``len(parts)`` local worker processes; returns
     rank 0's ``{"booster", "history", "best_iteration"}`` (the reference's
-    dask ``train()`` contract, dask/__init__.py:930).  ``timeout``: the
-    seconds the job may take before its workers are stopped."""
+    dask ``train()`` contract, dask/__init__.py:930).  ``host_ip``: the
+    address the tracker listens on; ``timeout``: the seconds the job may
+    take before its workers are stopped.  A failed or timed-out job
+    raises ``RuntimeError`` with the failed workers' stderr tails."""
     world = len(parts)
     if world == 0:
         raise ValueError("parts is empty: need one data part per worker")
+    from .launcher import WorkerFailedError, _launch
     from .utils.device import resolve_device
 
-    if resolve_device(params.get("device")).type == "cuda":
-        # build the kernel libraries here, once, so the workers only load
-        from .ops import hist_cuda
-
-        hist_cuda.build_all()
+    device = resolve_device(params.get("device"))
     tmp = tempfile.mkdtemp(prefix="xtt_dist_")
-    procs: List[subprocess.Popen] = []
-    logs: List[Any] = []
     try:
         with open(os.path.join(tmp, "spec.pkl"), "wb") as fh:
             pickle.dump({"params": dict(params),
@@ -151,30 +112,21 @@ def train_distributed(params: Dict[str, Any], parts: Sequence[Any],
                          "eval_train": bool(eval_train),
                          "verbose_eval": verbose_eval,
                          "train_kwargs": dict(train_kwargs or {})}, fh)
+        # the tracker gives the ranks: every part is written, and a worker
+        # reads only the part of its rank
         for i, part in enumerate(parts):
             with open(os.path.join(tmp, f"part_{i}.pkl"), "wb") as fh:
                 pickle.dump(part, fh)
-        port = _free_port("127.0.0.1")
-        paths = chr(31).join(_import_paths(parts))
-        for i in range(world):
-            # output to a file: a pipe would block a chatty worker while
-            # the parent waits on another
-            log = open(os.path.join(tmp, f"worker_{i}.log"), "w+")
-            logs.append(log)
-            procs.append(subprocess.Popen(
-                [sys.executable, "-c", _CHILD, tmp, str(port), str(world),
-                 str(i), paths],
-                stdout=log, stderr=subprocess.STDOUT))
-        _wait_all(procs, logs, timeout)
+        try:
+            _launch(functools.partial(_train_worker, tmp), world,
+                    platform="cpu" if device.type == "cpu" else None,
+                    timeout=timeout, rendezvous="tracker", host_ip=host_ip,
+                    imports=parts)
+        except (WorkerFailedError, TimeoutError) as e:
+            raise RuntimeError(f"distributed training failed: {e}") from e
         with open(os.path.join(tmp, "result.bin"), "rb") as fh:
             blob = fh.read()
     finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-        for log in logs:
-            log.close()
         shutil.rmtree(tmp, ignore_errors=True)
     n = int.from_bytes(blob[:8], "little")
     meta = json.loads(blob[8:8 + n].decode())
@@ -182,36 +134,3 @@ def train_distributed(params: Dict[str, Any], parts: Sequence[Any],
     bst.load_model(bytearray(blob[8 + n:]))
     return {"booster": bst, "history": meta["history"],
             "best_iteration": meta["best_iteration"]}
-
-
-def _wait_all(procs, logs, timeout: float, grace: float = 5.0) -> None:
-    """Wait for every worker.  The first that fails, or the timeout, ends
-    the job: the others get ``grace`` seconds to exit on their own (a peer
-    of a failed worker fails in its next collective), then are stopped,
-    and the failed workers' logs are raised."""
-    deadline = time.monotonic() + timeout
-    while True:
-        codes = [p.poll() for p in procs]
-        if all(c == 0 for c in codes):
-            return
-        if any(c not in (None, 0) for c in codes) \
-                or time.monotonic() > deadline:
-            break
-        time.sleep(0.05)
-    end = time.monotonic() + grace
-    while any(p.poll() is None for p in procs) and time.monotonic() < end:
-        time.sleep(0.05)
-    codes = [p.poll() for p in procs]
-    for p in procs:
-        if p.poll() is None:
-            p.kill()
-            p.wait()
-    errs = []
-    for i, c in enumerate(codes):
-        if c not in (None, 0):
-            logs[i].seek(0)
-            errs.append(f"worker {i} (exit {c}):\n" + logs[i].read()[-2000:])
-    if all(c is None or c == 0 for c in codes):
-        errs.append(f"timed out after {timeout}s")
-    raise RuntimeError("distributed training failed:\n"
-                       + "\n---\n".join(errs))
