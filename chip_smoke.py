@@ -342,6 +342,25 @@ holds each CUDA kernel against its plain PyTorch version:
      peer aborted by the tracker (exit 255), the failing worker's
      traceback in the error
 
+  23. serving (xgboost_tpu_torch/serving/) on the card: (a) the
+     reference's serving configuration (scripts/bench_serve.py: a
+     binary:logistic model of 20 rounds x depth 6 on 20,000 x 28 rows,
+     max_batch 4096, max_delay_us 2000, warm-up buckets 1, 64, 4096):
+     direct batches of 1, 64 and 4096 rows (p50, p99, rows/s) and 4
+     threads x 100 one-row requests through the micro-batcher (requests/s,
+     batches, their sizes, latency quantiles); every output
+     Booster.predict's bits on the card, every batch a replay of a graph
+     captured at warm-up (replays = batches, K4 once a replay, nothing
+     captured after warm-up, no worker error); one replay against one
+     eager run of the 8- and 4096-row graphs (kernels, event ms, device
+     ms, host wall, idle share); (b) phase 8's Covertype, phase 7's
+     categorical and 17a's DART models at 4096 rows with the default
+     warm-up ladder (8 ... 4096), each bitwise Booster.predict, the memory
+     each takes with its graphs; threads serving while a second version is
+     added (an LRU eviction under load), pinned away and back; every
+     model's memory and programs given back; (c) the 23a model's JSON on
+     the card and on the CPU: the same bits
+
 Phase 2 and 2b also give each case's device time a launch (torch.profiler),
 and phases 7, 8 and 9 the bound, the kernel and the index_add_ yardstick on
 each launch's inputs of a round (8 also K3's bound; 9 a one-round profile
@@ -5680,6 +5699,417 @@ def phase_22(xtt, hist_cuda, smi, mem_json=None):
         f"{P22_FANOUT_S}) with the failing worker's traceback")
 
 
+# ---------------------------------------------------------------- serving
+# 23a: the reference's own serving configuration (scripts/bench_serve.py:
+# 116-134 and 599-632): binary:logistic, 20 rounds, depth 6, 28 features,
+# max_bin 256, on that script's 20,000 rows from seed 0; max_batch 4096,
+# max_delay_us 2000, warm-up buckets (1, 64, 4096)
+P23_ROWS = 20_000
+P23_FEATURES = 28
+P23_PARAMS = {"objective": "binary:logistic", "max_depth": 6, "max_bin": 256}
+P23_ROUNDS = 20
+P23_CONFIG = {"max_batch": 4096, "max_delay_us": 2000,
+              "warmup_buckets": (1, 64, 4096)}
+P23_DIRECT = ((1, 400), (64, 200), (4096, 30))  # (rows, iterations)
+P23_THREADS = 4
+P23_PER_THREAD = 100
+P23B_ROWS = 4096
+P23B_THREADS = 3
+
+
+def make_serve_data(n: int = P23_ROWS, f: int = P23_FEATURES, seed: int = 0):
+    """scripts/bench_serve.py:train_model's rows: N(0, 1) features, the
+    label the sign of x0 + x1 / 2 - x2 / 4."""
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(n, f)).astype(np.float32)
+    margin = X[:, 0] + 0.5 * X[:, 1] - 0.25 * X[:, 2]
+    return X, (margin > 0).astype(np.float32)
+
+
+def _p23_bitwise(got, want, what):
+    if got.shape != want.shape or got.dtype != want.dtype \
+            or not np.array_equal(got, want):
+        diff = (np.abs(got.astype(np.float64) - want).max()
+                if got.shape == want.shape else "shape")
+        raise AssertionError(f"phase 23: {what} is not Booster.predict's "
+                             f"bits (shapes {got.shape} {want.shape}, max "
+                             f"diff {diff})")
+
+
+def _p23_direct(eng, X, ref, batch: int, iters: int):
+    """scripts/bench_serve.py:bench_direct on the card (one run, not the
+    min of three): the p50 and p99 of ``iters`` direct requests of
+    ``batch`` rows, rows/s over the loop's wall; each output held against
+    ``ref`` after the loop."""
+    rng = np.random.default_rng(batch)
+    starts = [int(rng.integers(0, len(X) - batch + 1)) for _ in range(8)]
+    lat, outs = np.empty(iters), []
+    t_all = time.perf_counter()
+    for i in range(iters):
+        s = starts[i % 8]
+        t0 = time.perf_counter()
+        out = eng.predict("higgs", X[s:s + batch], direct=True)
+        lat[i] = time.perf_counter() - t0
+        outs.append((s, out))
+    wall = time.perf_counter() - t_all
+    for s, out in outs:
+        _p23_bitwise(out, ref[s:s + batch], f"a direct {batch}-row batch")
+    p50, p99 = np.percentile(lat, [50, 99])
+    return {"batch": batch, "iters": iters, "p50_ms": float(p50) * 1e3,
+            "p99_ms": float(p99) * 1e3, "rows_per_s": batch * iters / wall}
+
+
+def _p23_concurrent(eng, X, ref):
+    """scripts/bench_serve.py:bench_concurrent (one run): 4 threads x 100
+    one-row requests through the micro-batcher, each output held against
+    its row of ``ref``."""
+    errors, outs = [], []
+    barrier = threading.Barrier(P23_THREADS)
+
+    def worker(tid):
+        rng = np.random.default_rng(tid)
+        try:
+            barrier.wait(30)
+            for _ in range(P23_PER_THREAD):
+                i = int(rng.integers(0, len(X)))
+                outs.append((i, eng.predict("higgs", X[i][None, :])))
+        except BaseException as e:  # noqa: BLE001 - gated below
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=worker, args=(t,))
+               for t in range(P23_THREADS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(120)
+    wall = time.perf_counter() - t0
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError(f"phase 23a: concurrent requests failed: "
+                             f"{errors[:3]}")
+    for i, out in outs:
+        _p23_bitwise(out, ref[i:i + 1], "a batched one-row request")
+    return {"wall_s": wall,
+            "requests_per_s": P23_THREADS * P23_PER_THREAD / wall}
+
+
+def _host_wall_ms(fn, reps: int = 20) -> float:
+    """Median host wall of ``fn()`` and a synchronize."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def _p23_profile(eng, smi):
+    """One replay of the 8- and 4096-row transformed graphs beside one eager
+    run of the same functions on the same static input: kernels (the
+    eager run's, read from a graph captured from it), CUDA-event ms a call,
+    device ms a call (torch.profiler), host wall (with a synchronize) and
+    the idle share; the eager output the replay's bits."""
+    snap, _ = eng.registry.get("higgs")
+    prog = snap._serve_prog
+    rows = {}
+    for B in (8, 4096):
+        g = prog._entries[(B, P23_FEATURES, False)]
+
+        def replay(g=g):
+            g.graph.replay()
+
+        def eager(g=g):
+            return prog._compute(snap, g.x_dev, False)
+
+        replay()
+        if not torch.equal(eager(), g.out_dev):
+            raise AssertionError(f"phase 23a: the {B}-row replay is not the "
+                                 "eager run's bits")
+        kernels = sum(1 for kind, _ in graph_ops(eager) if kind == "kernel")
+        r = {}
+        for name, fn in (("replay", replay), ("eager", eager)):
+            dev_ms, per_call, _ = device_per_call(fn)
+            wall = _host_wall_ms(fn)
+            r[name] = {"event_ms": cuda_ms(fn), "device_ms": dev_ms,
+                       "profiler_kernels": per_call, "wall_ms": wall,
+                       "idle": (None if dev_ms is None
+                                else 1 - dev_ms / wall)}
+        rows[B] = r
+
+        def fmt(v, p=4):
+            return "not measured" if v is None else f"{v:.{p}f}"
+
+        log(f"phase 23a profile ({smi}), the {B}-row bucket's transformed "
+            f"program, {kernels} kernels (the eager run's, from its graph); "
+            + "; ".join(
+                f"{name}: {fmt(v['event_ms'])} ms a call (CUDA events), "
+                f"device {fmt(v['device_ms'])} ms ({v['profiler_kernels']} "
+                f"kernels seen), host wall {fmt(v['wall_ms'])} ms, idle "
+                f"{fmt(v['idle'])}" for name, v in r.items()))
+        rows[B]["kernels"] = kernels
+    return rows
+
+
+def phase_serving(xtt, hist_cuda, smi):
+    """23a: the reference's serving configuration on the card."""
+    from xgboost_tpu_torch.ops.predict import graph_replays
+    from xgboost_tpu_torch.serving import ServingEngine
+
+    X, y = make_serve_data()
+    t0 = time.perf_counter()
+    bst = xtt.train(P23_PARAMS, xtt.DMatrix(X, label=y), P23_ROUNDS,
+                    verbose_eval=False)
+    train_s = time.perf_counter() - t0
+    ref = bst.predict(xtt.DMatrix(X))
+    eng = ServingEngine(**P23_CONFIG)
+    try:
+        programs0 = eng.compile_cache_size()
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        eng.add_model("higgs", bst)
+        warm_s = time.perf_counter() - t0
+        captured = eng.compile_cache_size() - programs0
+        torch.cuda.synchronize()
+        mem = torch.cuda.memory_allocated() - mem0
+        if captured != 6 or eng.metrics.compiles_warmup != 6:
+            raise AssertionError(f"phase 23a: warm-up captured {captured} "
+                                 "graphs, want 6 (3 buckets x 2 outputs)")
+        # the main path: every count at 0, the direct and concurrent drive,
+        # every count read
+        hist_cuda.reset_launches()
+        replays0 = graph_replays()
+        direct = [_p23_direct(eng, X, ref, b, n) for b, n in P23_DIRECT]
+        eng.metrics.reset_latencies("higgs")  # the quantiles: concurrent's
+        conc = _p23_concurrent(eng, X, ref)
+        replays = graph_replays() - replays0
+        k4 = hist_cuda.launches["sigmoid"]
+        others = {k: n for k, n in hist_cuda.launches.items()
+                  if n and k != "sigmoid"}
+        snap = eng.metrics_snapshot()
+        m = snap["models"]["higgs"]
+        executed = sum(n for _, n in P23_DIRECT) + m["batches"]
+        if replays != executed or k4 != replays or others:
+            raise AssertionError(
+                f"phase 23a: {replays} graph replays for {executed} batches, "
+                f"K4 launched {k4} times, other kernels {others}")
+        if snap["compiles_steady"] or eng.compile_cache_size() \
+                != programs0 + captured:
+            raise AssertionError(
+                f"phase 23a: {snap['compiles_steady']} steady captures, "
+                f"gauge {eng.compile_cache_size()} after warm-up "
+                f"{programs0 + captured}")
+        if m["errors"] or not eng._batcher.worker_alive():
+            raise AssertionError(f"phase 23a: {m['errors']} errors, worker "
+                                 f"alive {eng._batcher.worker_alive()}")
+        for d in direct:
+            log(f"phase 23a direct ({smi}): {d['batch']} rows x "
+                f"{d['iters']}: p50 {d['p50_ms']:.4f} ms, p99 "
+                f"{d['p99_ms']:.4f} ms, {d['rows_per_s']:.1f} rows/s")
+        lat = m["latency_ms"]
+        log(f"phase 23a concurrent ({smi}): {P23_THREADS} threads x "
+            f"{P23_PER_THREAD} one-row requests through the batcher in "
+            f"{conc['wall_s']:.4f} s = {conc['requests_per_s']:.1f} "
+            f"requests/s; {m['batches']} batches, sizes "
+            f"{m['batch_size_hist']}; their latency p50 {lat['p50']:.4f} "
+            f"p95 {lat['p95']:.4f} p99 {lat['p99']:.4f} ms")
+        log(f"phase 23a: the model ({P23_ROWS} x {P23_FEATURES}, "
+            f"{P23_ROUNDS} x depth 6) trained in {train_s:.3f} s; warm-up "
+            f"captured {captured} graphs in {warm_s:.3f} s, "
+            f"{mem / 2**20:.3f} MiB allocated with the snapshot; main path: "
+            f"{replays} graph replays = {executed} batches, K4 {k4} "
+            f"launches (one a replay), no other kernel launched from Python, "
+            f"0 steady captures, every output Booster.predict's bits on the "
+            f"card")
+        prof = _p23_profile(eng, smi)
+    finally:
+        eng.close()
+    return {"bst": bst, "X": X, "ref": ref, "k4": k4, "replays": replays,
+            "direct": direct, "concurrent": conc, "profile": prof}
+
+
+def _p23_serve_check(eng, name, bst, rows, dmat):
+    """The engine's output of ``rows``, direct and batched, against
+    Booster.predict of ``dmat`` on the card, bitwise; p50 of 20 direct
+    requests."""
+    want = bst.predict(dmat)
+    for direct in (True, False):
+        _p23_bitwise(eng.predict(name, rows, direct=direct), want,
+                     f"{name}'s {len(rows)} rows ({'direct' if direct else 'batched'})")
+    lat = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        eng.predict(name, rows, direct=True)
+        lat.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(lat)
+
+
+def phase_serving_models(xtt, smi, higgs, models):
+    """23b: phase 8's Covertype model at 4096 rows, phase 7's categorical
+    model, 17a's DART model, each with the default warm-up ladder (8 ...
+    4096); the memory each takes; a hot swap and a pin while threads
+    serve; an LRU eviction under load; every model's memory given back."""
+    from xgboost_tpu_torch.serving import ServingEngine
+
+    X, ref = higgs["X"], higgs["ref"]
+    eng = ServingEngine(max_models=4)
+    try:
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated()
+        programs0 = eng.compile_cache_size()
+        mem, used = {}, mem0
+        for name, (bst, rows, dmat) in models.items():
+            t0 = time.perf_counter()
+            eng.add_model(name, bst)
+            warm_s = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            now = torch.cuda.memory_allocated()
+            mem[name] = now - used
+            used = now
+            p50 = _p23_serve_check(eng, name, bst, rows, dmat)
+            log(f"phase 23b {name} ({smi}): {len(bst.trees)} trees; warm-up "
+                f"20 graphs in {warm_s:.3f} s, {mem[name] / 2**20:.3f} MiB "
+                f"allocated with them; {len(rows)} rows direct and batched "
+                f"Booster.predict's bits, p50 {p50:.4f} ms direct")
+        eng.add_model("higgs", higgs["bst"])
+        torch.cuda.synchronize()
+        mem["higgs"] = torch.cuda.memory_allocated() - used
+        # threads serve higgs while the main thread swaps in another
+        # version (evicting the least recently used model), pins the old
+        # one and unpins it
+        swap = higgs["bst"][0:10]
+        ref2 = swap.predict(xtt.DMatrix(X))
+        stop = threading.Event()
+        errors, seen = [], {"v1": 0, "v2": 0}
+
+        def worker(tid):
+            rng = np.random.default_rng(100 + tid)
+            try:
+                while not stop.is_set():
+                    r = int(rng.choice((1, 7, 64)))
+                    s = int(rng.integers(0, len(X) - r))
+                    out = eng.predict("higgs", X[s:s + r])
+                    if np.array_equal(out, ref[s:s + r]):
+                        seen["v1"] += 1
+                    elif np.array_equal(out, ref2[s:s + r]):
+                        seen["v2"] += 1
+                    else:
+                        raise AssertionError("an output of neither version")
+            except BaseException as e:  # noqa: BLE001 - gated below
+                errors.append(repr(e))
+
+        threads = [threading.Thread(target=worker, args=(t,))
+                   for t in range(P23B_THREADS)]
+        for t in threads:
+            t.start()
+        time.sleep(0.2)
+        t0 = time.perf_counter()
+        v2 = eng.add_model("higgs", swap)  # warms under load; evicts LRU
+        swap_s = time.perf_counter() - t0
+        _p23_bitwise(eng.predict("higgs", X[:64]), ref2[:64], "v2 after "
+                     "the swap")
+        time.sleep(0.2)
+        eng.pin("higgs", 1)
+        _p23_bitwise(eng.predict("higgs", X[:64]), ref[:64], "v1 pinned")
+        time.sleep(0.2)
+        eng.unpin("higgs")
+        _p23_bitwise(eng.predict("higgs", X[:64]), ref2[:64], "v2 unpinned")
+        time.sleep(0.2)
+        stop.set()
+        for t in threads:
+            t.join(60)
+        evicted = [n for n in models if n not in eng.registry.names()]
+        snap = eng.metrics_snapshot()
+        if errors or any(t.is_alive() for t in threads) or v2 != 2 \
+                or len(evicted) != 1 or snap["compiles_steady"]:
+            raise AssertionError(
+                f"phase 23b: errors {errors[:3]}, version {v2}, evicted "
+                f"{evicted}, {snap['compiles_steady']} steady captures")
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated() - mem0
+        for name in eng.registry.names():
+            eng.registry.remove(name)
+        torch.cuda.synchronize()
+        left = torch.cuda.memory_allocated() - mem0
+        if left or eng.compile_cache_size() != programs0:
+            raise AssertionError(
+                f"phase 23b: {left} bytes and "
+                f"{eng.compile_cache_size() - programs0} programs left after "
+                "every model was removed")
+        log(f"phase 23b swap ({smi}): {P23B_THREADS} threads served higgs "
+            f"through the batcher while version 2 (its first 10 rounds) "
+            f"was added in {swap_s:.3f} s (20 graphs captured under load, "
+            f"evicting {evicted[0]}), then pinned to 1 and unpinned: "
+            f"{seen['v1']} outputs of v1 and {seen['v2']} of v2, every one "
+            f"bitwise; 0 steady captures; MiB allocated per model with its "
+            f"20 graphs: "
+            + ", ".join(f"{n} {b / 2**20:.3f}" for n, b in mem.items())
+            + f"; resident at the end {resident / 2**20:.3f} MiB; after "
+            "every model was removed 0 bytes and 0 programs left")
+    finally:
+        eng.close()
+
+
+def phase_serving_cpu(xtt, smi, higgs):
+    """23c: the 23a model's JSON served by an engine on the card and one on
+    the CPU: the same bits, output and margin."""
+    from xgboost_tpu_torch.serving import ServingEngine
+
+    X = higgs["X"]
+    with tempfile.TemporaryDirectory(
+            dir=os.path.dirname(os.path.abspath(__file__))) as tmp:
+        path = os.path.join(tmp, "higgs.json")
+        higgs["bst"].save_model(path)
+        engines = [ServingEngine(use_batcher=False, warmup_buckets=(8, 64,
+                                                                    4096),
+                                 device=dev) for dev in (None, "cpu")]
+        try:
+            for eng in engines:
+                eng.add_model("json", path)
+            n = 0
+            for r in (1, 64, 4096):
+                for margin in (False, True):
+                    card, cpu = (e.predict("json", X[:r],
+                                           output_margin=margin)
+                                 for e in engines)
+                    _p23_bitwise(card, cpu, f"the card's {r} rows "
+                                 f"(margin {margin}) against the CPU's")
+                    n += 1
+        finally:
+            for eng in engines:
+                eng.close()
+    log(f"phase 23c ({smi}): the 23a model's JSON served on the card and on "
+        f"the CPU: {n} outputs (1, 64, 4096 rows; output and margin) the "
+        "same bits")
+
+
+def phase_23(xtt, hist_cuda, smi, models):
+    """Phases 23a-23c: serving on the card.  ``models``: {name: (booster,
+    rows, DMatrix of the rows)} of earlier phases for 23b."""
+    t0 = time.perf_counter()
+    higgs = timed("23a", phase_serving, xtt, hist_cuda, smi)
+    timed("23b", phase_serving_models, xtt, smi, higgs, models)
+    timed("23c", phase_serving_cpu, xtt, smi, higgs)
+    log(f"phase 23 took {time.perf_counter() - t0:.3f} s")
+    return higgs
+
+
+def p23_models(xtt, cover, Xc, cat, dart, X):
+    """23b's models: phase 8's f32 Covertype model, phase 7's f32
+    categorical model and 17a's uniform/tree f32 DART model, each with
+    4096 of its rows."""
+    Xcat = make_criteo(P23B_ROWS, seed=7001)[0]
+    return {
+        "covertype": (cover, Xc[:P23B_ROWS], xtt.DMatrix(Xc[:P23B_ROWS])),
+        "criteo": (cat, Xcat, xtt.DMatrix(Xcat, feature_types=CRITEO_TYPES,
+                                          enable_categorical=True)),
+        "dart": (dart, X[:P23B_ROWS], xtt.DMatrix(X[:P23B_ROWS])),
+    }
+
+
 def _shap_entry(name, r):
     """K6's line: its main path's call (or the first rows of it, where the
     plain version ran on those only), with the launches of the call."""
@@ -5855,6 +6285,9 @@ def main() -> int:
     late_build()
     shap = timed("18", phase_shap, xtt, hist_cuda, f32, X, cover, Xc,
                  lossguide, dart, gbl, cat)
+    serving = phase_23(xtt, hist_cuda, smi, p23_models(
+        xtt, cover["hist_f32"]["bst"], Xc, cat["hist_f32"]["bst"],
+        dart[("uniform/tree", "f32")]["bst"], X))
     del X, y, Xc
     timed("17f", phase_boosters_parity, xtt)
     ext = phase_19(xtt, hist_cuda)
@@ -5872,6 +6305,10 @@ def main() -> int:
                                        f32["scan_launches"]),
                                       ("sigmoid", sig_cases,
                                        f32["sigmoid_launches"]))]
+    # K4 on the serving path: one launch in every replay of a transformed
+    # binary:logistic graph (23a's main path)
+    kernels[3]["launches"] += serving["k4"]
+    kernels[3]["launches_serving"] = serving["k4"]
     kernels.append(_kernel_entry(
         "split_scan_categorical", hist_cuda.SOURCES["split_scan"], cat_cases,
         cat["hist_f32"]["scan_launches"]))

@@ -9,6 +9,7 @@ JAX): the CPU run is the reference here, itself held against xgboost_tpu
 by tests/test_torch_extmem_train.py.  Under deterministic_histogram the
 models are byte-identical card to CPU and streaming to in-core."""
 import json
+import time
 
 import numpy as np
 import pytest
@@ -101,6 +102,38 @@ def test_ring_slots_are_reused_only_after_their_readers():
         sched.release(j)
     sched.close()
     torch.cuda.synchronize()
+    for j, s in enumerate(sums):
+        assert torch.equal(s.cpu(), pages[j].to(torch.int64).sum(dim=0))
+    ring.close()
+
+
+@needs_cuda
+def test_first_copy_into_a_slot_waits_for_earlier_compute_work():
+    """A ring's slots come from the compute stream's memory, which kernels
+    enqueued there before the ring may still write: a page's first copy
+    into its slot waits for them, and is still pending while they run."""
+    rng = np.random.default_rng(2)
+    pages = [torch.from_numpy(rng.integers(0, 200, size=(4096, 64)).astype(
+        np.uint8)).pin_memory() for _ in range(3)]
+    w = torch.randn(2048, 2048, device="cuda")
+    torch.cuda.synchronize()
+    for _ in range(200):  # tens of ms of compute-stream work
+        w = torch.tanh(w @ w * 1e-3)
+    ring = tx.DevicePageRing(torch.device("cuda"), 3, 4096, 64, torch.uint8,
+                             staged=False)
+    sched = tx.PageScheduler(pages, torch.device("cuda"), lookahead=2,
+                             ring=ring)
+    first = sched.get(0)
+    time.sleep(0.002)
+    pending = not ring.ready[0].query()  # page 0 took slot 0
+    sums = [first.to(torch.int64).sum(dim=0)]
+    sched.release(0)
+    for j in (1, 2):
+        sums.append(sched.get(j).to(torch.int64).sum(dim=0))
+        sched.release(j)
+    sched.close()
+    torch.cuda.synchronize()
+    assert pending
     for j, s in enumerate(sums):
         assert torch.equal(s.cpu(), pages[j].to(torch.int64).sum(dim=0))
     ring.close()

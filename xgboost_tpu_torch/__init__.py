@@ -27,7 +27,10 @@ threads), ``train_distributed`` (one tracker-ranked worker process per
 data part) and ``launcher.run_distributed``, each rank's histograms on
 the kernels and summed over the ranks every level, in memory or out of core (``ExtMemConfig`` with a
 ``ShardMap`` of page shards), and exact and ``process_type="update"``
-training, whose host steps see every rank's rows.
+training, whose host steps see every rank's rows.  Serving
+(``xgboost_tpu_torch.serving``, imported on first use): a versioned model
+registry, a micro-batcher and an engine that replays a CUDA graph per
+(model, row bucket) on the card.
 """
 from __future__ import annotations
 
@@ -83,7 +86,7 @@ __all__ = [
 ]
 
 
-def __getattr__(name):  # the estimators and plotting, on first use
+def __getattr__(name):  # the estimators, plotting and serving, on first use
     if name in ("XGBModel", "XGBClassifier", "XGBRegressor", "XGBRanker",
                 "XGBRFClassifier", "XGBRFRegressor"):
         from . import sklearn as _sk
@@ -93,4 +96,10 @@ def __getattr__(name):  # the estimators and plotting, on first use
         from . import plotting as _pl
 
         return getattr(_pl, name)
+    if name == "serving":
+        # importlib, not `from . import serving`: the fromlist resolution
+        # getattr's the package for the name and would re-enter this hook
+        import importlib
+
+        return importlib.import_module(f"{__name__}.serving")
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -109,9 +109,8 @@ from .models.tree import RegTree
 from .models.updaters import _route_masks, prune_tree, refresh_tree, sync_trees
 from .objective import ObjFunction, create_objective
 from .ops.adaptive import segment_quantile_leaf
-from .ops.predict import (predict_leaf_ids, predict_margin_delta,
-                          predict_margin_delta_binned,
-                          predict_margin_delta_multi)
+from .ops.predict import (predict_leaf_ids, predict_margin_delta_binned,
+                          run_stacked_margin)
 from .ops.split import SplitParams
 from .parallel.process import ProcessHistTreeGrower
 from .params import (KNOWN_LEARNER_KEYS, TrainParam, canonicalize,
@@ -1652,14 +1651,7 @@ class Booster:
     def _margin_delta_for(self, X, tree_slice: slice, init=None,
                           tree_ids=None):
         s, groups, depth = self._stacked(tree_slice, tree_ids)
-        if "value_vec" in s:  # vector leaves add to every output
-            return predict_margin_delta_multi(
-                X, s["feat"], s["thr"], s["dleft"], s["left"], s["right"],
-                s["value_vec"], init, depth=depth)
-        return predict_margin_delta(
-            X, s["feat"], s["thr"], s["dleft"], s["left"], s["right"],
-            s["value"], groups, init, s.get("is_cat"), s.get("catm"),
-            n_groups=self.n_groups, depth=depth)
+        return run_stacked_margin(X, s, groups, depth, self.n_groups, init)
 
     def predict(self, data: DMatrix, output_margin: bool = False,
                 pred_leaf: bool = False, pred_contribs: bool = False,
@@ -1883,6 +1875,15 @@ class Booster:
             return int(max(t.split_indices.max(initial=0)
                            for t in self.trees)) + 1
         return 0
+
+    def inference_snapshot(self):
+        """This booster frozen into an immutable
+        :class:`xgboost_tpu_torch.serving.InferenceSnapshot` on its device,
+        the unit the serving engine registers and batches over; later
+        training or attribute writes do not reach it."""
+        from .serving.snapshot import InferenceSnapshot
+
+        return InferenceSnapshot.from_booster(self)
 
     def get_categories(self) -> Optional[Dict[str, list]]:
         """The training frame's category values per categorical feature,

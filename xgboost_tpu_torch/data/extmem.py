@@ -366,7 +366,11 @@ class DevicePageRing:
     """``n_slots`` page buffers on a GPU, filled on a copy stream of their
     own.  ``ready[s]``: recorded on the copy stream behind slot s's last
     copy; ``free[s]``: recorded on the compute stream behind the last
-    kernel that read slot s (None before its first use).  ``staging``:
+    kernel that read slot s, and before its first use behind the work the
+    compute stream held when the ring was made: the slots come from the
+    compute stream's memory, which kernels enqueued there before may still
+    write (the caching allocator orders a block's reuse on its own stream
+    only), so no copy may land in a slot before they ran.  ``staging``:
     one pinned host buffer a slot, the target of decoded pages; ``copied``
     the event behind the last copy out of each."""
 
@@ -385,7 +389,9 @@ class DevicePageRing:
         self._uncount = weakref.finalize(self, _device_pages, -self.bytes)
         self.copy_stream = torch.cuda.Stream(device)
         self.ready = [torch.cuda.Event() for _ in range(n_slots)]
-        self.free: List[Optional[torch.cuda.Event]] = [None] * n_slots
+        made = torch.cuda.Event()
+        made.record(torch.cuda.current_stream(device))
+        self.free: List[torch.cuda.Event] = [made] * n_slots
         self.staging = ([torch.empty(self.shape, dtype=dtype, pin_memory=True)
                          for _ in range(n_slots)] if staged else None)
         self.copied = [torch.cuda.Event() for _ in range(n_slots)]
@@ -497,8 +503,7 @@ class PageScheduler:
             src.numpy()[...] = arr
         with torch.cuda.device(self._device), \
                 torch.cuda.stream(ring.copy_stream):
-            if ring.free[s] is not None:
-                ring.copy_stream.wait_event(ring.free[s])
+            ring.copy_stream.wait_event(ring.free[s])
             ring.slots[s][:rows].copy_(src, non_blocking=True)
             ring.ready[s].record(ring.copy_stream)
             if not isinstance(page, torch.Tensor):

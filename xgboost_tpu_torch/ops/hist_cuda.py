@@ -53,10 +53,13 @@ version.
 ``build_level_hist_multi`` are the dispatchers the growers call: a CPU
 tensor goes to the plain PyTorch version, a CUDA tensor to the kernel.
 ``launches`` counts, per kernel, the launches since the last reset;
-every wrapper counts through ``launched``.
+every wrapper counts through ``launched``.  A wrapper called while its
+thread captures a CUDA graph (``capturing``) launches nothing: the graph
+records the kernel, and each replay counts it (``replayed``).
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -82,7 +85,7 @@ __all__ = ["build_histogram", "build_histogram_cuda", "build_histogram_plain",
            "choose_block", "Plan", "MultiPlan", "load_library", "launches",
            "plan_f32", "plan_f32_multi", "plan_q", "planned_multi",
            "reset_launches", "thread_launches", "run_f32", "run_f32_multi", "run_q",
-           "slice_units", "launched", "on_device", "multi_smem",
+           "slice_units", "launched", "capturing", "replayed", "on_device", "multi_smem",
            "multi_scratch", "multi_partial", "multi_roles", "multi_chunk",
            "class_axis_lanes", "bucket_level", "class_axis_items",
            "class_axis_item_rows", "class_axis_model", "SOURCES"]
@@ -110,6 +113,7 @@ EXTRA_FLAGS = {"split_scan": ["--fmad=false"], "sigmoid": ["--fmad=false"],
 launches = {name: 0 for name in [*SOURCES, "treeshap_interactions"]}
 _count_lock = threading.Lock()
 _thread_counts = threading.local()
+_capture = threading.local()  # .names: the kernels a capture recorded
 
 _BIN_CODES = {torch.uint8: 0, torch.int16: 1, torch.int32: 2}
 # shared memory one block may use for its histogram; 227 KB is the H100's
@@ -322,13 +326,42 @@ def on_device(device, entry, *args) -> int:
 
 def launched(name: str, lib, rc: int) -> None:
     """Count one launch of kernel ``name``, or raise with the card's
-    reason if its entry point returned an error."""
+    reason if its entry point returned an error.  Under ``capturing`` the
+    kernel is recorded into the graph, not launched: it is noted for the
+    graph's replays and counted nowhere."""
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: "
                            + lib.xtb_cuda_error_string(rc).decode())
+    captured = getattr(_capture, "names", None)
+    if captured is not None:
+        captured.append(name)
+        return
     with _count_lock:
         launches[name] += 1
     thread_launches()[name] += 1
+
+
+@contextlib.contextmanager
+def capturing():
+    """The calling thread captures a CUDA graph inside: yields the list
+    of the kernels that wrappers record into it, in order."""
+    prev = getattr(_capture, "names", None)
+    _capture.names = names = []
+    try:
+        yield names
+    finally:
+        _capture.names = prev
+
+
+def replayed(names) -> None:
+    """Count one replay of a graph that captured the kernels ``names``:
+    each of them launches once more."""
+    counts = thread_launches()
+    with _count_lock:
+        for name in names:
+            launches[name] += 1
+    for name in names:
+        counts[name] += 1
 
 
 class Plan(NamedTuple):

@@ -1,6 +1,7 @@
-"""Vectorized tree-traversal prediction (port of ``_traverse_one_tree``,
-``predict_margin_delta``, ``predict_margin_delta_multi`` and
-``predict_leaf_ids`` of xgboost_tpu/ops/predict.py).
+"""Vectorized tree-traversal prediction (port of the bucket policy,
+``run_stacked_margin``, ``_traverse_one_tree``, ``predict_margin_delta``,
+``predict_margin_delta_multi`` and ``predict_leaf_ids`` of
+xgboost_tpu/ops/predict.py).
 
 All rows and all trees of a stacked ensemble advance one level per step
 (rows at leaves stick); the per-row feature read is a gather.  Raw feature
@@ -15,7 +16,111 @@ direction.
 """
 from __future__ import annotations
 
+import threading
+
 import torch
+
+# --------------------------------------------------------------- bucket policy
+# The reference's shape buckets (xgboost_tpu/ops/predict.py:17-72).  Its jit
+# specialises per shape; here the serving engine captures one CUDA graph per
+# (snapshot, row bucket, output kind), so steady traffic lands on a few
+# padded shapes whose graphs are already captured.  Pad rows are NaN:
+# traversal is row-independent, so they change nothing and are sliced off.
+
+_MIN_ROW_BUCKET = 8
+# past this, pow2 padding could waste up to 2x; fall back to chunk multiples
+_POW2_ROW_CEILING = 4096
+
+
+def round_up_pow2(n: int) -> int:
+    return 1 << max(int(n) - 1, 0).bit_length()
+
+
+def bucket_rows(n: int) -> int:
+    """Padded row count for a batch of ``n`` rows: power-of-two buckets up to
+    4096, then multiples of 4096."""
+    n = int(n)
+    if n <= _MIN_ROW_BUCKET:
+        return _MIN_ROW_BUCKET
+    if n <= _POW2_ROW_CEILING:
+        return round_up_pow2(n)
+    c = _POW2_ROW_CEILING
+    return ((n + c - 1) // c) * c
+
+
+def bucket_width(w: int) -> int:
+    """Padded node count for a stacked tree ensemble: the next power of
+    two, at least 2."""
+    return round_up_pow2(max(int(w), 2))
+
+
+def pad_rows(X, bucket: int):
+    """Pad an (R, F) batch with NaN rows up to ``bucket`` (X itself when it
+    has that many rows)."""
+    R = X.shape[0]
+    if R == bucket:
+        return X
+    return torch.nn.functional.pad(X, (0, 0, 0, bucket - R), value=float("nan"))
+
+
+def pad_margin(init, bucket: int):
+    """Pad an optional (R, K) starting margin to the row bucket with zeros."""
+    if init is None:
+        return None
+    R = init.shape[0]
+    if R == bucket:
+        return init
+    return torch.nn.functional.pad(init, (0, 0, 0, bucket - R))
+
+
+# Serve programs alive in the process (a captured graph on the card, a
+# prepared eager program on the CPU): the counterpart of the reference's
+# ``predict_cache_size``, the serving engine's no-recompile gauge.  And the
+# graphs replayed, which no kernel wrapper sees (``hist_cuda.launched``
+# counts the launches Python makes).
+_gauge_lock = threading.Lock()
+_programs = 0
+_replays = 0
+
+
+def predict_cache_size() -> int:
+    """Serve programs alive in the process."""
+    return _programs
+
+
+def note_programs(delta: int) -> None:
+    """Count ``delta`` serve programs prepared (positive) or released."""
+    global _programs
+    with _gauge_lock:
+        _programs += int(delta)
+
+
+def graph_replays() -> int:
+    """Serve graphs replayed in the process since it started."""
+    return _replays
+
+
+def note_replay() -> None:
+    global _replays
+    with _gauge_lock:
+        _replays += 1
+
+
+def run_stacked_margin(X, stacked, groups, depth: int, n_groups: int,
+                       init=None):
+    """The margin of a stacked ensemble (``Booster._stacked``'s dict) over
+    an (R, F) batch: vector leaves, categorical sets or plain scalar
+    leaves.  The one place the stacked dict's fields are read, so that
+    ``Booster.predict`` and the serving snapshot give the same bits."""
+    s = stacked
+    if "value_vec" in s:
+        return predict_margin_delta_multi(
+            X, s["feat"], s["thr"], s["dleft"], s["left"], s["right"],
+            s["value_vec"], init, depth=depth)
+    return predict_margin_delta(
+        X, s["feat"], s["thr"], s["dleft"], s["left"], s["right"],
+        s["value"], groups, init, s.get("is_cat"), s.get("catm"),
+        n_groups=n_groups, depth=depth)
 
 
 def _traverse(X, feat, thr, dleft, left, right, depth: int, is_cat=None,
